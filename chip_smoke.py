@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving path and training step on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py
 
@@ -17,7 +18,20 @@ Phases (each prints one JSON line; any failure exits non-zero):
      CPU, and p50 latency / sustained frames/s at B=1;
   4. a torch.profiler window over B=1 frames: device time per kernel and
      the device's idle share;
-  5. the kernels line, the nvidia-smi line, and last
+  5. training kernels: the crop group (K6) and the train MLP forward and
+     backward (K7) against their plain versions at the training shape
+     (B=2, 1024 label points near the tabletop's objects, random
+     rotations): K7 gradients against a float64 evaluation, as they are and
+     with the cotangent zeroed where a pool maximum is ambiguous, and
+     against the plain version at the tight bound on one distinct row per
+     group; the K7 backward run twice and bitwise equal;
+  6. training step: Trainer(GraspNetConfig(), TrainConfig(), seed=0) on two
+     synthetic labelled scenes with host labels from the port's
+     label_pipeline — launch counts of step, prepare and step_prepared, a
+     loss that falls over 5 steps on a fixed batch, step_compact == step,
+     one step's loss and gradients against the same step on the CPU, and
+     step times, host label-prep time and peak memory;
+  7. the kernels line, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 
 Without CUDA it exits with code 2 before printing any result.
@@ -25,6 +39,7 @@ Without CUDA it exits with code 2 before printing any result.
 
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
@@ -46,6 +61,34 @@ TOPK_ATOL = 1e-4  # CPU vs card top-50 floats: CPU BLAS vs cuBLAS f32 sums
 PEAK_F32_FLOPS = 67e12  # H100 SXM, non-tensor f32 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 TEST_FLOPS = {"ball": 8, "cylinder": 21}  # flops per point-center membership test
+# K7 pooled x max(1, scale) and stats (tests/test_mlp_train.py's bounds)
+MLP_POOLED_TOL, MLP_STATS_TOL = 2e-5, 1e-5
+# K7 gradients, max |error| / max(1, max |g|) per leaf, at the training
+# shape.  Measured on an H100 (700 W) on this script's inputs:
+# - the plain float32 version is 7.7e-3 from a float64 evaluation, with or
+#   without pool near-ties: its float32 sums over 524,288 rows cancel;
+# - the kernel is 1.7e-3 from float64: 2 M pool maxima over 64 samples
+#   include near-ties that another rounding of z3 breaks the other way,
+#   routing a group's gradient to another row (layer 3's leaves);
+# - with the cotangent zeroed where a maximum is ambiguous (POOL_MARGIN),
+#   the kernel is 4.2e-4 from float64 (layers 1-2: its own float32 sums);
+# - with one distinct row per group beside 63 equal ones, the kernel is
+#   1.2e-5 from the plain version (tests/test_mlp_train.py's bound, 2e-4).
+# Each bound leaves 3-6x room over its reading.
+MLP_GRAD_TOL, MLP_GRAD_UNAMBIGUOUS_TOL, MLP_GRAD_F64_TOL, MLP_GRAD_PLAIN_TOL = 2e-4, 2e-3, 1e-2, 3e-2
+# A pool maximum counts as unambiguous when, in a float64 evaluation, it
+# beats every row of another value and clears the relu kink by this much
+# x max(1, max |y|): about 100x the float32 rounding of the normalized z3.
+POOL_MARGIN = 1e-4
+# Card vs CPU step gradients (float32 batch-stat sums in another order, and
+# the crop's pool near-ties): per leaf x max(1, max |g|) (7.3e-3 measured),
+# relative L2 over all leaves (3.7e-3 measured) and per leaf (4.5e-3
+# measured) over the leaves that carry at least LEAF_NORM_FLOOR of the
+# gradient's norm: not the BN buffers (no gradient) nor the biases before a
+# batch-stat BN (float noise only, ~1e-9 of the norm at GraspNetConfig.tiny()).
+GRAD_TOL, GRAD_REL_L2_TOL, LEAF_REL_L2_TOL, LEAF_NORM_FLOOR = 3e-2, 2e-2, 2e-2, 1e-5
+STEP_LOSS_RTOL = 1e-5  # card vs CPU loss: batch-stat BN sums in another order
+TRAIN_SEED = 0
 
 
 def log(**kv) -> None:
@@ -267,7 +310,8 @@ def main_path_phase(cfg, pipe, clouds):
     from graspnet_tpu_torch.ops import cuda as kernels
     from graspnet_tpu_torch.postproc.nms import nms_keep_mask
 
-    expected = {"fps_chain": 1, "ball_query": 3, "sa1_fused": 1, "crop_fused": 1}
+    expected = {"fps_chain": 1, "ball_query": 3, "sa1_fused": 1, "crop_fused": 1,
+                "crop_group": 0, "crop_mlp_train": 0, "crop_mlp_train_backward": 0}
 
     def drive(fn):
         """Run one batched forward; every kernel must launch once for it."""
@@ -326,31 +370,357 @@ def main_path_phase(cfg, pipe, clouds):
     return launches, timing
 
 
-def profile_phase(pipe, clouds, frames: int = 5):
-    """Where a B=1 serving frame spends device time: torch.profiler over a
-    few get_grasps_topk calls; the device's busy share is the summed kernel
-    time over the wall time of the window."""
+def profiled(name: str, fn, reps: int, unit: str):
+    """Device time per kernel over `reps` calls of fn(i) under
+    torch.profiler; the device's busy share is the summed kernel time over
+    the wall time of the window.  Logs the top kernels per call (`unit`)."""
     from torch.profiler import ProfilerActivity, profile
 
-    pipe.get_grasps_topk(clouds[0])
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(frames):
-            pipe.get_grasps_topk(clouds[i % len(clouds)])
+        for i in range(reps):
+            fn(i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", 0) or 0
         if dev_us > 0 and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            kernels.append((dev_us / frames / 1e3, ev.key[:60], ev.count // frames))
+            kernels.append((dev_us / reps / 1e3, ev.key[:60], ev.count // reps))
     kernels.sort(reverse=True)
     busy = sum(k[0] for k in kernels)
-    log(phase="profile_b1", frames=frames, wall_ms_per_frame=wall_ms / frames,
-        device_busy_ms_per_frame=busy if kernels else "not measured",
-        device_idle_share=(1 - busy * frames / wall_ms) if kernels else "not measured",
-        top=[{"kernel": k, "ms": ms, "launches": c} for ms, k, c in kernels[:15]])
+    log(**{"phase": name, f"{unit}s": reps, f"wall_ms_per_{unit}": wall_ms / reps,
+           f"device_busy_ms_per_{unit}": busy if kernels else "not measured",
+           "device_idle_share": (1 - busy * reps / wall_ms) if kernels else "not measured",
+           "top": [{"kernel": k, "ms": ms, "launches": c} for ms, k, c in kernels[:15]]})
+
+
+def profile_phase(pipe, clouds, frames: int = 5):
+    """Where a B=1 serving frame spends device time: a few get_grasps_topk
+    calls under torch.profiler."""
+    profiled("profile_b1", lambda i=0: pipe.get_grasps_topk(clouds[i % len(clouds)]), frames, "frame")
+
+
+def mlp_train_flops(c1: int, c2: int, c3: int):
+    """K7 flops per row: ((forward, backward) of the function, (forward,
+    backward) as csrc/mlp_train.cu runs them).
+
+    The function: one forward; in the backward the products dW3 = a2^T dz3,
+    da2 = dz3 W3^T, dW2, da1 and dW1 (the grouped offsets take a zero
+    gradient, so no dx).  The backward's inputs hold no activations, so any
+    version also recomputes the forward once: the bound leaves that out and
+    errs low.  The kernels run layer 1 three times, layer 2 twice and layer
+    3 once in the forward, and the whole chain in each of the backward's 3
+    passes plus dW3 and da2 (pass B) and da2, dW2 and da1 (pass C).  BN and
+    dW1's x-moments are a few flops per element and are not counted."""
+    l1, l2, l3 = 2 * 3 * c1, 2 * c1 * c2, 2 * c2 * c3
+    function = (l1 + l2 + l3, 2 * l3 + 2 * l2 + l1)
+    executed = (3 * l1 + 2 * l2 + l3, 3 * (l1 + l2 + l3) + 3 * l3 + 2 * l2)
+    return function, executed
+
+
+def unambiguous_pool(mlp64, grouped: torch.Tensor) -> torch.Tensor:
+    """(B, Ns, D, S, 3) -> (B, Ns, D, C3) bool: in a float64 evaluation the
+    pre-relu pool maximum beats every row of another value, and clears the
+    relu kink, by POOL_MARGIN x max(1, max |y|).  Rows of equal value (the
+    first-hit padding) are exact ties that every version splits evenly."""
+    from graspnet_tpu_torch.nn.layers import dense
+
+    with torch.no_grad():
+        *hidden, last = mlp64
+        h = grouped.double()
+        for layer in hidden:
+            h, _ = layer.forward_train(h)
+        y, _ = last.bn.forward_train(dense(last.kernel, None, h))
+        top = y.amax(dim=3, keepdim=True)
+        below = torch.where(y < top, y, -torch.inf).amax(dim=3)
+        top = top[:, :, :, 0]
+        tau = POOL_MARGIN * max(1.0, y.abs().max().item())
+        return (top - below >= tau) & (top.abs() >= tau)
+
+
+def label_points(rng: np.random.Generator, cloud: torch.Tensor, m: int) -> torch.Tensor:
+    """(B, N, 3) tabletop -> (B, m, 3) points within a centimetre of its
+    objects (everything above the table plane at z = 0.55)."""
+    out = []
+    for pts in cloud.cpu().numpy():
+        obj = pts[pts[:, 2] < 0.54]
+        pick = obj[rng.choice(len(obj), m, replace=len(obj) < m)]
+        out.append(pick + rng.normal(0, 0.01, pick.shape))
+    return torch.from_numpy(np.stack(out).astype(np.float32)).to(cloud.device)
+
+
+def random_rotations(rng: np.random.Generator, shape, device) -> torch.Tensor:
+    q, _ = np.linalg.qr(rng.normal(size=(*shape, 3, 3)))
+    return torch.from_numpy(q.astype(np.float32)).to(device)
+
+
+def train_kernel_phase(cfg, mlp, cloud_b):
+    """Phase 5: K6 and K7 (forward, backward) against their plain versions
+    at the training shape: 1024 label points near the objects, random
+    rotations, the model's crop MLP."""
+    from graspnet_tpu_torch.ops.cuda import crop as kcrop
+    from graspnet_tpu_torch.ops.cuda import mlp_train as kmlp
+    from graspnet_tpu_torch.ops.query import cylinder_masks
+
+    rng = np.random.default_rng(TRAIN_SEED)
+    b, m = cloud_b.shape[0], cfg.num_seed
+    centers = label_points(rng, cloud_b, m)
+    rot = random_rotations(rng, (b, m), cloud_b.device)
+    geom = (cfg.cylinder_radius, cfg.hmin, tuple(cfg.hmax_list), cfg.crop_nsample)
+    rows = []
+
+    # -- K6 crop group: equal indices, so bitwise equal offsets --
+    grouped = kcrop.crop_group(cloud_b, centers, rot, *geom)
+    want = kcrop.crop_group_plain(cloud_b, centers, rot, *geom)
+    err = (grouped - want).abs().max().item()
+    if not torch.equal(grouped, want):
+        raise AssertionError(f"crop_group offsets differ from the plain version by {err}")
+    tests = 0
+    for m0 in range(0, m, 64):
+        masks = cylinder_masks(cloud_b, centers[:, m0:m0 + 64], rot[:, m0:m0 + 64], *geom[:3])
+        tests += nth_hit_tests(masks, cfg.crop_nsample).amax(dim=2).sum().item()
+    t_bound, by = bound(tests * TEST_FLOPS["cylinder"],
+                        (cloud_b.numel() + centers.numel() + rot.numel() + grouped.numel()) * 4)
+    rows.append(dict(
+        name="crop_group", route="cuda", source="graspnet_tpu_torch/csrc/crop.cu",
+        replaces="graspnet_tpu/ops/pallas/crop.py:423 (crop_group_pallas)",
+        max_abs_err=err, ms=cuda_ms(lambda: kcrop.crop_group(cloud_b, centers, rot, *geom), 10),
+        plain_ms=cuda_ms(lambda: kcrop.crop_group_plain(cloud_b, centers, rot, *geom), 3),
+        bound_ms=t_bound, bound_by=by, library_ms=None,
+    ))
+
+    # -- K7 train MLP, forward and backward --
+    params = [p for layer in mlp for p in (layer.kernel, layer.bn.scale, layer.bn.offset)]
+    w = torch.from_numpy(rng.normal(size=(*grouped.shape[:3], cfg.crop_mlp[-1])).astype(np.float32)).to(cloud_b.device)
+    mlp64 = copy.deepcopy(mlp).double()
+
+    def run(fn, net, x, cot):
+        pooled, stats = fn(net, x)
+        ps = [p for layer in net for p in (layer.kernel, layer.bn.scale, layer.bn.offset)]
+        return pooled, stats, torch.autograd.grad(torch.sum(pooled * cot.to(pooled.dtype)), ps)
+
+    leaves = [f"{i}.{n}" for i in range(len(mlp)) for n in ("kernel", "scale", "offset")]
+
+    def grad_errs(got, want):
+        """max |got - want| / max(1, max |want|) over the parameters, and
+        the leaf where it is largest."""
+        errs = [(a.double() - c.double()).abs().max().item() / max(1.0, c.abs().max().item())
+                for a, c in zip(got, want)]
+        worst = max(range(len(errs)), key=errs.__getitem__)
+        return errs[worst], leaves[worst]
+
+    # (a) the main path's grouped offsets
+    p_k, st_k, g_k = run(kmlp.crop_mlp_train, mlp, grouped, w)
+    p_p, st_p, g_p = run(kmlp.crop_mlp_train_plain, mlp, grouped, w)
+    _, _, g_again = run(kmlp.crop_mlp_train, mlp, grouped, w)
+    _, _, g_64 = run(kmlp.crop_mlp_train_plain, mlp64, grouped.double(), w)
+    torch.cuda.synchronize()
+    fwd_err = (p_k - p_p).abs().max().item()
+    if not torch.isfinite(p_k).all() or fwd_err > MLP_POOLED_TOL * max(1.0, p_p.abs().max().item()):
+        raise AssertionError(f"crop_mlp_train pooled differs by {fwd_err}")
+    for a, c in zip(st_k, st_p):
+        for k in ("mean", "var"):
+            torch.testing.assert_close(a[k], c[k], rtol=MLP_STATS_TOL, atol=MLP_STATS_TOL)
+    bwd_err = max((a - c).abs().max().item() for a, c in zip(g_k, g_p))
+    if not all(torch.equal(a, c) for a, c in zip(g_k, g_again)):
+        raise AssertionError("crop_mlp_train backward is not bitwise repeatable")
+    # (b) the same inputs with the cotangent zeroed where a pool maximum is
+    # ambiguous: no rounding can route the rest to another row, so every
+    # distinct row of every group is held to float64
+    keep = unambiguous_pool(mlp64, grouped)
+    _, _, gu_k = run(kmlp.crop_mlp_train, mlp, grouped, w * keep)
+    _, _, gu_p = run(kmlp.crop_mlp_train_plain, mlp, grouped, w * keep)
+    _, _, gu_64 = run(kmlp.crop_mlp_train_plain, mlp64, grouped.double(), w * keep)
+    # (c) one distinct row per group beside 63 equal ones: every maximum is
+    # unambiguous by construction, so the kernel meets the plain version at
+    # the bound of tests/test_mlp_train.py
+    clean = grouped.clone()
+    clean[:, :, :, 1:] = clean[:, :, :, 1:2]
+    clean[:, :, :, 0] = torch.from_numpy(rng.uniform(-0.3, 0.3, clean[:, :, :, 0].shape).astype(np.float32)).to(clean.device)
+    _, _, gc_k = run(kmlp.crop_mlp_train, mlp, clean, w)
+    _, _, gc_p = run(kmlp.crop_mlp_train_plain, mlp, clean, w)
+    checks = {  # name: (error x max(1, scale), its leaf, bound)
+        "kernel_vs_f64": (*grad_errs(g_k, g_64), MLP_GRAD_F64_TOL),
+        "kernel_vs_plain": (*grad_errs(g_k, g_p), MLP_GRAD_PLAIN_TOL),
+        "plain_vs_f64": (*grad_errs(g_p, g_64), MLP_GRAD_PLAIN_TOL),
+        "unambiguous_kernel_vs_f64": (*grad_errs(gu_k, gu_64), MLP_GRAD_UNAMBIGUOUS_TOL),
+        "unambiguous_plain_vs_f64": (*grad_errs(gu_p, gu_64), MLP_GRAD_PLAIN_TOL),
+        "one_distinct_row_kernel_vs_plain": (*grad_errs(gc_k, gc_p), MLP_GRAD_TOL),
+    }
+    del mlp64, g_64, gu_64
+    log(phase="train_kernels_checked", crop_group_max_abs_err=err, mlp_fwd_max_abs_err=fwd_err,
+        mlp_bwd_max_abs_err=bwd_err, mlp_grad_err_over_scale_leaf_bound=checks,
+        unambiguous_share=keep.double().mean().item(), mlp_bwd_bitwise_repeatable=True)
+    failed = [k for k, (e, _, tol) in checks.items() if not e <= tol]
+    if failed:
+        raise AssertionError(f"crop_mlp_train gradients out of bounds: {failed}")
+
+    c1, c2, c3 = cfg.crop_mlp[1:]
+    nrows = grouped[..., 0].numel()
+    (f_fwd, f_bwd), (x_fwd, x_bwd) = mlp_train_flops(c1, c2, c3)
+    wbytes = sum(p.numel() for p in params) * 4
+    x = grouped.reshape(-1, grouped.shape[-2], 3).contiguous()
+    wts = [layer.kernel.detach().contiguous() for layer in mlp]
+    gb = [torch.stack([layer.bn.scale, layer.bn.offset]).detach().contiguous() for layer in mlp]
+    st = [torch.stack([s["mean"], s["var"] * (nrows - 1) / nrows]).contiguous() for s in st_k]
+    gpool = w.reshape(x.shape[0], -1).contiguous()
+    plain_graph = kmlp.crop_mlp_train_plain(mlp, grouped)[0]
+    for name, flops, executed, nbytes, fn, plain, at in (
+        ("crop_mlp_train", f_fwd * nrows, x_fwd * nrows, (grouped.numel() + p_k.numel()) * 4 + wbytes,
+         lambda: kmlp.crop_mlp_train(mlp, grouped),
+         lambda: kmlp.crop_mlp_train_plain(mlp, grouped), "mlp_train.py:334 (_mlp_train_fwd_call)"),
+        ("crop_mlp_train_backward", f_bwd * nrows, x_bwd * nrows,
+         (grouped.numel() + w.numel()) * 4 + 2 * wbytes,
+         lambda: kmlp.crop_mlp_train_backward(x, gpool, wts, gb, st, mlp[0].bn.eps),
+         lambda: torch.autograd.grad(plain_graph, params, w, retain_graph=True),
+         "mlp_train.py:394 (_mlp_train_bwd_call)"),
+    ):
+        t_bound, by = bound(flops, nbytes)
+        with torch.no_grad() if name == "crop_mlp_train" else torch.enable_grad():
+            ms = cuda_ms(fn, 5)
+            plain_ms = cuda_ms(plain, 3)
+        rows.append(dict(
+            name=name, route="cuda", source="graspnet_tpu_torch/csrc/mlp_train.cu",
+            replaces=f"graspnet_tpu/ops/pallas/{at} of crop_mlp_train_pallas",
+            max_abs_err=fwd_err if name == "crop_mlp_train" else bwd_err, ms=ms, plain_ms=plain_ms,
+            bound_ms=t_bound, bound_by=by, library_ms=None, gflop=flops / 1e9,
+            gflop_executed=executed / 1e9,
+        ))
+    del plain_graph
+    for r in rows:
+        log(phase="kernel", **r)
+    return rows
+
+
+def labelled_scene(rng: np.random.Generator, cloud: np.ndarray, cfg, n_obj: int = 8, n_pts: int = 300):
+    """One synthetic labelled scene in the manner of scripts/bench_train.py:
+    n_obj objects posed at points of the tabletop's objects, n_pts label
+    points each, random (V, A, D) scores, widths and tolerances."""
+    v, a, d = cfg.num_view, cfg.num_angle, cfg.num_depth
+    obj = cloud[cloud[:, 2] < 0.54]
+    poses, pts, scores, widths, tols = [], [], [], [], []
+    for _ in range(n_obj):
+        r = random_rotations(rng, (), "cpu").numpy()
+        r[:, 0] *= np.sign(np.linalg.det(r))  # a proper rotation
+        poses.append(np.concatenate([r, obj[rng.integers(len(obj))][:, None]], 1).astype(np.float32))
+        pts.append(rng.uniform(-0.03, 0.03, (n_pts, 3)).astype(np.float32))
+        scores.append(rng.uniform(0, 1.2, (n_pts, v, a, d)).astype(np.float32))
+        widths.append(rng.uniform(0, 0.12, (n_pts, v, a, d)).astype(np.float32))
+        tols.append(rng.uniform(0, 0.05, (n_pts, v, a, d)).astype(np.float32))
+    return poses, pts, scores, widths, tols
+
+
+def train_batches(cfg, clouds: np.ndarray):
+    """Full-label and compact batches of B scenes, and the host label-prep
+    time per scene (FPS seed chain + phase A of the compact path)."""
+    from graspnet_tpu_torch.train import label_pipeline as lp
+
+    rng = np.random.default_rng(TRAIN_SEED)
+    scenes = [labelled_scene(rng, c, cfg) for c in clouds]  # data generation, not timed
+    t0 = time.perf_counter()
+    chains, ctxs = [], []
+    for cloud, scene in zip(clouds, scenes):
+        inds, seed_xyz = lp.seed_chain(cloud, cfg)
+        chains.append((inds, seed_xyz))
+        ctxs.append(lp.prepare_scene_labels(seed_xyz, *scene, cfg))
+    prep_ms = (time.perf_counter() - t0) * 1e3 / len(clouds)
+    full_labels = [lp.build_scene_labels(c, seeds, *scene, cfg) for c, (_, seeds), scene in zip(clouds, chains, scenes)]
+    small = {
+        "point_clouds": clouds,
+        "objectness_label": (clouds[..., 2] < 0.54).astype(np.int32),
+        "sa_inds": {k: np.stack([ch[0][k] for ch in chains]) for k in ("sa1", "sa2", "sa3", "sa4")},
+    }
+    full = {k: np.stack([f[k] for f in full_labels]) for k in full_labels[0]}
+    full.update(small)
+    return full, {**small, "label_ctx": ctxs}, prep_ms
+
+
+def train_phase(cfg, clouds: np.ndarray):
+    """Phase 6: the port's Trainer through its entry points on the card."""
+    from graspnet_tpu_torch.ops import cuda as kernels
+    from graspnet_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    full, compact, prep_ms = train_batches(cfg, clouds)
+    zero = {k: 0 for k in kernels.launches()}
+
+    def counted(fn, expected):
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = kernels.launches()
+        if got != {**zero, **expected}:
+            raise AssertionError(f"launch counts {got}, expected {expected}")
+        return out, got
+
+    step_counts = {"ball_query": 4, "crop_group": 1, "crop_mlp_train": 1, "crop_mlp_train_backward": 1}
+    tr = Trainer(cfg, TrainConfig(), seed=TRAIN_SEED)
+    tr.set_epoch(0)
+    dev_full = tr.put(full)
+    torch.cuda.synchronize()
+    (loss_step, _), step_launches = counted(lambda: tr.step(dev_full), step_counts)
+    twin = Trainer(cfg, TrainConfig(), seed=TRAIN_SEED)
+    twin.set_epoch(0)
+    handle, prepare_launches = counted(lambda: twin.prepare(compact), {"ball_query": 4})
+    (loss_compact, _), prepared_launches = counted(lambda: twin.step_prepared(handle),
+                                                   {**step_counts, "ball_query": 0})
+    if float(loss_step) != float(loss_compact):
+        raise AssertionError(f"step_compact loss {float(loss_compact)} != step loss {float(loss_step)}")
+    losses = [float(loss_step)] + [float(tr.step(dev_full)[0]) for _ in range(4)]
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss does not fall over 5 steps: {losses}")
+    log(phase="train_step_counts", launches_per_step=step_launches, prepare=prepare_launches,
+        step_prepared=prepared_launches, losses=losses, step_compact_loss=float(loss_compact))
+
+    # -- one step on the card against the same step on the CPU --
+    card = Trainer(cfg, TrainConfig(), seed=TRAIN_SEED)
+    cpu = Trainer(cfg, TrainConfig(), seed=TRAIN_SEED, device="cpu")
+    tops = [t.prepare(compact)[2].cpu() for t in (card, cpu)]
+    if not torch.equal(*tops):
+        raise AssertionError(f"pre-pass top views differ at {(tops[0] != tops[1]).nonzero()[:5].tolist()}")
+    l_card, g_card = card.grads_compact(compact)
+    t0 = time.perf_counter()
+    l_cpu, g_cpu = cpu.grads_compact(compact)
+    cpu_s = time.perf_counter() - t0
+    if abs(float(l_card) - float(l_cpu)) > STEP_LOSS_RTOL * abs(float(l_cpu)):
+        raise AssertionError(f"card loss {float(l_card)} vs CPU {float(l_cpu)}")
+    diff = {k: g_card[k].cpu().double() - g.double() for k, g in g_cpu.items()}
+    ratios = {k: d.abs().max().item() / max(1.0, g_cpu[k].abs().max().item()) for k, d in diff.items()}
+    norms = {k: g.double().norm().item() for k, g in g_cpu.items()}
+    total = sum(v * v for v in norms.values()) ** 0.5
+    rel_l2 = sum(d.square().sum().item() for d in diff.values()) ** 0.5 / total
+    leaf_rel = {k: diff[k].norm().item() / norms[k] for k in diff if norms[k] >= LEAF_NORM_FLOOR * total}
+    worst, worst_rel = max(ratios, key=ratios.get), max(leaf_rel, key=leaf_rel.get)
+    found = dict(loss_card=float(l_card), loss_cpu=float(l_cpu), cpu_grads_s=cpu_s,
+                 worst_grad_err_over_scale=ratios[worst], worst_leaf=worst, grads_rel_l2=rel_l2,
+                 worst_leaf_rel_l2=leaf_rel[worst_rel], worst_rel_leaf=worst_rel,
+                 leaves_rel_checked=len(leaf_rel), leaves=len(diff),
+                 limits=[GRAD_TOL, GRAD_REL_L2_TOL, LEAF_REL_L2_TOL], top_views_equal=True)
+    if ratios[worst] > GRAD_TOL or rel_l2 > GRAD_REL_L2_TOL or leaf_rel[worst_rel] > LEAF_REL_L2_TOL:
+        raise AssertionError(f"card vs CPU gradients out of bounds: {found}")
+    log(phase="train_card_vs_cpu", **found)
+
+    # -- timing --
+    step_ms = cuda_ms(lambda: tr.step(dev_full), 5)
+    torch.cuda.reset_peak_memory_stats()
+    tr.step(dev_full)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    k = 5
+    handle = tr.prepare(compact)
+    t0 = time.perf_counter()
+    for _ in range(k):
+        tr.step_prepared(handle)
+        handle = tr.prepare(compact)
+    torch.cuda.synchronize()
+    pipelined_ms = (time.perf_counter() - t0) * 1e3 / k
+    timing = dict(train_step_ms=step_ms, pipelined_compact_step_ms=pipelined_ms,
+                  host_label_prep_ms_per_scene=prep_ms, peak_memory_bytes=peak)
+    log(phase="train_timing", **timing)
+    profiled("profile_train_step", lambda i=0: tr.step(dev_full), 3, "step")
+    return step_launches, timing
 
 
 def main() -> int:
@@ -383,12 +753,21 @@ def main() -> int:
         rows = kernel_phase(cfg, pipe.model, cloud_b)
     launches, timing = main_path_phase(cfg, pipe, clouds)
     profile_phase(pipe, clouds)
-    for r in rows:
-        r["launches"] = launches[r["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    del pipe
+    from graspnet_tpu_torch.models import GraspNet, init_weights
+
+    crop_mlp = init_weights(GraspNet(cfg), TRAIN_SEED).crop.mlp.to(dev)
+    rows += train_kernel_phase(cfg, crop_mlp, cloud_b)
+    train_launches, train_timing = train_phase(cfg, clouds[:B_KERNELS])
+    for r in rows:  # the counts read after one serving forward and one training step
+        r["launches_per_forward"] = launches[r["name"]]
+        r["launches_per_train_step"] = train_launches[r["name"]]
+        r["launches"] = r["launches_per_forward"] + r["launches_per_train_step"]
+    keys = ("name", "route", "source", "replaces", "launches", "launches_per_forward",
+            "launches_per_train_step", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}), flush=True)
-    log(phase="summary", gpu=smi, **timing)
+    log(phase="summary", gpu=smi, **timing, **train_timing)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}), flush=True)

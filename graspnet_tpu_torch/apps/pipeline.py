@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from graspnet_tpu_torch.config import GraspNetConfig
+from graspnet_tpu_torch.device import resolve_device
 from graspnet_tpu_torch.models import GraspNet, init_weights, pred_decode
 from graspnet_tpu_torch.postproc import GraspGroup
 from graspnet_tpu_torch.postproc.nms import nms_top_k
@@ -26,21 +27,6 @@ from graspnet_tpu_torch.postproc.nms import nms_top_k
 @dataclasses.dataclass
 class PipelineTimings:
     infer_s: float = 0.0
-
-
-def _resolve_device(device: str | torch.device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "GraspPipeline runs on CUDA by default and no CUDA device is "
-                "available; pass device='cpu' to run on the CPU"
-            )
-        # full-f32 products, stated explicitly: the port is held against
-        # the XLA f32 path, and TF32 keeps only ~3 decimal digits
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    return device
 
 
 class GraspPipeline:
@@ -56,7 +42,7 @@ class GraspPipeline:
         """`params`: a GraspNet state dict (e.g. from
         `checkpoint.params_from_jax`); None draws seeded random weights."""
         self.cfg = cfg
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device, "GraspPipeline")
         model = GraspNet(cfg)
         if params is None:
             init_weights(model, seed)

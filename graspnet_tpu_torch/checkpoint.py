@@ -1,4 +1,4 @@
-"""Weights from the JAX package's params pytree.
+"""Weights to and from the JAX package's params pytree.
 
 `params_from_jax` turns the JAX params (nested dicts/lists of numpy arrays,
 e.g. `jax.tree_util.tree_map(np.asarray, params)`) into a state dict for
@@ -6,7 +6,8 @@ e.g. `jax.tree_util.tree_map(np.asarray, params)`) into a state dict for
 state-dict key is the pytree path joined by dots
 (`backbone.sa1.mlp.0.bn.scale`).  Every leaf is matched by name and shape
 against the module built from `cfg`; a missing, extra or misshapen leaf
-raises.
+raises.  `params_to_jax` goes the other way, so tests can compare
+parameters and gradients with the JAX package leaf by leaf.
 """
 
 from __future__ import annotations
@@ -48,3 +49,25 @@ def params_from_jax(params_np: Dict[str, Any], cfg: GraspNetConfig = GraspNetCon
             raise ValueError(f"{key}: shape {arr.shape}, GraspNet expects {shape}")
         state[key] = torch.from_numpy(arr.copy())
     return state
+
+
+def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """GraspNet state dict (or gradients keyed the same way) -> the JAX
+    params pytree with numpy leaves: the inverse of `params_from_jax`.  A
+    key's integer parts are list indices (`mlp.0`), the rest dict keys."""
+    tree: Dict[str, Any] = {}
+    for key, value in state.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value.detach().cpu().numpy()
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(tree)

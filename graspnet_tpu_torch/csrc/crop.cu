@@ -1,10 +1,12 @@
 // Fused crop: query + first-hits gather + frame transform + BN-folded MLP +
-// max over samples, one block per center.
+// max over samples, one block per center; and the crop group, the same
+// front half writing the offsets instead of running the MLP.
 //
 // Replaces graspnet_tpu/ops/pallas/crop.py::crop_fused_pallas (K5, the
-// inference CloudCrop; body _crop_kernel over _gather_grouped_core) and
+// inference CloudCrop; body _crop_kernel over _gather_grouped_core),
 // sa1_fused_pallas (K3, which is crop_fused_pallas(ball=True,
-// normalize=1/r)).  Per center:
+// normalize=1/r)) and crop_group_pallas (K6, the training crop's front half,
+// body _crop_group_kernel over the same _gather_grouped_core).  Per center:
 //   1. the query masks: cylinder mode y_r^2+z_r^2 < r^2 and
 //      hmin < x_r < hmax_d for every depth d, with the transposed rotation
 //      x_r = dx*R00 + dy*R10 + dz*R20; ball mode dx^2+dy^2+dz^2 < r^2;
@@ -14,6 +16,7 @@
 //   4. centre subtraction, then offset @ R (cylinder) and * normalize;
 //   5. the folded MLP relu(x @ W' + b') three times (3 -> c1 -> c2 -> c3);
 //   6. the max over the ns samples -> out[center, d, :].
+// crop_group_kernel stops after step 4 and writes the (D, ns, 3) offsets.
 //
 // What bounds it on an H100: the MLP's f32 FMAs.  Per frame the crop runs
 // 1024 x 4 x 64 rows through 3 -> 64 -> 128 -> 256 (about 21.6 GFLOP) and
@@ -32,6 +35,11 @@
 // ballot gives each hit its slot after the hits of lower warps.  The mask
 // arithmetic uses __fmul_rn/__fadd_rn in the JAX order (crop.py:109-125),
 // so no FMA contraction moves a point across a boundary.
+//
+// The crop group is bound by its scan: 41 M point tests per training step
+// (B=2, 1024 label points, 20000 points) against 6.3 MB of output, so it
+// shares the fused kernel's scan (scan_first_hits) and sample transform
+// (crop_sample) unchanged; its indices are those of the fused kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,38 +67,18 @@ __device__ __forceinline__ float rot_axis(float dx, float dy, float dz,
   return add(add(mul(dx, r[col]), mul(dy, r[3 + col])), mul(dz, r[6 + col]));
 }
 
-__global__ void __launch_bounds__(kThreads)
-crop_fused_kernel(const float* __restrict__ xyz,
-                  const float* __restrict__ centers,
-                  const float* __restrict__ rot,
-                  const float* __restrict__ w1, const float* __restrict__ b1,
-                  const float* __restrict__ w2, const float* __restrict__ b2,
-                  const float* __restrict__ w3, const float* __restrict__ b3,
-                  float* __restrict__ out, CropArgs a) {
-  extern __shared__ float smem[];
-  float* h1 = smem;                         // kMaxSamples x c1
-  float* h2 = h1 + kMaxSamples * a.c1;      // kMaxSamples x c2
-  float* samples = h2 + kMaxSamples * a.c2; // kMaxSamples x 3
-  __shared__ int s_idx[kMaxDepths][kMaxSamples];
-  __shared__ int s_cnt[kMaxDepths];
-  __shared__ int s_wcnt[kWarps][kMaxDepths];
-
-  const int q = blockIdx.x;  // center index over batch * m
+// Steps 1-2 for one center: s_idx[d][0..ns) and s_cnt[d] (the full hit
+// count, which may exceed ns) for every depth, in index order.  Called by
+// all kThreads threads of the block.
+__device__ __forceinline__ void scan_first_hits(
+    const float* __restrict__ pts, float cx, float cy, float cz,
+    const float* r, const CropArgs& a, int (*s_idx)[kMaxSamples], int* s_cnt,
+    int (*s_wcnt)[kMaxDepths]) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const float* pts = xyz + (size_t)(q / a.m) * a.n * 3;
-  const float cx = centers[3 * (size_t)q];
-  const float cy = centers[3 * (size_t)q + 1];
-  const float cz = centers[3 * (size_t)q + 2];
-  float r[9];
-#pragma unroll
-  for (int i = 0; i < 9; ++i) r[i] = a.ball ? 0.0f : rot[9 * (size_t)q + i];
-
   if (tid < kMaxDepths) s_cnt[tid] = 0;
   __syncthreads();
-
-  // ---- 1-2: masks and the first ns hits per depth, in index order ----
   for (int base = 0; base < a.n; base += kThreads) {
     const int p = base + tid;
     unsigned hits = 0;
@@ -143,30 +131,65 @@ crop_fused_kernel(const float* __restrict__ xyz,
     for (int d = 0; d < a.ndepth; ++d) done = done && s_cnt[d] >= a.ns;
     if (done) break;
   }
+}
+
+// Steps 3-4 for one slot of one depth: the padded raw point, centre
+// subtracted, rotated (cylinder) and scaled.
+__device__ __forceinline__ void crop_sample(
+    const float* __restrict__ pts, float cx, float cy, float cz, const float* r,
+    const CropArgs& a, const int* idx_d, int cnt, int slot, float* out3) {
+  const int idx = cnt == 0 ? 0 : (slot < cnt ? idx_d[slot] : idx_d[0]);
+  const float dx = __fsub_rn(pts[3 * idx], cx);
+  const float dy = __fsub_rn(pts[3 * idx + 1], cy);
+  const float dz = __fsub_rn(pts[3 * idx + 2], cz);
+  float sx = dx, sy = dy, sz = dz;
+  if (!a.ball) {
+    sx = rot_axis(dx, dy, dz, r, 0);
+    sy = rot_axis(dx, dy, dz, r, 1);
+    sz = rot_axis(dx, dy, dz, r, 2);
+  }
+  if (a.normalize != 1.0f) {
+    sx = mul(sx, a.normalize);
+    sy = mul(sy, a.normalize);
+    sz = mul(sz, a.normalize);
+  }
+  out3[0] = sx;
+  out3[1] = sy;
+  out3[2] = sz;
+}
+
+__global__ void __launch_bounds__(kThreads)
+crop_fused_kernel(const float* __restrict__ xyz,
+                  const float* __restrict__ centers,
+                  const float* __restrict__ rot,
+                  const float* __restrict__ w1, const float* __restrict__ b1,
+                  const float* __restrict__ w2, const float* __restrict__ b2,
+                  const float* __restrict__ w3, const float* __restrict__ b3,
+                  float* __restrict__ out, CropArgs a) {
+  extern __shared__ float smem[];
+  float* h1 = smem;                         // kMaxSamples x c1
+  float* h2 = h1 + kMaxSamples * a.c1;      // kMaxSamples x c2
+  float* samples = h2 + kMaxSamples * a.c2; // kMaxSamples x 3
+  __shared__ int s_idx[kMaxDepths][kMaxSamples];
+  __shared__ int s_cnt[kMaxDepths];
+  __shared__ int s_wcnt[kWarps][kMaxDepths];
+
+  const int q = blockIdx.x;  // center index over batch * m
+  const int tid = threadIdx.x;
+  const float* pts = xyz + (size_t)(q / a.m) * a.n * 3;
+  const float cx = centers[3 * (size_t)q];
+  const float cy = centers[3 * (size_t)q + 1];
+  const float cz = centers[3 * (size_t)q + 2];
+  float r[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) r[i] = a.ball ? 0.0f : rot[9 * (size_t)q + i];
+
+  // ---- 1-2: masks and the first ns hits per depth, in index order ----
+  scan_first_hits(pts, cx, cy, cz, r, a, s_idx, s_cnt, s_wcnt);
 
   for (int d = 0; d < a.ndepth; ++d) {
     // ---- 3-4: padded raw coordinates -> offsets in the crop frame ----
-    if (tid < a.ns) {
-      const int cnt = s_cnt[d];
-      const int idx = cnt == 0 ? 0 : (tid < cnt ? s_idx[d][tid] : s_idx[d][0]);
-      const float dx = __fsub_rn(pts[3 * idx], cx);
-      const float dy = __fsub_rn(pts[3 * idx + 1], cy);
-      const float dz = __fsub_rn(pts[3 * idx + 2], cz);
-      float sx = dx, sy = dy, sz = dz;
-      if (!a.ball) {
-        sx = rot_axis(dx, dy, dz, r, 0);
-        sy = rot_axis(dx, dy, dz, r, 1);
-        sz = rot_axis(dx, dy, dz, r, 2);
-      }
-      if (a.normalize != 1.0f) {
-        sx = mul(sx, a.normalize);
-        sy = mul(sy, a.normalize);
-        sz = mul(sz, a.normalize);
-      }
-      samples[3 * tid] = sx;
-      samples[3 * tid + 1] = sy;
-      samples[3 * tid + 2] = sz;
-    }
+    if (tid < a.ns) crop_sample(pts, cx, cy, cz, r, a, s_idx[d], s_cnt[d], tid, samples + 3 * tid);
     __syncthreads();
 
     // ---- 5a: layer 1 (K = 3) as a broadcast-sum ----
@@ -243,6 +266,36 @@ crop_fused_kernel(const float* __restrict__ xyz,
   }
 }
 
+// The crop group (K6): steps 1-4 only; out[center, d, slot, 0..3).
+__global__ void __launch_bounds__(kThreads)
+crop_group_kernel(const float* __restrict__ xyz,
+                  const float* __restrict__ centers,
+                  const float* __restrict__ rot,
+                  float* __restrict__ out, CropArgs a) {
+  __shared__ int s_idx[kMaxDepths][kMaxSamples];
+  __shared__ int s_cnt[kMaxDepths];
+  __shared__ int s_wcnt[kWarps][kMaxDepths];
+
+  const int q = blockIdx.x;  // center index over batch * m
+  const int tid = threadIdx.x;
+  const float* pts = xyz + (size_t)(q / a.m) * a.n * 3;
+  const float cx = centers[3 * (size_t)q];
+  const float cy = centers[3 * (size_t)q + 1];
+  const float cz = centers[3 * (size_t)q + 2];
+  float r[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) r[i] = a.ball ? 0.0f : rot[9 * (size_t)q + i];
+
+  scan_first_hits(pts, cx, cy, cz, r, a, s_idx, s_cnt, s_wcnt);
+
+  for (int e = tid; e < a.ndepth * a.ns; e += kThreads) {
+    const int d = e / a.ns;
+    const int slot = e - d * a.ns;
+    crop_sample(pts, cx, cy, cz, r, a, s_idx[d], s_cnt[d], slot,
+                out + ((size_t)q * a.ndepth * a.ns + e) * 3);
+  }
+}
+
 }  // namespace
 
 extern "C" int gn_crop_fused(const float* xyz, const float* centers,
@@ -277,5 +330,28 @@ extern "C" int gn_crop_fused(const float* xyz, const float* centers,
   if (batch * m == 0) return (int)cudaSuccess;
   crop_fused_kernel<<<batch * m, kThreads, smem, (cudaStream_t)stream>>>(
       xyz, centers, rot, w1, b1, w2, b2, w3, b3, out, a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gn_crop_group(const float* xyz, const float* centers,
+                             const float* rot, float* out, int batch, int n,
+                             int m, int ns, float r2, float hmin,
+                             const float* hmax, int ndepth, void* stream) {
+  if (ns < 1 || ns > kMaxSamples || ndepth < 1 || ndepth > kMaxDepths) {
+    return (int)cudaErrorInvalidValue;
+  }
+  CropArgs a = {};
+  a.n = n;
+  a.m = m;
+  a.ndepth = ndepth;
+  a.ns = ns;
+  a.ball = 0;
+  a.r2 = r2;
+  a.hmin = hmin;
+  a.normalize = 1.0f;
+  for (int d = 0; d < kMaxDepths; ++d) a.hmax[d] = d < ndepth ? hmax[d] : 0.0f;
+  if (batch * m == 0) return (int)cudaSuccess;
+  crop_group_kernel<<<batch * m, kThreads, 0, (cudaStream_t)stream>>>(
+      xyz, centers, rot, out, a);
   return (int)cudaGetLastError();
 }

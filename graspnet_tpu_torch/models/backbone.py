@@ -1,14 +1,21 @@
-"""PointNet++ backbone, eval branch: 4 set-abstraction + 2 feature-propagation stages.
+"""PointNet++ backbone: 4 set-abstraction + 2 feature-propagation stages,
+in eval (running-stat BN) and train (batch-stat BN) modes.
 
 Counterpart of `graspnet_tpu/models/backbone.py`.  The kernel dispatch
 mirrors the JAX package's TPU gates, with the CUDA kernels in their place:
 
-  * the whole FPS cascade is one `fps_chain` call (backbone.py:172-181) —
-    the CUDA kernel has no multiple-of-128 constraint, so the chain also
-    runs at `GraspNetConfig.tiny()`;
-  * SA1 (xyz only) is the fused ball-crop kernel (backbone.py:71-84);
-  * SA2-4 are the ball-query kernel, then a gather and the BN-folded MLP in
-    plain torch (backbone.py:85-107).
+  * the whole FPS cascade is one `fps_chain` call (backbone.py:172-181),
+    unless the caller gives the chain (`sa_inds`, the host FPS of the
+    training data) — the CUDA kernel has no multiple-of-128 constraint, so
+    the chain also runs at `GraspNetConfig.tiny()`;
+  * eval: SA1 (xyz only) is the fused ball-crop kernel (backbone.py:71-84);
+    SA2-4 are the ball-query kernel, then a gather and the BN-folded MLP in
+    plain torch (backbone.py:85-107);
+  * train: every SA stage is the generic path (backbone.py:108-119) — the
+    ball-query kernel (or the given `sa_query_idx`), group, /r, the
+    batch-stat MLP and the max — and the indices it used are exported as
+    `end_points["sa_query_idx"]`, with the BN batch stats as
+    `end_points["bn_stats/backbone"]`.
 
 Each wrapper runs its plain version on a CPU tensor, so the same code serves
 both devices.  Output contract: 256-d features on the num_seed sa2 points;
@@ -17,7 +24,7 @@ seed indices into the input cloud are sa1_inds[:, :num_seed].
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -34,18 +41,24 @@ class SAStage(nn.Module):
         self.cfg = sa
         self.mlp = SharedMLP(sa.mlp, eps)
 
-    def forward(self, xyz, features, inds):
-        """xyz (B, N, 3), features (B, N, C) | None, FPS inds (B, npoint) ->
-        new_xyz (B, npoint, 3), pooled (B, npoint, mlp[-1])."""
+    def forward(self, xyz, features, inds, train: bool = False, qidx=None):
+        """xyz (B, N, 3), features (B, N, C) | None, FPS inds (B, npoint),
+        optional ball-query indices (B, npoint, nsample) -> new_xyz
+        (B, npoint, 3), pooled (B, npoint, mlp[-1]), batch stats (train
+        only), the query indices (train only)."""
         sa = self.cfg
         new_xyz = ops.gather_points(xyz, inds)
-        folded = fold_bn_eval(self.mlp)
-        if features is None:
-            return new_xyz, sa1_fused(xyz, new_xyz, folded, sa.radius, sa.nsample)
-        idx = ball_query(xyz, new_xyz, sa.radius, sa.nsample)
-        grouped_xyz = (ops.group_points(xyz, idx) - new_xyz[:, :, None, :]) / sa.radius
-        grouped = torch.cat([grouped_xyz, ops.group_points(features, idx)], dim=-1)
-        return new_xyz, torch.amax(folded_mlp(folded, grouped), dim=2)
+        if not train and features is None:
+            folded = fold_bn_eval(self.mlp)
+            return new_xyz, sa1_fused(xyz, new_xyz, folded, sa.radius, sa.nsample), None, None
+        idx = qidx if qidx is not None else ball_query(xyz, new_xyz, sa.radius, sa.nsample)
+        grouped = (ops.group_points(xyz, idx) - new_xyz[:, :, None, :]) / sa.radius
+        if features is not None:
+            grouped = torch.cat([grouped, ops.group_points(features, idx)], dim=-1)
+        if not train:
+            return new_xyz, torch.amax(folded_mlp(fold_bn_eval(self.mlp), grouped), dim=2), None, None
+        out, stats = self.mlp.forward_train(grouped)
+        return new_xyz, torch.amax(out, dim=2), stats, idx
 
 
 class FPStage(nn.Module):
@@ -53,13 +66,17 @@ class FPStage(nn.Module):
         super().__init__()
         self.mlp = SharedMLP(dims, eps)
 
-    def forward(self, unknown_xyz, known_xyz, unknown_feat, known_feat):
-        """3-NN inverse-distance interpolation + skip concat + MLP."""
+    def forward(self, unknown_xyz, known_xyz, unknown_feat, known_feat, train: bool = False):
+        """3-NN inverse-distance interpolation + skip concat + MLP ->
+        (features, batch stats in train mode, else None)."""
         dist, idx = ops.three_nn(unknown_xyz, known_xyz)
         recip = 1.0 / (dist + 1e-8)
         norm = recip[..., 0:1] + recip[..., 1:2] + recip[..., 2:3]
         interp = ops.three_interpolate(known_feat, idx, recip / norm)
-        return self.mlp(torch.cat([interp, unknown_feat], dim=-1))
+        feat = torch.cat([interp, unknown_feat], dim=-1)
+        if train:
+            return self.mlp.forward_train(feat)
+        return self.mlp(feat), None
 
 
 class Backbone(nn.Module):
@@ -74,21 +91,37 @@ class Backbone(nn.Module):
         self.fp1 = FPStage(cfg.fp1_mlp, eps)
         self.fp2 = FPStage(cfg.fp2_mlp, eps)
 
-    def forward(self, pointcloud: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    def forward(
+        self,
+        pointcloud: torch.Tensor,
+        train: bool = False,
+        sa_inds: Optional[Dict[str, torch.Tensor]] = None,
+        sa_query_idx: Optional[Dict[str, torch.Tensor]] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
         """pointcloud (B, N, 3) -> seed_features (B, num_seed, C),
-        seed_xyz (B, num_seed, 3), end_points."""
+        seed_xyz (B, num_seed, 3), end_points.
+
+        `sa_inds`: the FPS chain {"sa1".."sa4"}, each (B, npoint) int64
+        indices into the previous stage's points; `sa_query_idx`: ball-query
+        indices per stage (both parameter-independent, so a pre-pass may
+        compute them once for the step)."""
         cfg = self.cfg
         if pointcloud.shape[-1] != 3:
             raise NotImplementedError("input_feature_dim > 0 is not ported yet")
         xyz = pointcloud.contiguous()
-        npoints = (cfg.sa1.npoint, cfg.sa2.npoint, cfg.sa3.npoint, cfg.sa4.npoint)
-        i1, i2, i3, i4 = fps_chain(xyz, npoints)
-        sa1_xyz, sa1_feat = self.sa1(xyz, None, i1)
-        sa2_xyz, sa2_feat = self.sa2(sa1_xyz, sa1_feat, i2)
-        sa3_xyz, sa3_feat = self.sa3(sa2_xyz, sa2_feat, i3)
-        sa4_xyz, sa4_feat = self.sa4(sa3_xyz, sa3_feat, i4)
-        fp1_feat = self.fp1(sa3_xyz, sa4_xyz, sa3_feat, sa4_feat)
-        fp2_feat = self.fp2(sa2_xyz, sa3_xyz, sa2_feat, fp1_feat)
+        if sa_inds:
+            inds = [sa_inds[k] for k in ("sa1", "sa2", "sa3", "sa4")]
+        else:
+            inds = fps_chain(xyz, (cfg.sa1.npoint, cfg.sa2.npoint, cfg.sa3.npoint, cfg.sa4.npoint))
+        i1, i2, i3, i4 = inds
+        q = sa_query_idx or {}
+        stats, qidx = {}, {}
+        sa1_xyz, sa1_feat, stats["sa1"], qidx["sa1"] = self.sa1(xyz, None, i1, train, q.get("sa1"))
+        sa2_xyz, sa2_feat, stats["sa2"], qidx["sa2"] = self.sa2(sa1_xyz, sa1_feat, i2, train, q.get("sa2"))
+        sa3_xyz, sa3_feat, stats["sa3"], qidx["sa3"] = self.sa3(sa2_xyz, sa2_feat, i3, train, q.get("sa3"))
+        sa4_xyz, sa4_feat, stats["sa4"], qidx["sa4"] = self.sa4(sa3_xyz, sa3_feat, i4, train, q.get("sa4"))
+        fp1_feat, stats["fp1"] = self.fp1(sa3_xyz, sa4_xyz, sa3_feat, sa4_feat, train)
+        fp2_feat, stats["fp2"] = self.fp2(sa2_xyz, sa3_xyz, sa2_feat, fp1_feat, train)
         num_seed = sa2_xyz.shape[1]
         end_points = {
             "input_xyz": xyz,
@@ -100,4 +133,7 @@ class Backbone(nn.Module):
             # seed indices into the original cloud (reference backbone.py:127-129)
             "fp2_inds": i1[:, :num_seed],
         }
+        if train:
+            end_points["sa_query_idx"] = qidx
+            end_points["bn_stats/backbone"] = stats
         return fp2_feat, sa2_xyz, end_points

@@ -1,7 +1,8 @@
-"""Grasp geometry: the Fibonacci view lattice and approach + angle ->
-rotation matrices.
+"""Grasp geometry: the Fibonacci view lattice, approach + angle -> rotation
+matrices (torch, and a numpy twin for the host label pipeline), point
+transforms and the Huber loss.
 
-Counterpart of `graspnet_tpu/models/geometry.py:22-71`.  The rotation is
+Counterpart of `graspnet_tpu/models/geometry.py`.  The rotation is
 written element by element in a fixed order, every product rounded on its
 own, so the CPU and the card compute bitwise the same matrices and hence
 the same cylinder masks.  XLA on the CPU contracts the norms and the cross
@@ -64,3 +65,44 @@ def batch_viewpoint_params_to_matrix(towards: torch.Tensor, angle: torch.Tensor)
     for a, b, c in ((x0, y0, z0), (x1, y1, z1), (x2, y2, z2)):
         rows.append(torch.stack([a, b * cos + c * sin, c * cos - b * sin], dim=-1))
     return torch.stack(rows, dim=-2)
+
+
+def batch_viewpoint_params_to_matrix_np(towards: np.ndarray, angle: np.ndarray) -> np.ndarray:
+    """Numpy twin for the host label pipeline, a line-for-line copy of
+    `graspnet_tpu/models/geometry.py:74-95` (numpy's own norms, cross
+    product and matmul), so host labels are bitwise the JAX package's."""
+    x = np.asarray(towards, np.float32)
+    angle = np.asarray(angle, np.float32)
+    zeros = np.zeros_like(x[..., 0])
+    ones = np.ones_like(x[..., 0])
+    y = np.stack([-x[..., 1], x[..., 0], zeros], axis=-1)
+    y_norm = np.linalg.norm(y, axis=-1, keepdims=True)
+    y = np.where(y_norm == 0, np.array([0.0, 1.0, 0.0], np.float32), y)
+    x = x / np.linalg.norm(x, axis=-1, keepdims=True)
+    y = y / np.linalg.norm(y, axis=-1, keepdims=True)
+    z = np.cross(x, y)
+    sin, cos = np.sin(angle), np.cos(angle)
+    r1 = np.stack([ones, zeros, zeros, zeros, cos, -sin, zeros, sin, cos], axis=-1).reshape(*angle.shape, 3, 3)
+    r2 = np.stack([x, y, z], axis=-1)
+    return (r2 @ r1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def canonical_view_rotations_np(num_view: int) -> np.ndarray:
+    """(V, 3, 3) zero-angle rotations of the -view approach directions."""
+    views = generate_grasp_views_np(num_view)
+    return batch_viewpoint_params_to_matrix_np(-views, np.zeros(num_view, np.float32))
+
+
+def transform_point_cloud(cloud: torch.Tensor, transform: torch.Tensor) -> torch.Tensor:
+    """Apply a (3, 3) rotation or (3, 4)/(4, 4) rigid transform to (N, 3) points."""
+    if transform.shape[-2:] == (3, 3):
+        return cloud @ transform.T
+    return cloud @ transform[:3, :3].T + transform[:3, 3]
+
+
+def huber_loss(error: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
+    abs_error = torch.abs(error)
+    quadratic = torch.clamp(abs_error, max=delta)
+    linear = abs_error - quadratic
+    return 0.5 * quadratic**2 + delta * linear

@@ -1,15 +1,15 @@
-"""GraspNet end to end, inference branch: Stage 1 (views) -> Stage 2 (grasp
-parameters) -> decode.
+"""GraspNet end to end: Stage 1 (views) -> Stage 2 (grasp parameters) ->
+decode, with the training branch that crops at label grasp points.
 
-Counterpart of `graspnet_tpu/models/graspnet.py` (graspnet_forward with no
-labels, lines 72-143, and pred_decode, lines 146-205).  Module attribute
-names follow the JAX params pytree, so `state_dict()` keys are its paths.
+Counterpart of `graspnet_tpu/models/graspnet.py` (graspnet_forward, lines
+37-143, and pred_decode, lines 146-205).  Module attribute names follow the
+JAX params pytree, so `state_dict()` keys are its paths.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -18,6 +18,7 @@ from graspnet_tpu_torch.config import GraspNetConfig
 from graspnet_tpu_torch.models import geometry
 from graspnet_tpu_torch.models.backbone import Backbone
 from graspnet_tpu_torch.models.heads import ApproachNet, CloudCrop, OperationNet, ToleranceNet
+from graspnet_tpu_torch.train import label_pipeline
 
 
 class GraspNet(nn.Module):
@@ -30,17 +31,45 @@ class GraspNet(nn.Module):
         self.operation = OperationNet(cfg)
         self.tolerance = ToleranceNet(cfg)
 
-    def forward(self, point_clouds: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """(B, N, 3) -> end_points (inference: crops at the seeds with the
-        predicted top-view rotations)."""
-        seed_features, seed_xyz, end_points = self.backbone(point_clouds)
-        end_points["point_clouds"] = point_clouds
-        end_points.update(self.approach(seed_features))
-        vp_features = self.crop(
-            end_points["fp2_xyz"], end_points["input_xyz"], end_points["grasp_top_view_rot"]
+    def forward(
+        self,
+        point_clouds: torch.Tensor,
+        train: bool = False,
+        labels: Optional[Dict[str, Any]] = None,
+    ) -> Dict[str, Any]:
+        """(B, N, 3) -> end_points.
+
+        `train` selects batch-stat BN; the step's `bn_stats/*` are returned
+        in end_points, not applied.  `labels`: a device label batch (full
+        slabs from `label_pipeline.build_scene_labels`, or the compact
+        matched slabs) that may carry `sa_inds` and `sa_query_idx`.  With
+        labels, in either BN mode, the crop source is the label points with
+        the matched label rotations (graspnet.py:87-127: the reference's
+        eval epoch keeps label crops); without, the seeds with the predicted
+        top-view rotations."""
+        labels = labels or {}
+        seed_features, _, end_points = self.backbone(
+            point_clouds, train, labels.get("sa_inds"), labels.get("sa_query_idx")
         )
-        end_points.update(self.operation(vp_features))
-        end_points.update(self.tolerance(vp_features))
+        end_points["point_clouds"] = point_clouds
+        end_points.update(self.approach(seed_features, train))
+        has_labels = "matched_label_raw" in labels or "grasp_labels" in labels
+        if train and not has_labels:
+            raise ValueError("a training forward needs the label batch")
+        if not has_labels:
+            crop_seed, crop_rot = end_points["fp2_xyz"], end_points["grasp_top_view_rot"]
+        else:
+            if "matched_label_raw" in labels:
+                end_points.update(label_pipeline.process_matched_labels(labels, self.cfg))
+            else:
+                end_points.update(label_pipeline.process_grasp_labels(end_points, labels, self.cfg))
+                end_points.update(label_pipeline.match_grasp_view_and_label(end_points, self.cfg))
+            crop_seed, crop_rot = end_points["batch_grasp_point"], end_points["batch_grasp_view_rot"]
+        vp_features, crop_stats = self.crop(crop_seed, end_points["input_xyz"], crop_rot, train)
+        if train:
+            end_points["bn_stats/crop"] = crop_stats
+        end_points.update(self.operation(vp_features, train))
+        end_points.update(self.tolerance(vp_features, train))
         return end_points
 
 

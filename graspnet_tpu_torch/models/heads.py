@@ -1,22 +1,26 @@
-"""Model heads, eval branch: ApproachNet, CloudCrop, OperationNet, ToleranceNet.
+"""Model heads: ApproachNet, CloudCrop, OperationNet, ToleranceNet, in eval
+(running-stat BN) and train (batch-stat BN) modes.
 
 Counterpart of `graspnet_tpu/models/heads.py`.  Channels-last:
 objectness_score (B, Ns, 2), view_score (B, Ns, V), grasp_* (B, Ns, A, D).
-CloudCrop is the fused crop kernel (heads.py:181-200) — its plain version on
-a CPU tensor.
+CloudCrop in eval mode is the fused crop kernel (heads.py:181-200); in
+train mode it is the crop-group kernel, then the train-MLP kernel
+(heads.py:201-257).  Each runs its plain version on a CPU tensor.  In train
+mode every head returns its BN batch stats (`bn_stats/*`) for the
+running-stat update after the step; nothing here updates the buffers.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from graspnet_tpu_torch.config import GraspNetConfig
 from graspnet_tpu_torch.models import geometry
-from graspnet_tpu_torch.nn.layers import BatchNorm, Dense, SharedMLP, fold_bn_eval
-from graspnet_tpu_torch.ops.cuda import crop_fused
+from graspnet_tpu_torch.nn.layers import BatchNorm, Dense, SharedMLP, Stats, fold_bn_eval
+from graspnet_tpu_torch.ops.cuda import crop_fused, crop_group, crop_mlp_train
 
 
 class Trunk(nn.Module):
@@ -30,10 +34,15 @@ class Trunk(nn.Module):
         self.bn2 = BatchNorm(h2, eps)
         self.conv3 = Dense(h2, c_out)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.bn1(self.conv1(x)))
-        x = torch.relu(self.bn2(self.conv2(x)))
-        return self.conv3(x)
+    def trunk(self, x: torch.Tensor, train: bool) -> Tuple[torch.Tensor, Optional[Dict[str, Stats]]]:
+        """(out, {"bn1", "bn2"} batch stats in train mode, else None)."""
+        if not train:
+            x = torch.relu(self.bn1(self.conv1(x)))
+            x = torch.relu(self.bn2(self.conv2(x)))
+            return self.conv3(x), None
+        x, st1 = self.bn1.forward_train(self.conv1(x))
+        x, st2 = self.bn2.forward_train(self.conv2(torch.relu(x)))
+        return self.conv3(torch.relu(x)), {"bn1": st1, "bn2": st2}
 
 
 class ApproachNet(Trunk):
@@ -44,8 +53,8 @@ class ApproachNet(Trunk):
         super().__init__(c, c, v2, v2, cfg.bn_eps)
         self.num_view = cfg.num_view
 
-    def forward(self, seed_features: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x = super().forward(seed_features)
+    def forward(self, seed_features: torch.Tensor, train: bool = False) -> Dict[str, torch.Tensor]:
+        x, stats = self.trunk(seed_features, train)
         view_score = x[..., 2 : 2 + self.num_view]
         top_view_scores, top_view_inds = torch.max(view_score, dim=-1)
         # torch.max over a dim returns the first maximal index, like jnp.argmax
@@ -54,7 +63,7 @@ class ApproachNet(Trunk):
         vp_rot = geometry.batch_viewpoint_params_to_matrix(
             -vp_xyz, torch.zeros_like(vp_xyz[..., 0])
         )
-        return {
+        out = {
             "objectness_score": x[..., :2],
             "view_score": view_score,
             "grasp_top_view_inds": top_view_inds,
@@ -62,24 +71,33 @@ class ApproachNet(Trunk):
             "grasp_top_view_xyz": vp_xyz,
             "grasp_top_view_rot": vp_rot,
         }
+        if train:
+            out["bn_stats/approach"] = stats
+        return out
 
 
 class CloudCrop(nn.Module):
-    """Cylinder crop at all depths + embedding, as one fused kernel."""
+    """Cylinder crop at all depths + embedding + max over samples."""
 
     def __init__(self, cfg: GraspNetConfig):
         super().__init__()
         self.cfg = cfg
         self.mlp = SharedMLP(cfg.crop_mlp, cfg.bn_eps)
 
-    def forward(self, seed_xyz, pointcloud, vp_rot) -> torch.Tensor:
+    def forward(
+        self, seed_xyz, pointcloud, vp_rot, train: bool = False
+    ) -> Tuple[torch.Tensor, Optional[List[Stats]]]:
         """seed_xyz (B, Ns, 3), pointcloud (B, N, 3), vp_rot (B, Ns, 3, 3)
-        -> vp_features (B, Ns, D, C)."""
+        -> vp_features (B, Ns, D, C), the MLP's batch stats (train only).
+
+        Train mode differentiates only the MLP: the cloud, the crop centres
+        and the rotations are data and labels there."""
         cfg = self.cfg
-        return crop_fused(
-            pointcloud, seed_xyz, vp_rot, fold_bn_eval(self.mlp),
-            cfg.cylinder_radius, cfg.hmin, tuple(cfg.hmax_list), cfg.crop_nsample,
-        )
+        geom = (cfg.cylinder_radius, cfg.hmin, tuple(cfg.hmax_list), cfg.crop_nsample)
+        if not train:
+            return crop_fused(pointcloud, seed_xyz, vp_rot, fold_bn_eval(self.mlp), *geom), None
+        grouped = crop_group(pointcloud, seed_xyz, vp_rot, *geom)  # (B, Ns, D, S, 3)
+        return crop_mlp_train(self.mlp, grouped)
 
 
 class OperationNet(Trunk):
@@ -90,14 +108,18 @@ class OperationNet(Trunk):
         super().__init__(c, h, h, 3 * cfg.num_angle, cfg.bn_eps)
         self.num_angle = cfg.num_angle
 
-    def forward(self, vp_features: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, vp_features: torch.Tensor, train: bool = False) -> Dict[str, torch.Tensor]:
         a = self.num_angle
-        x = super().forward(vp_features).transpose(2, 3)  # (B, Ns, 3A, D)
-        return {
+        x, stats = self.trunk(vp_features, train)
+        x = x.transpose(2, 3)  # (B, Ns, 3A, D)
+        out = {
             "grasp_score_pred": x[:, :, 0:a],
             "grasp_angle_cls_pred": x[:, :, a : 2 * a],
             "grasp_width_pred": x[:, :, 2 * a : 3 * a],
         }
+        if train:
+            out["bn_stats/operation"] = stats
+        return out
 
 
 class ToleranceNet(Trunk):
@@ -107,5 +129,9 @@ class ToleranceNet(Trunk):
         c, h = cfg.crop_mlp[-1], cfg.head_hidden
         super().__init__(c, h, h, cfg.num_angle, cfg.bn_eps)
 
-    def forward(self, vp_features: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return {"grasp_tolerance_pred": super().forward(vp_features).transpose(2, 3)}
+    def forward(self, vp_features: torch.Tensor, train: bool = False) -> Dict[str, torch.Tensor]:
+        x, stats = self.trunk(vp_features, train)
+        out = {"grasp_tolerance_pred": x.transpose(2, 3)}
+        if train:
+            out["bn_stats/tolerance"] = stats
+        return out

@@ -1,4 +1,4 @@
-"""Dense / BatchNorm / SharedMLP modules (eval branch).
+"""Dense / BatchNorm / SharedMLP modules, eval and train (batch-stats) branches.
 
 Counterpart of `graspnet_tpu/nn/layers.py`.  Parameter names mirror the JAX
 params pytree (`kernel`, `bias`, `bn.{scale,offset,mean,var}`), so a state
@@ -9,7 +9,7 @@ trailing axis, `x @ kernel + bias` with `kernel` shaped (in, out).
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -42,8 +42,12 @@ def dense(kernel: torch.Tensor, bias: torch.Tensor | None, x: torch.Tensor) -> t
     return y
 
 
+Stats = Dict[str, torch.Tensor]
+
+
 class BatchNorm(nn.Module):
-    """Eval-mode batch norm over the trailing axis, from running stats."""
+    """Batch norm over the trailing axis: `forward` normalizes with the
+    running stats (eval), `forward_train` with the batch's."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -57,6 +61,22 @@ class BatchNorm(nn.Module):
         inv = torch.rsqrt(self.var + self.eps)
         return (x - self.mean) * inv * self.scale + self.offset
 
+    def forward_train(self, x: torch.Tensor) -> Tuple[torch.Tensor, Stats]:
+        """Normalize with the batch mean and the biased batch variance over
+        all axes but the last; return the output and {mean, unbiased var}
+        (`graspnet_tpu/nn/layers.py:78-87`, same operation order).  The
+        running buffers are not touched: `bn_update_running` folds the stats
+        in after the step, and a pre-pass may throw them away."""
+        axes = tuple(range(x.dim() - 1))
+        n = 1
+        for a in axes:
+            n *= x.shape[a]
+        mean = torch.mean(x, dim=axes)
+        var = torch.mean(torch.square(x - mean), dim=axes)
+        y = (x - mean) * torch.rsqrt(var + self.eps) * self.scale + self.offset
+        stats = {"mean": mean.detach(), "var": var.detach() * (n / max(n - 1, 1))}
+        return y, stats
+
 
 class MLPLayer(nn.Module):
     """dense (no bias) -> bn -> relu."""
@@ -68,6 +88,10 @@ class MLPLayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(self.bn(dense(self.kernel, None, x)))
+
+    def forward_train(self, x: torch.Tensor) -> Tuple[torch.Tensor, Stats]:
+        y, stats = self.bn.forward_train(dense(self.kernel, None, x))
+        return torch.relu(y), stats
 
 
 class SharedMLP(nn.ModuleList):
@@ -82,6 +106,34 @@ class SharedMLP(nn.ModuleList):
         for layer in self:
             x = layer(x)
         return x
+
+    def forward_train(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[Stats]]:
+        """Batch-stats forward: (y, per-layer {mean, unbiased var})."""
+        stats = []
+        for layer in self:
+            x, st = layer.forward_train(x)
+            stats.append(st)
+        return x, stats
+
+
+def bn_update_running(bn: BatchNorm, stats: Optional[Stats], momentum: float) -> None:
+    """running <- (1 - m) * running + m * batch (torch convention,
+    `graspnet_tpu/nn/layers.py:93-98`), in place on the buffers and under
+    no_grad: the JAX package returns a new pytree, the port updates the
+    module it trains.  The momentum is rounded to float32 first, as the JAX
+    step receives it."""
+    if stats is None:
+        return
+    m = torch.tensor(momentum, dtype=torch.float32, device=bn.mean.device)
+    with torch.no_grad():
+        bn.mean.copy_((1.0 - m) * bn.mean + m * stats["mean"])
+        bn.var.copy_((1.0 - m) * bn.var + m * stats["var"])
+
+
+def shared_mlp_update_stats(mlp: SharedMLP, stats: Sequence[Optional[Stats]], momentum: float) -> None:
+    """`bn_update_running` for every layer of a SharedMLP, in place."""
+    for layer, st in zip(mlp, stats):
+        bn_update_running(layer.bn, st, momentum)
 
 
 def fold_bn_eval(mlp: SharedMLP) -> List[Tuple[torch.Tensor, torch.Tensor]]:

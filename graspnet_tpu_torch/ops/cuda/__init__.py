@@ -5,11 +5,13 @@ CUDA tensor and runs the plain PyTorch version beside it for a CPU tensor;
 each counts its launches in an integer attribute `launches`.
 """
 
-from graspnet_tpu_torch.ops.cuda.crop import crop_fused, sa1_fused
+from graspnet_tpu_torch.ops.cuda.crop import crop_fused, crop_group, sa1_fused
 from graspnet_tpu_torch.ops.cuda.fps import fps_chain
+from graspnet_tpu_torch.ops.cuda.mlp_train import crop_mlp_train, crop_mlp_train_backward
 from graspnet_tpu_torch.ops.cuda.query import ball_query
 
-WRAPPERS = (fps_chain, ball_query, sa1_fused, crop_fused)
+WRAPPERS = (fps_chain, ball_query, sa1_fused, crop_fused, crop_group, crop_mlp_train,
+            crop_mlp_train_backward)
 
 
 def reset_launches() -> None:
@@ -21,5 +23,5 @@ def launches() -> dict:
     return {w.__name__: w.launches for w in WRAPPERS}
 
 
-__all__ = ["WRAPPERS", "ball_query", "crop_fused", "fps_chain", "launches",
-           "reset_launches", "sa1_fused"]
+__all__ = ["WRAPPERS", "ball_query", "crop_fused", "crop_group", "crop_mlp_train",
+           "crop_mlp_train_backward", "fps_chain", "launches", "reset_launches", "sa1_fused"]

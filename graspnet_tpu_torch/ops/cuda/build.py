@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
-SOURCES = ("fps", "query", "crop")
+SOURCES = ("fps", "query", "crop", "mlp_train")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

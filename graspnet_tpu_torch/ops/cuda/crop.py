@@ -1,11 +1,13 @@
-"""Fused crop (query + gather + frame transform + folded MLP + max): the
-`csrc/crop.cu` kernel and its plain version.
+"""Fused crop (query + gather + frame transform + folded MLP + max) and the
+crop group (its front half): the `csrc/crop.cu` kernels and their plain
+versions.
 
 Counterpart of `graspnet_tpu/ops/pallas/crop.py::crop_fused_pallas` (the
-inference CloudCrop) and `sa1_fused_pallas` (backbone SA1, the same kernel in
-ball mode with offsets scaled by 1/r).  Both wrappers launch one kernel for a
-CUDA tensor and run `crop_fused_plain` for a CPU tensor; each keeps its own
-launch count.
+inference CloudCrop), `sa1_fused_pallas` (backbone SA1, the same kernel in
+ball mode with offsets scaled by 1/r) and `crop_group_pallas` (the training
+crop's query + group + rotate).  Each wrapper launches one kernel for a CUDA
+tensor and runs the plain version (`crop_fused_plain`, `crop_group_plain`)
+for a CPU tensor; each keeps its own launch count.
 """
 
 from __future__ import annotations
@@ -30,19 +32,10 @@ MAX_SAMPLES = 64
 MAX_DEPTHS = 8
 
 
-def crop_fused_plain(
-    xyz: torch.Tensor,
-    new_xyz: torch.Tensor,
-    rot: torch.Tensor | None,
-    folded: Folded,
-    radius: float,
-    hmin: float,
-    hmax_list: Sequence[float],
-    nsample: int,
-    normalize: float = 1.0,
-    ball: bool = False,
-) -> torch.Tensor:
-    """(B, N, 3), (B, M, 3), (B, M, 3, 3) | None -> (B, M, D, C3) pooled.
+def _grouped_chunks(xyz, new_xyz, rot, radius, hmin, hmax_list, nsample, normalize, ball):
+    """(B, N, 3), (B, M, 3), (B, M, 3, 3) | None -> (B, m, D, S, 3) offsets,
+    a chunk of m centres at a time, so the masks and whatever the caller
+    computes from a chunk stay bounded.
 
     The selection pads with first-hit / point-0 indices, and gathering the
     raw coordinates at those indices is the kernel's padding on raw values
@@ -52,7 +45,6 @@ def crop_fused_plain(
     n = xyz.shape[1]
     ndepth = 1 if ball else len(hmax_list)
     chunk = max(1, CHUNK_ELEMS // (n * ndepth))
-    pooled = []
     for m0 in range(0, new_xyz.shape[1], chunk):
         c = new_xyz[:, m0 : m0 + chunk]  # (B, m, 3)
         if ball:
@@ -72,9 +64,52 @@ def crop_fused_plain(
         off = torch.stack([dx, dy, dz], dim=-1)
         if normalize != 1.0:
             off = off * normalize
-        h = folded_mlp(folded, off.reshape(b, m, d, s, 3))
-        pooled.append(torch.amax(h, dim=3))
-    return torch.cat(pooled, dim=1)
+        yield off.reshape(b, m, d, s, 3)
+
+
+def crop_group_plain(
+    xyz: torch.Tensor,
+    new_xyz: torch.Tensor,
+    rot: torch.Tensor,
+    radius: float,
+    hmin: float,
+    hmax_list: Sequence[float],
+    nsample: int,
+) -> torch.Tensor:
+    """(B, N, 3), (B, M, 3), (B, M, 3, 3) -> (B, M, D, S, 3) rotated offsets."""
+    chunks = _grouped_chunks(xyz, new_xyz, rot, radius, hmin, hmax_list, nsample, 1.0, False)
+    return torch.cat(list(chunks), dim=1)
+
+
+def crop_fused_plain(
+    xyz: torch.Tensor,
+    new_xyz: torch.Tensor,
+    rot: torch.Tensor | None,
+    folded: Folded,
+    radius: float,
+    hmin: float,
+    hmax_list: Sequence[float],
+    nsample: int,
+    normalize: float = 1.0,
+    ball: bool = False,
+) -> torch.Tensor:
+    """(B, N, 3), (B, M, 3), (B, M, 3, 3) | None -> (B, M, D, C3) pooled:
+    the grouped offsets, the folded MLP and the max over samples, a chunk of
+    centres at a time so the activations stay bounded."""
+    chunks = _grouped_chunks(xyz, new_xyz, rot, radius, hmin, hmax_list, nsample, normalize, ball)
+    return torch.cat([torch.amax(folded_mlp(folded, off), dim=3) for off in chunks], dim=1)
+
+
+def _lib_group():
+    fn = build.load("crop").gn_crop_group
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_void_p] * 4
+            + [ctypes.c_int] * 4
+            + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def _lib():
@@ -158,5 +193,56 @@ def sa1_fused(
     return out[:, :, 0]
 
 
+def crop_group(
+    xyz: torch.Tensor,
+    new_xyz: torch.Tensor,
+    rot: torch.Tensor,
+    radius: float,
+    hmin: float,
+    hmax_list: Sequence[float],
+    nsample: int,
+) -> torch.Tensor:
+    """Cylinder query + group + centre subtraction + gripper-frame rotation,
+    (B, N, 3), (B, M, 3), (B, M, 3, 3) -> (B, M, D, nsample, 3) float32.
+
+    Not differentiable: the inputs are detached, as `crop_group_pallas`
+    stops their gradients (in training they are the cloud, the label grasp
+    points and the label view rotations)."""
+    xyz, new_xyz, rot = xyz.detach(), new_xyz.detach(), rot.detach()
+    hmax_list = tuple(hmax_list)
+    if not xyz.is_cuda:
+        return crop_group_plain(xyz, new_xyz, rot, radius, hmin, hmax_list, nsample)
+    b, n, _ = xyz.shape
+    m = new_xyz.shape[1]
+    ndepth = len(hmax_list)
+    if (
+        xyz.dtype != torch.float32
+        or new_xyz.dtype != torch.float32
+        or rot.dtype != torch.float32
+        or new_xyz.shape != (b, m, 3)
+        or rot.shape != (b, m, 3, 3)
+        or not (new_xyz.is_cuda and rot.is_cuda)
+        or not 1 <= nsample <= MAX_SAMPLES
+        or not 1 <= ndepth <= MAX_DEPTHS
+    ):
+        raise ValueError(
+            "crop_group takes float32 CUDA (B,N,3)/(B,M,3)/(B,M,3,3) inputs, "
+            f"ns <= {MAX_SAMPLES}, <= {MAX_DEPTHS} depths"
+        )
+    xyz, new_xyz, rot = xyz.contiguous(), new_xyz.contiguous(), rot.contiguous()
+    hmax = (ctypes.c_float * ndepth)(*hmax_list)
+    out = torch.empty((b, m, ndepth, nsample, 3), dtype=torch.float32, device=xyz.device)
+    err = _lib_group()(
+        xyz.data_ptr(), new_xyz.data_ptr(), rot.data_ptr(), out.data_ptr(),
+        b, n, m, nsample, radius * radius, hmin,
+        ctypes.cast(hmax, ctypes.c_void_p), ndepth,
+        torch.cuda.current_stream(xyz.device).cuda_stream,
+    )
+    build.check(err, "crop_group")
+    crop_group.launches += 1
+    return out
+
+
 crop_fused.launches = 0
 sa1_fused.launches = 0
+crop_group.launches = 0

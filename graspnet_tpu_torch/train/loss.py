@@ -1,0 +1,134 @@
+"""Training losses and metrics.
+
+Counterpart of `graspnet_tpu/train/loss.py` (reference models/loss.py):
+total = objectness CE + view MSE + 0.2 * grasp, the grasp term being score
+huber + angle CE + width huber(/0.1) + tolerance huber(/0.05), masked by
+objectness AND (label > THRESH_BAD); every boolean-indexed mean is a masked
+sum over the count + 1e-6.  Same metric names as the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from graspnet_tpu_torch.config import GraspNetConfig
+from graspnet_tpu_torch.models.geometry import huber_loss
+
+
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    m = mask.to(x.dtype)
+    return torch.sum(x * m) / (torch.sum(m) + eps)
+
+
+def _cross_entropy(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Per-element CE over the last axis of logits."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, target[..., None])[..., 0]
+
+
+def _seed_labels(end_points: Dict[str, Any]) -> torch.Tensor:
+    """Objectness label of each seed point, (B, Ns)."""
+    return torch.gather(end_points["objectness_label"], 1, end_points["fp2_inds"])
+
+
+def compute_objectness_loss(end_points: Dict[str, Any]) -> Tuple[torch.Tensor, Dict]:
+    """CE over per-seed objectness (loss.py:33-47)."""
+    score = end_points["objectness_score"]  # (B, Ns, 2)
+    label = _seed_labels(end_points)
+    loss = torch.mean(_cross_entropy(score, label))
+    pred = torch.argmax(score, dim=-1)
+    correct = (pred == label).float()
+    metrics = {
+        "stage1_objectness_acc": torch.mean(correct),
+        "stage1_objectness_prec": _masked_mean(correct, pred == 1),
+        "stage1_objectness_recall": _masked_mean(correct, label == 1),
+    }
+    return loss, metrics
+
+
+def compute_view_loss(end_points: Dict[str, Any], cfg: GraspNetConfig):
+    """Masked MSE over per-seed view scores (loss.py:50-64)."""
+    view_score = end_points["view_score"]  # (B, Ns, V)
+    view_label = end_points["batch_grasp_view_label"]
+    obj_v = (_seed_labels(end_points) > 0)[..., None]
+    sq = torch.square(view_score - view_label)
+    # masked-element count = sum(obj) * V
+    denom = torch.sum(obj_v.float()) * view_score.shape[-1] + 1e-6
+    loss = torch.sum(sq * obj_v) / denom
+    pos_pred = (view_score >= cfg.thresh_good) & obj_v
+    metrics = {"stage1_pos_view_pred_count": torch.sum(pos_pred.to(torch.int32))}
+    return loss, metrics
+
+
+def compute_grasp_loss(end_points: Dict[str, Any], cfg: GraspNetConfig):
+    """Stage-2 losses at the matched view (loss.py:67-126)."""
+    obj_mask = _seed_labels(end_points) > 0  # (B, Ns)
+    grasp_label = end_points["batch_grasp_label"]  # (B, Ns, A, D)
+
+    # best angle per (seed, depth) from the label; argmax picks the first max
+    tgt_idx = torch.argmax(grasp_label, dim=2, keepdim=True)  # (B, Ns, 1, D)
+
+    def at_tgt(x):
+        return torch.gather(x, 2, tgt_idx)[:, :, 0]  # (B, Ns, D)
+
+    tgt_label = at_tgt(grasp_label)
+    tgt_width = at_tgt(end_points["batch_grasp_width"])
+    tgt_tol = at_tgt(end_points["batch_grasp_tolerance"])
+
+    graspable = tgt_label > cfg.thresh_bad
+    loss_mask = (obj_mask[..., None] & graspable).float()  # (B, Ns, D)
+    denom = torch.sum(loss_mask) + 1e-6
+
+    score_pred = at_tgt(end_points["grasp_score_pred"])
+    score_loss = torch.sum(huber_loss(score_pred - tgt_label, 1.0) * loss_mask) / denom
+
+    tgt_cls = tgt_idx[:, :, 0]  # (B, Ns, D)
+    angle_logits = end_points["grasp_angle_cls_pred"].transpose(2, 3)  # (B, Ns, D, A)
+    angle_loss = torch.sum(_cross_entropy(angle_logits, tgt_cls) * loss_mask) / denom
+    angle_pred = torch.argmax(angle_logits, dim=-1)
+    a = cfg.num_angle
+    diff = torch.abs(angle_pred - tgt_cls)
+    on = loss_mask > 0
+    acc0 = _masked_mean((angle_pred == tgt_cls).float(), on)
+    acc15 = _masked_mean(((diff <= 1) | (diff >= a - 1)).float(), on)
+    acc30 = _masked_mean(((diff <= 2) | (diff >= a - 2)).float(), on)
+
+    width_pred = at_tgt(end_points["grasp_width_pred"])
+    width_loss = (
+        torch.sum(huber_loss((width_pred - tgt_width) / cfg.grasp_max_width, 1.0) * loss_mask) / denom
+    )
+    tol_pred = at_tgt(end_points["grasp_tolerance_pred"])
+    tol_loss = (
+        torch.sum(huber_loss((tol_pred - tgt_tol) / cfg.grasp_max_tolerance, 1.0) * loss_mask) / denom
+    )
+
+    loss = score_loss + angle_loss + width_loss + tol_loss
+    metrics = {
+        "loss/stage2_grasp_score_loss": score_loss,
+        "loss/stage2_grasp_angle_class_loss": angle_loss,
+        "loss/stage2_grasp_width_loss": width_loss,
+        "loss/stage2_grasp_tolerance_loss": tol_loss,
+        "stage2_grasp_angle_class_acc/0_degree": acc0,
+        "stage2_grasp_angle_class_acc/15_degree": acc15,
+        "stage2_grasp_angle_class_acc/30_degree": acc30,
+    }
+    return loss, metrics
+
+
+def get_loss(end_points: Dict[str, Any], cfg: GraspNetConfig):
+    """Total loss = objectness + view + 0.2 * grasp (loss.py:129-143)."""
+    obj_loss, m1 = compute_objectness_loss(end_points)
+    view_loss, m2 = compute_view_loss(end_points, cfg)
+    grasp_loss, m3 = compute_grasp_loss(end_points, cfg)
+    loss = obj_loss + view_loss + 0.2 * grasp_loss
+    metrics = {
+        "loss/overall_loss": loss,
+        "loss/stage1_objectness_loss": obj_loss,
+        "loss/stage1_view_loss": view_loss,
+        **m1,
+        **m2,
+        **m3,
+    }
+    return loss, metrics

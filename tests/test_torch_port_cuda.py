@@ -20,6 +20,7 @@ from graspnet_tpu_torch.models import geometry
 from graspnet_tpu_torch.ops import cuda as kernels
 from graspnet_tpu_torch.ops.cuda import crop as kcrop
 from graspnet_tpu_torch.ops.cuda import fps as kfps
+from graspnet_tpu_torch.ops.cuda import mlp_train as kmlp
 from graspnet_tpu_torch.ops.cuda import query as kquery
 
 pytestmark = pytest.mark.cuda
@@ -105,7 +106,8 @@ def test_tiny_pipeline_card_matches_cpu_and_counts_launches(dev):
     cpu = GraspPipeline(cfg=cfg, seed=1, device="cpu")
     kernels.reset_launches()
     got = card.get_grasps_topk_batch(clouds)
-    assert kernels.launches() == {"fps_chain": 1, "ball_query": 3, "sa1_fused": 1, "crop_fused": 1}
+    assert kernels.launches() == {"fps_chain": 1, "ball_query": 3, "sa1_fused": 1, "crop_fused": 1,
+                                  "crop_group": 0, "crop_mlp_train": 0, "crop_mlp_train_backward": 0}
     for g, w in zip(got, cpu.get_grasps_topk_batch(clouds)):
         g, w = g.grasp_group_array, w.grasp_group_array
         assert g.shape == w.shape
@@ -124,3 +126,94 @@ def test_wrappers_reject_bad_input(dev):
     folded = folded_weights((3, 8, 12, 16), 0, dev)  # c2=12 does not divide 256
     with pytest.raises(ValueError):
         kcrop.sa1_fused(xyz.float(), xyz[:, :4].float(), folded, 0.1, 8)
+
+
+def test_crop_group_matches_plain(dev):
+    """K6 at the training shape: 1024 label points near the cloud, random
+    rotations; equal indices make the offsets bitwise equal (both round
+    every product)."""
+    cfg = GraspNetConfig()
+    rng = np.random.default_rng(4)
+    xyz = cloud(rng, 2, 20000).to(dev)
+    centers = xyz[:, :1024] + torch.from_numpy(rng.normal(0, 0.01, (2, 1024, 3)).astype(np.float32)).to(dev)
+    centers[:, -4:] = 10.0  # no hits: every slot is point 0
+    q, _ = torch.linalg.qr(torch.from_numpy(rng.normal(size=(2, 1024, 3, 3)).astype(np.float32)))
+    args = (xyz, centers, q.to(dev).contiguous(), cfg.cylinder_radius, cfg.hmin, cfg.hmax_list, cfg.crop_nsample)
+    got = kcrop.crop_group(*args)
+    want = kcrop.crop_group_plain(*args[:5], tuple(cfg.hmax_list), cfg.crop_nsample)
+    assert torch.equal(got, want)
+
+
+def mlp_with_stats(dims, seed, device):
+    from graspnet_tpu_torch.nn.layers import SharedMLP
+
+    gen = torch.Generator().manual_seed(seed)
+    mlp = SharedMLP(dims)
+    with torch.no_grad():
+        for layer in mlp:
+            layer.kernel.copy_(torch.randn(layer.kernel.shape, generator=gen) * (2.0 / layer.kernel.shape[0]) ** 0.5)
+            layer.bn.scale.copy_(1.0 + 0.3 * torch.randn(layer.bn.scale.shape, generator=gen))
+            layer.bn.offset.copy_(0.2 * torch.randn(layer.bn.offset.shape, generator=gen))
+        mlp[-1].bn.scale[0] = -0.7  # the min-pool branch
+    return mlp.to(device)
+
+
+def _mlp_grads(fn, mlp, grouped, w):
+    params = [p for layer in mlp for p in (layer.kernel, layer.bn.scale, layer.bn.offset)]
+    pooled, stats = fn(mlp, grouped)
+    return pooled, stats, torch.autograd.grad(torch.sum(pooled * w.to(pooled.dtype)), params)
+
+
+def _grad_err(got, want):
+    return max((a.double() - c.double()).abs().max().item() / max(1.0, c.abs().max().item())
+               for a, c in zip(got, want))
+
+
+@pytest.mark.parametrize("dims,m,rows", [((3, 8, 16, 32), 24, "random"), ((3, 64, 128, 256), 1024, "unambiguous")])
+def test_crop_mlp_train_matches_plain(dev, dims, m, rows):
+    """K7 forward and backward against the plain train-mode SharedMLP +
+    amax: pooled at 2e-5 x max(1, scale), stats at 1e-5, parameter
+    gradients at 2e-4 x max(1, scale) (tests/test_mlp_train.py's bounds;
+    f32 sums in another order); two backward runs bitwise equal.  At the
+    production shape each group holds one distinct row beside 63 equal
+    ones, so every pool maximum is unambiguous (random rows: the next
+    test)."""
+    rng = np.random.default_rng(m)
+    g = rng.uniform(-0.05, 0.05, (2, m, 4, 64, 3)).astype(np.float32)
+    g[:, :, :, 1] = g[:, :, :, 0]  # first-hit padding duplicates: pool ties
+    if rows == "unambiguous":
+        g[:, :, :, 1:] = g[:, :, :, 1:2]
+        g[:, :, :, 0] = rng.uniform(-0.3, 0.3, g[:, :, :, 0].shape)
+    grouped = torch.from_numpy(g).to(dev)
+    w = torch.from_numpy(rng.normal(size=(2, m, 4, dims[-1])).astype(np.float32)).to(dev)
+    mlp = mlp_with_stats(dims, 0, dev)
+    p_k, st_k, g_k = _mlp_grads(kmlp.crop_mlp_train, mlp, grouped, w)
+    p_p, st_p, g_p = _mlp_grads(kmlp.crop_mlp_train_plain, mlp, grouped, w)
+    assert (p_k - p_p).abs().max().item() <= 2e-5 * max(1.0, p_p.abs().max().item())
+    for a, b in zip(st_k, st_p):
+        for k in ("mean", "var"):
+            torch.testing.assert_close(a[k], b[k], rtol=1e-5, atol=1e-5)
+    assert _grad_err(g_k, g_p) <= 2e-4
+    _, _, again = _mlp_grads(kmlp.crop_mlp_train, mlp, grouped, w)
+    for a, b in zip(g_k, again):
+        assert torch.equal(a, b)  # no atomics: the backward is bitwise repeatable
+
+
+def test_crop_mlp_train_pool_near_ties_at_production_shape(dev):
+    """Random rows at the production shape: among 2 M pool maxima some are
+    near-ties that float32 rounding breaks either way, routing a group's
+    gradient to another row.  Against a float64 evaluation, x max(1,
+    scale): the kernel at 1e-2 and the plain version, whose own float32
+    sums over 524,288 rows cancel, at 3e-2 (chip_smoke.py's bounds; up to
+    3.5e-3 and 7.7e-3 measured on an H100); the tight bound is the test
+    above."""
+    rng = np.random.default_rng(7)
+    dims = (3, 64, 128, 256)
+    grouped = torch.from_numpy(rng.uniform(-0.05, 0.05, (2, 1024, 4, 64, 3)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.normal(size=(2, 1024, 4, 256)).astype(np.float32)).to(dev)
+    mlp = mlp_with_stats(dims, 0, dev)
+    _, _, g_k = _mlp_grads(kmlp.crop_mlp_train, mlp, grouped, w)
+    _, _, g_p = _mlp_grads(kmlp.crop_mlp_train_plain, mlp, grouped, w)
+    _, _, g_64 = _mlp_grads(kmlp.crop_mlp_train_plain, mlp_with_stats(dims, 0, dev).double(), grouped.double(), w)
+    assert _grad_err(g_p, g_64) <= 3e-2
+    assert _grad_err(g_k, g_64) <= 1e-2

@@ -1,6 +1,7 @@
 """Import hygiene of the port: `graspnet_tpu_torch` and `chip_smoke.py`
-import neither JAX nor anything of the JAX package, and build no kernel
-when imported."""
+import neither JAX nor anything of the JAX package (`graspnet_tpu.native`
+included), and build no kernel when imported; with JAX blocked, a tiny
+serving call and a tiny training step run on the CPU."""
 
 import os
 import re
@@ -34,6 +35,26 @@ from graspnet_tpu_torch.ops.cuda import build
 p = GraspPipeline(cfg=GraspNetConfig.tiny(), device="cpu")
 gg = p.get_grasps_topk(np.random.default_rng(0).uniform(-0.3, 0.3, (512, 3)).astype(np.float32))
 assert gg.grasp_group_array.shape[1] == 17
+from graspnet_tpu_torch.train import label_pipeline as lp
+from graspnet_tpu_torch.train.trainer import Trainer
+cfg = GraspNetConfig.tiny()
+rng = np.random.default_rng(1)
+v, a, d = cfg.num_view, cfg.num_angle, cfg.num_depth
+clouds, inds, labels = [], [], []
+for _ in range(2):
+    cloud = rng.uniform(-0.3, 0.3, (cfg.num_point, 3)).astype(np.float32)
+    sa, seeds = lp.seed_chain(cloud, cfg)
+    pose = np.concatenate([np.eye(3), rng.uniform(-0.1, 0.1, (3, 1))], 1).astype(np.float32)
+    slab = lambda hi: [rng.uniform(0, hi, (30, v, a, d)).astype(np.float32)]
+    labels.append(lp.build_scene_labels(cloud, seeds, [pose], [rng.uniform(-0.05, 0.05, (30, 3)).astype(np.float32)],
+                                        slab(1.0), slab(0.12), slab(0.05), cfg, max_objects=2))
+    clouds.append(cloud)
+    inds.append(sa)
+batch = {k: np.stack([l[k] for l in labels]) for k in labels[0]}
+batch.update(point_clouds=np.stack(clouds), objectness_label=rng.integers(0, 2, (2, cfg.num_point)),
+             sa_inds={k: np.stack([s[k] for s in inds]) for k in inds[0]})
+loss, _ = Trainer(cfg, device="cpu").step(batch)
+assert np.isfinite(float(loss))
 assert not build._LIBS, "a kernel library was loaded on the CPU path"
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "graspnet_tpu") and sys.modules[m] is not None]
 assert not bad, bad

@@ -245,4 +245,5 @@ def test_cpu_wrappers_do_not_count_launches():
     pts = t(make_cloud(np.random.default_rng(2), 200)[None])
     kfps.fps_chain(pts, (32, 16))
     kquery.ball_query(pts, pts[:, :8], 0.1, 4)
-    assert kernels.launches() == {"fps_chain": 0, "ball_query": 0, "sa1_fused": 0, "crop_fused": 0}
+    assert kernels.launches() == {"fps_chain": 0, "ball_query": 0, "sa1_fused": 0, "crop_fused": 0,
+                                  "crop_group": 0, "crop_mlp_train": 0, "crop_mlp_train_backward": 0}
