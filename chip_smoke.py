@@ -31,7 +31,20 @@ Phases (each prints one JSON line; any failure exits non-zero):
      loss that falls over 5 steps on a fixed batch, step_compact == step,
      one step's loss and gradients against the same step on the CPU, and
      step times, host label-prep time and peak memory;
-  7. the kernels line, the nvidia-smi line, and last
+  7. query-family and SA kernels: the multi-depth cylinder query (K8), the
+     per-query oracle (K10) and the fused SA2-4 stage (K9) against their
+     plain versions at production shapes, B=2, on the tabletop clouds —
+     K8 and K10 indices equal to plain, K10 bit-equal to K8 and (ball mode)
+     to K4 at the SA2-4 calls, K9 within FEATURE_TOL at SA2, SA3 and SA4 on
+     the model's own stage points and features; CUDA-event times;
+  8. tools: the four timing entry points (graspnet_tpu_torch/scripts/)
+     in-process at GraspNetConfig() with short slope windows (2 and 6
+     calls, the fastest of 3 each) — every stage
+     time finite and > 0, K8 launched by profile_stages and
+     crop_train_breakdown, K9 three times per bench_crop_kernels call of
+     its stages, K10 by profile_stages — and bench's JSON line;
+  9. the kernels line (launches per serving forward, per training step and
+     per tool run), the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 
 Without CUDA it exits with code 2 before printing any result.
@@ -57,6 +70,8 @@ WEIGHT_SEED = 1
 N_POINTS = 20000
 B_KERNELS = 2
 FEATURE_TOL = 1e-4  # max |kernel - plain| / max(1, max |plain|): f32 sums in another order
+# slope windows of the tools phase: short, so the phase takes tens of seconds
+TOOL_K_LO, TOOL_K_HI = 2, 6
 TOPK_ATOL = 1e-4  # CPU vs card top-50 floats: CPU BLAS vs cuBLAS f32 sums
 PEAK_F32_FLOPS = 67e12  # H100 SXM, non-tensor f32 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -161,24 +176,56 @@ def bound(flops: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def feature_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want|, raising past FEATURE_TOL x max(1, max |want|)."""
+    err = (got - want).abs().max().item()
+    scale = max(1.0, want.abs().max().item())
+    if not torch.isfinite(got).all() or err > FEATURE_TOL * scale:
+        raise AssertionError(f"features differ: max abs {err} at scale {scale}")
+    return err
+
+
+def mlp_flops(folded, nrows: int) -> int:
+    return nrows * sum(2 * w.shape[0] * w.shape[1] for w, _ in folded)
+
+
+def weight_bytes(folded) -> int:
+    return sum((w.numel() + bb.numel()) * 4 for w, bb in folded)
+
+
+def approach_rotations(cfg, seeds: torch.Tensor) -> torch.Tensor:
+    """(B, M, 3) -> (B, M, 3, 3): the rotations of random approach views."""
+    from graspnet_tpu_torch.models import geometry
+
+    gen = torch.Generator().manual_seed(DATA_SEED)
+    dev = seeds.device
+    views = geometry.generate_grasp_views(cfg.num_view, dev)
+    pick = torch.randint(0, cfg.num_view, seeds.shape[:2], generator=gen).to(dev)
+    return geometry.batch_viewpoint_params_to_matrix(-views[pick], torch.zeros(seeds.shape[:2], device=dev))
+
+
+def cylinder_tests(cfg, cloud: torch.Tensor, centers: torch.Tensor, rot: torch.Tensor) -> int:
+    """Point tests of a multi-depth cylinder scan that stops once every
+    depth has crop_nsample hits."""
+    from graspnet_tpu_torch.ops.query import cylinder_masks
+
+    tests = 0
+    for m0 in range(0, centers.shape[1], 64):
+        masks = cylinder_masks(cloud, centers[:, m0:m0 + 64], rot[:, m0:m0 + 64],
+                               cfg.cylinder_radius, cfg.hmin, cfg.hmax_list)
+        tests += nth_hit_tests(masks, cfg.crop_nsample).amax(dim=2).sum().item()
+    return tests
+
+
 def kernel_phase(cfg, model, cloud_b):
     """Phase 2: every kernel against its plain version at main-path shapes."""
-    from graspnet_tpu_torch.models import geometry
     from graspnet_tpu_torch.nn.layers import fold_bn_eval
     from graspnet_tpu_torch.ops.cuda import crop as kcrop
     from graspnet_tpu_torch.ops.cuda import fps as kfps
     from graspnet_tpu_torch.ops.cuda import query as kquery
-    from graspnet_tpu_torch.ops.query import ball_mask, cylinder_masks
+    from graspnet_tpu_torch.ops.query import ball_mask
 
-    dev = cloud_b.device
     rows = []
-
-    def feature_err(got, want):
-        err = (got - want).abs().max().item()
-        scale = max(1.0, want.abs().max().item())
-        if not torch.isfinite(got).all() or err > FEATURE_TOL * scale:
-            raise AssertionError(f"features differ: max abs {err} at scale {scale}")
-        return err
 
     # -- FPS chain (K1 + K2) --
     npoints = (cfg.sa1.npoint, cfg.sa2.npoint, cfg.sa3.npoint, cfg.sa4.npoint)
@@ -228,12 +275,6 @@ def kernel_phase(cfg, model, cloud_b):
         bound_ms=t_bound, bound_by=by, library_ms=None,
     ))
 
-    def mlp_flops(folded, nrows):
-        return nrows * sum(2 * w.shape[0] * w.shape[1] for w, _ in folded)
-
-    def weight_bytes(folded):
-        return sum((w.numel() + bb.numel()) * 4 for w, bb in folded)
-
     # -- SA1 fused (K3) --
     sa = cfg.sa1
     folded = fold_bn_eval(model.backbone.sa1.mlp)
@@ -257,21 +298,14 @@ def kernel_phase(cfg, model, cloud_b):
     ))
 
     # -- CloudCrop fused (K5) at the seeds, with approach-view rotations --
-    gen = torch.Generator().manual_seed(DATA_SEED)
     seeds = xyz[2]
-    views = geometry.generate_grasp_views(cfg.num_view, dev)
-    pick = torch.randint(0, cfg.num_view, seeds.shape[:2], generator=gen).to(dev)
-    rot = geometry.batch_viewpoint_params_to_matrix(-views[pick], torch.zeros(seeds.shape[:2], device=dev))
+    rot = approach_rotations(cfg, seeds)
     folded = fold_bn_eval(model.crop.mlp)
     args = (cloud_b, seeds, rot, folded, cfg.cylinder_radius, cfg.hmin, tuple(cfg.hmax_list), cfg.crop_nsample)
     g = kcrop.crop_fused(*args)
     w = kcrop.crop_fused_plain(*args)
     err = feature_err(g, w)
-    tests = 0
-    for m0 in range(0, seeds.shape[1], 64):
-        masks = cylinder_masks(cloud_b, seeds[:, m0:m0 + 64], rot[:, m0:m0 + 64],
-                               cfg.cylinder_radius, cfg.hmin, cfg.hmax_list)
-        tests += nth_hit_tests(masks, cfg.crop_nsample).amax(dim=2).sum().item()
+    tests = cylinder_tests(cfg, cloud_b, seeds, rot)
     nrows = seeds.shape[0] * seeds.shape[1] * len(cfg.hmax_list) * cfg.crop_nsample
     flops = tests * TEST_FLOPS["cylinder"] + mlp_flops(folded, nrows)
     t_bound, by = bound(flops, (cloud_b.numel() + seeds.numel() + rot.numel() + g.numel()) * 4
@@ -287,6 +321,143 @@ def kernel_phase(cfg, model, cloud_b):
     for r in rows:
         log(phase="kernel", **r)
     return rows
+
+
+def query_sa_kernel_phase(cfg, model, cloud_b):
+    """Phase 7: K8, K10 and K9 against their plain versions at production
+    shapes, B=2, on the tabletop clouds and the model's own SA features."""
+    from graspnet_tpu_torch.nn.layers import fold_bn_eval
+    from graspnet_tpu_torch.ops.cuda import crop as kcrop
+    from graspnet_tpu_torch.ops.cuda import fps as kfps
+    from graspnet_tpu_torch.ops.cuda import query as kquery
+    from graspnet_tpu_torch.ops.query import ball_mask
+
+    bb = model.backbone
+    npoints = (cfg.sa1.npoint, cfg.sa2.npoint, cfg.sa3.npoint, cfg.sa4.npoint)
+    inds = kfps.fps_chain(cloud_b, npoints)
+    xyz = [cloud_b]
+    for idx in inds:
+        xyz.append(torch.gather(xyz[-1], 1, idx[..., None].expand(-1, -1, 3)))
+    rows = []
+
+    # -- K8 multi-depth cylinder query and the K10 oracle in rotate mode --
+    seeds = xyz[2]
+    rot = approach_rotations(cfg, seeds).contiguous()
+    args = (cloud_b, seeds, rot, cfg.cylinder_radius, cfg.hmin, tuple(cfg.hmax_list), cfg.crop_nsample)
+    got8 = kquery.cylinder_query_multi(*args)
+    got10 = kquery.multi_query(*args)
+    want = kquery.cylinder_query_multi_plain(*args)
+    for name, got in (("cylinder_query_multi", got8), ("multi_query(rotate=True)", got10)):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} indices differ at {(got != want).nonzero()[:5].tolist()}")
+    t_bound, by = bound(cylinder_tests(cfg, cloud_b, seeds, rot) * TEST_FLOPS["cylinder"],
+                        (cloud_b.numel() + seeds.numel() + rot.numel()) * 4 + want.numel() * 8)
+    rows.append(dict(
+        name="cylinder_query_multi", route="cuda", source="graspnet_tpu_torch/csrc/query.cu",
+        replaces="graspnet_tpu/ops/pallas/query.py:554 (cylinder_query_multi_pallas -> "
+                 "multi_query_batched_pallas(rotate=True))",
+        max_abs_err=0.0, ms=cuda_ms(lambda: kquery.cylinder_query_multi(*args), 20),
+        plain_ms=cuda_ms(lambda: kquery.cylinder_query_multi_plain(*args), 3),
+        bound_ms=t_bound, bound_by=by, library_ms=None,
+    ))
+    oracle = dict(
+        name="multi_query", route="cuda", source="graspnet_tpu_torch/csrc/query.cu",
+        replaces="graspnet_tpu/ops/pallas/query.py:415 (multi_query_pallas)",
+        max_abs_err=0.0, ms=cuda_ms(lambda: kquery.multi_query(*args), 10),
+        plain_ms=cuda_ms(lambda: kquery.multi_query_plain(*args), 3),
+        bound_ms=t_bound, bound_by=by, library_ms=None,
+    )
+
+    # -- K10 in ball mode == K4 == plain at the SA2-4 calls --
+    calls = [(xyz[k], xyz[k + 1], sa.radius, sa.nsample)
+             for k, sa in ((1, cfg.sa2), (2, cfg.sa3), (3, cfg.sa4))]
+    ball_tests = 0
+    for x, c, r, ns in calls:
+        k4 = kquery.ball_query(x, c, r, ns)
+        k10 = kquery.multi_query(x, c, None, r, 0.0, (0.0,), ns, rotate=False)[:, :, 0]
+        if not (torch.equal(k10, k4) and torch.equal(k4, kquery.ball_query_plain(x, c, r, ns))):
+            raise AssertionError(f"multi_query(rotate=False) differs from ball_query for r={r}")
+        ball_tests += nth_hit_tests(ball_mask(x, c, r), ns).sum().item()
+
+    # -- K9 fused SA2-4 on the model's stage points and SA1-3 features --
+    feats = [kcrop.sa1_fused(cloud_b, xyz[1], fold_bn_eval(bb.sa1.mlp), cfg.sa1.radius, cfg.sa1.nsample)]
+    sa_calls = []
+    for k, (name, sa) in enumerate((("sa2", cfg.sa2), ("sa3", cfg.sa3), ("sa4", cfg.sa4)), start=1):
+        stage = getattr(bb, name)
+        sa_calls.append((xyz[k], xyz[k + 1], feats[-1], fold_bn_eval(stage.mlp), sa.radius, sa.nsample))
+        feats.append(stage(xyz[k], feats[-1], inds[k])[1])  # the backbone's own path (K4 + gather)
+    err = backbone_err = 0.0
+    flops = nbytes = 0
+    for call, backbone_out in zip(sa_calls, feats[1:]):
+        got, want = kcrop.sa_feat_fused(*call), kcrop.sa_feat_fused_plain(*call)
+        err = max(err, feature_err(got, want))
+        backbone_err = max(backbone_err, feature_err(got, backbone_out))  # / r there, x (1/r) here
+        x, c, f, folded, r, ns = call
+        flops += (nth_hit_tests(ball_mask(x, c, r), ns).sum().item() * TEST_FLOPS["ball"]
+                  + mlp_flops(folded, c.shape[0] * c.shape[1] * ns))
+        nbytes += (x.numel() + c.numel() + f.numel() + got.numel()) * 4 + weight_bytes(folded)
+    t_bound, by = bound(flops, nbytes)
+    rows.append(dict(
+        name="sa_feat_fused", route="cuda", source="graspnet_tpu_torch/csrc/crop.cu",
+        replaces="graspnet_tpu/ops/pallas/crop.py:547 (sa_feat_fused_pallas -> _sa_feat_fused)",
+        max_abs_err=err, ms=sum(cuda_ms(lambda a=a: kcrop.sa_feat_fused(*a), 20) for a in sa_calls),
+        plain_ms=sum(cuda_ms(lambda a=a: kcrop.sa_feat_fused_plain(*a), 5) for a in sa_calls),
+        bound_ms=t_bound, bound_by=by, library_ms=None,
+    ))
+    rows.append(oracle)
+    log(phase="query_sa_kernels_checked", k8_equals_plain=True, k10_equals_plain_and_k8=True,
+        k10_ball_equals_k4_at_sa2_4=True, k4_tests_sa2_4=ball_tests,
+        sa_feat_max_abs_err=err, sa_feat_vs_backbone_path_max_abs_err=backbone_err,
+        feature_tol=FEATURE_TOL)
+    for r in rows:
+        log(phase="kernel", **r)
+    return rows
+
+
+def tools_phase():
+    """Phase 8: the four timing entry points in-process at GraspNetConfig(),
+    with short slope windows.  Returns the launch counts of one run of all
+    four and their records."""
+    from graspnet_tpu_torch.ops import cuda as kernels
+    from graspnet_tpu_torch.scripts import bench, bench_crop_kernels, crop_train_breakdown, profile_stages
+    from graspnet_tpu_torch.utils import timing
+
+    windows = ["--k-lo", str(TOOL_K_LO), "--k-hi", str(TOOL_K_HI)]
+    per_tool, records = {}, {}
+    for name, run in (
+        ("bench_crop_kernels", lambda: bench_crop_kernels.main(windows)),
+        ("profile_stages", lambda: profile_stages.main(windows)),
+        ("crop_train_breakdown", lambda: crop_train_breakdown.main(windows)),
+        ("bench", lambda: bench.main(["--frames", "10", "--repeats", "2", "--sync-frames", "5"])),
+    ):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        records[name] = run()
+        torch.cuda.synchronize()
+        per_tool[name] = kernels.launches()
+        records[name + "_s"] = time.perf_counter() - t0
+    for name in ("bench_crop_kernels", "profile_stages", "crop_train_breakdown"):
+        bad = {k: v for k, v in records[name].items() if not (np.isfinite(v) and v > 0)}
+        if bad:
+            raise AssertionError(f"{name}: stage times not finite and > 0: {bad}")
+    if records["bench"]["backend"] != "cuda" or not records["bench"]["value"] > 0:
+        raise AssertionError(f"bench: {records['bench']}")
+    calls = timing.calls_per_stage()  # fn calls per timed stage
+    checks = {
+        "profile_stages launches cylinder_query_multi": per_tool["profile_stages"]["cylinder_query_multi"] > 0,
+        "crop_train_breakdown launches cylinder_query_multi":
+            per_tool["crop_train_breakdown"]["cylinder_query_multi"] > 0,
+        "bench_crop_kernels launches sa_feat_fused 3x per stage call":
+            per_tool["bench_crop_kernels"]["sa_feat_fused"] == 3 * calls,
+        "profile_stages launches multi_query": per_tool["profile_stages"]["multi_query"] > 0,
+    }
+    total = {k: sum(t[k] for t in per_tool.values()) for k in kernels.launches()}
+    log(phase="tools", launches_per_tool=per_tool, calls_per_stage=calls, checks=checks,
+        **{k: v for k, v in records.items()})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"tool launch counts: {failed}")
+    return total, records
 
 
 def compare_topk(card: np.ndarray, cpu: np.ndarray) -> dict:
@@ -311,7 +482,8 @@ def main_path_phase(cfg, pipe, clouds):
     from graspnet_tpu_torch.postproc.nms import nms_keep_mask
 
     expected = {"fps_chain": 1, "ball_query": 3, "sa1_fused": 1, "crop_fused": 1,
-                "crop_group": 0, "crop_mlp_train": 0, "crop_mlp_train_backward": 0}
+                "crop_group": 0, "crop_mlp_train": 0, "crop_mlp_train_backward": 0,
+                "cylinder_query_multi": 0, "sa_feat_fused": 0, "multi_query": 0}
 
     def drive(fn):
         """Run one batched forward; every kernel must launch once for it."""
@@ -463,7 +635,6 @@ def train_kernel_phase(cfg, mlp, cloud_b):
     rotations, the model's crop MLP."""
     from graspnet_tpu_torch.ops.cuda import crop as kcrop
     from graspnet_tpu_torch.ops.cuda import mlp_train as kmlp
-    from graspnet_tpu_torch.ops.query import cylinder_masks
 
     rng = np.random.default_rng(TRAIN_SEED)
     b, m = cloud_b.shape[0], cfg.num_seed
@@ -478,10 +649,7 @@ def train_kernel_phase(cfg, mlp, cloud_b):
     err = (grouped - want).abs().max().item()
     if not torch.equal(grouped, want):
         raise AssertionError(f"crop_group offsets differ from the plain version by {err}")
-    tests = 0
-    for m0 in range(0, m, 64):
-        masks = cylinder_masks(cloud_b, centers[:, m0:m0 + 64], rot[:, m0:m0 + 64], *geom[:3])
-        tests += nth_hit_tests(masks, cfg.crop_nsample).amax(dim=2).sum().item()
+    tests = cylinder_tests(cfg, cloud_b, centers, rot)
     t_bound, by = bound(tests * TEST_FLOPS["cylinder"],
                         (cloud_b.numel() + centers.numel() + rot.numel() + grouped.numel()) * 4)
     rows.append(dict(
@@ -751,6 +919,7 @@ def main() -> int:
     cloud_b = torch.from_numpy(clouds[:B_KERNELS]).to(dev)
     with torch.inference_mode():
         rows = kernel_phase(cfg, pipe.model, cloud_b)
+        rows += query_sa_kernel_phase(cfg, pipe.model, cloud_b)
     launches, timing = main_path_phase(cfg, pipe, clouds)
     profile_phase(pipe, clouds)
     del pipe
@@ -759,15 +928,17 @@ def main() -> int:
     crop_mlp = init_weights(GraspNet(cfg), TRAIN_SEED).crop.mlp.to(dev)
     rows += train_kernel_phase(cfg, crop_mlp, cloud_b)
     train_launches, train_timing = train_phase(cfg, clouds[:B_KERNELS])
-    for r in rows:  # the counts read after one serving forward and one training step
+    tool_launches, tool_records = tools_phase()
+    for r in rows:  # the counts read after one serving forward, one training step and one tool run
         r["launches_per_forward"] = launches[r["name"]]
         r["launches_per_train_step"] = train_launches[r["name"]]
-        r["launches"] = r["launches_per_forward"] + r["launches_per_train_step"]
+        r["launches_per_tool_run"] = tool_launches[r["name"]]
+        r["launches"] = r["launches_per_forward"] + r["launches_per_train_step"] + r["launches_per_tool_run"]
     keys = ("name", "route", "source", "replaces", "launches", "launches_per_forward",
-            "launches_per_train_step", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "launches_per_train_step", "launches_per_tool_run", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}), flush=True)
-    log(phase="summary", gpu=smi, **timing, **train_timing)
+    log(phase="summary", gpu=smi, **timing, **train_timing, bench=tool_records["bench"])
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}), flush=True)

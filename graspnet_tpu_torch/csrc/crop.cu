@@ -40,6 +40,20 @@
 // (B=2, 1024 label points, 20000 points) against 6.3 MB of output, so it
 // shares the fused kernel's scan (scan_first_hits) and sample transform
 // (crop_sample) unchanged; its indices are those of the fused kernel.
+//
+// sa_feat_kernel replaces crop.py::sa_feat_fused_pallas (K9, body
+// _sa_feat_kernel, crop.py:448-519), the fused SA2-4 eval stage: the same
+// ball-mode scan and samples (offsets x (1/r), as crop.py:491-493 scales
+// them; a center with no hits takes point 0's offset and features), then
+// the slots' feature rows gathered straight from features[b, idx] into
+// shared memory, and layer 1 over [xyz | features] (3 + C inputs), layer 2
+// and layer 3 + max as in the crop.  What bounds it: the MLP's f32 FMAs,
+// per B=1 frame ~4.3 GFLOP at SA2 (1024 x 32 rows, 131 -> 128 -> 128 -> 256),
+// ~1.35 at SA3 and ~0.67 at SA4 (~0.1 ms at the f32 peak).  The folded
+// weights (66k-82k floats, 264-329 KB) do not fit in shared memory, so they
+// stream through L1/L2 as the crop's do; the ns <= 32 rows of a centre
+// (features, h1, h2: at most 50 KB) sit in shared memory, so several blocks
+// share an SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -133,12 +147,18 @@ __device__ __forceinline__ void scan_first_hits(
   }
 }
 
+// Step 3: the point a slot takes; an empty slot takes the first hit, a
+// selection with no hits point 0.
+__device__ __forceinline__ int slot_index(const int* idx_d, int cnt, int slot) {
+  return cnt == 0 ? 0 : (slot < cnt ? idx_d[slot] : idx_d[0]);
+}
+
 // Steps 3-4 for one slot of one depth: the padded raw point, centre
 // subtracted, rotated (cylinder) and scaled.
 __device__ __forceinline__ void crop_sample(
     const float* __restrict__ pts, float cx, float cy, float cz, const float* r,
     const CropArgs& a, const int* idx_d, int cnt, int slot, float* out3) {
-  const int idx = cnt == 0 ? 0 : (slot < cnt ? idx_d[slot] : idx_d[0]);
+  const int idx = slot_index(idx_d, cnt, slot);
   const float dx = __fsub_rn(pts[3 * idx], cx);
   const float dy = __fsub_rn(pts[3 * idx + 1], cy);
   const float dz = __fsub_rn(pts[3 * idx + 2], cz);
@@ -156,6 +176,85 @@ __device__ __forceinline__ void crop_sample(
   out3[0] = sx;
   out3[1] = sy;
   out3[2] = sz;
+}
+
+// out[row * c + col] = relu(in[row, 0:k] . w[0:k, col] + b[col] (+ the xyz
+// part x3[row, 0:3] . wx[0:3, col] when x3 is given)) for every row < ns;
+// in has row stride k.  Thread = (column, row group): c divides kThreads
+// and k is a multiple of 4 (checked by the launchers).
+__device__ __forceinline__ void dense_relu_rows(
+    const float* in, int k_dim, const float* __restrict__ w,
+    const float* __restrict__ b, float* out, int c, int ns, const float* x3,
+    const float* __restrict__ wx) {
+  const int groups = kThreads / c;
+  const int col = threadIdx.x % c;
+  const int g = threadIdx.x / c;
+  for (int r0 = g; r0 < ns; r0 += groups * kRows) {
+    float acc[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) acc[i] = 0.0f;
+    for (int k = 0; k < k_dim; k += 4) {
+      const float wa = __ldg(w + (size_t)k * c + col);
+      const float wb = __ldg(w + (size_t)(k + 1) * c + col);
+      const float wc = __ldg(w + (size_t)(k + 2) * c + col);
+      const float wd = __ldg(w + (size_t)(k + 3) * c + col);
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const int row = r0 + i * groups;
+        if (row < ns) {
+          const float4 h = *reinterpret_cast<const float4*>(in + row * k_dim + k);
+          acc[i] += h.x * wa + h.y * wb + h.z * wc + h.w * wd;
+        }
+      }
+    }
+    const float bias = __ldg(b + col);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int row = r0 + i * groups;
+      if (row < ns) {
+        float v = acc[i] + bias;
+        if (x3 != nullptr) {
+          v += x3[3 * row] * __ldg(wx + col) + x3[3 * row + 1] * __ldg(wx + c + col) +
+               x3[3 * row + 2] * __ldg(wx + 2 * c + col);
+        }
+        out[row * c + col] = fmaxf(v, 0.0f);
+      }
+    }
+  }
+}
+
+// out[col] = max over rows < ns of relu(in[row, 0:k] . w[0:k, col] + b[col]):
+// the last layer folded into the pool, so its activations never exist.
+__device__ __forceinline__ void dense_relu_max(
+    const float* in, int k_dim, const float* __restrict__ w,
+    const float* __restrict__ b, int c, int ns, float* __restrict__ out) {
+  for (int col = threadIdx.x; col < c; col += kThreads) {
+    const float bias = __ldg(b + col);
+    float best = 0.0f;  // every candidate is a relu output, so >= 0
+    for (int r0 = 0; r0 < ns; r0 += kRows) {
+      float acc[kRows];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) acc[i] = 0.0f;
+      for (int k = 0; k < k_dim; k += 4) {
+        const float wa = __ldg(w + (size_t)k * c + col);
+        const float wb = __ldg(w + (size_t)(k + 1) * c + col);
+        const float wc = __ldg(w + (size_t)(k + 2) * c + col);
+        const float wd = __ldg(w + (size_t)(k + 3) * c + col);
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          if (r0 + i < ns) {
+            const float4 h = *reinterpret_cast<const float4*>(in + (r0 + i) * k_dim + k);
+            acc[i] += h.x * wa + h.y * wb + h.z * wc + h.w * wd;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        if (r0 + i < ns) best = fmaxf(best, fmaxf(acc[i] + bias, 0.0f));
+      }
+    }
+    out[col] = best;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -201,67 +300,12 @@ crop_fused_kernel(const float* __restrict__ xyz,
     }
     __syncthreads();
 
-    // ---- 5b: layer 2, h2 = relu(h1 @ W2 + b2); thread = (column, row group)
-    {
-      const int groups = kThreads / a.c2;  // c2 divides kThreads (checked)
-      const int c = tid % a.c2;
-      const int g = tid / a.c2;
-      for (int r0 = g; r0 < a.ns; r0 += groups * kRows) {
-        float acc[kRows];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) acc[i] = 0.0f;
-        for (int k = 0; k < a.c1; k += 4) {
-          const float wa = __ldg(w2 + (size_t)k * a.c2 + c);
-          const float wb = __ldg(w2 + (size_t)(k + 1) * a.c2 + c);
-          const float wc = __ldg(w2 + (size_t)(k + 2) * a.c2 + c);
-          const float wd = __ldg(w2 + (size_t)(k + 3) * a.c2 + c);
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) {
-            const int row = r0 + i * groups;
-            if (row < a.ns) {
-              const float4 h = *reinterpret_cast<const float4*>(h1 + row * a.c1 + k);
-              acc[i] += h.x * wa + h.y * wb + h.z * wc + h.w * wd;
-            }
-          }
-        }
-        const float bias = __ldg(b2 + c);
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          const int row = r0 + i * groups;
-          if (row < a.ns) h2[row * a.c2 + c] = fmaxf(acc[i] + bias, 0.0f);
-        }
-      }
-    }
+    // ---- 5b: layer 2, h2 = relu(h1 @ W2 + b2) ----
+    dense_relu_rows(h1, a.c1, w2, b2, h2, a.c2, a.ns, nullptr, nullptr);
     __syncthreads();
 
     // ---- 5c-6: layer 3 folded into the max over samples ----
-    for (int c = tid; c < a.c3; c += kThreads) {
-      const float bias = __ldg(b3 + c);
-      float best = 0.0f;  // every candidate is a relu output, so >= 0
-      for (int r0 = 0; r0 < a.ns; r0 += kRows) {
-        float acc[kRows];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) acc[i] = 0.0f;
-        for (int k = 0; k < a.c2; k += 4) {
-          const float wa = __ldg(w3 + (size_t)k * a.c3 + c);
-          const float wb = __ldg(w3 + (size_t)(k + 1) * a.c3 + c);
-          const float wc = __ldg(w3 + (size_t)(k + 2) * a.c3 + c);
-          const float wd = __ldg(w3 + (size_t)(k + 3) * a.c3 + c);
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) {
-            if (r0 + i < a.ns) {
-              const float4 h = *reinterpret_cast<const float4*>(h2 + (r0 + i) * a.c2 + k);
-              acc[i] += h.x * wa + h.y * wb + h.z * wc + h.w * wd;
-            }
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          if (r0 + i < a.ns) best = fmaxf(best, fmaxf(acc[i] + bias, 0.0f));
-        }
-      }
-      out[((size_t)q * a.ndepth + d) * a.c3 + c] = best;
-    }
+    dense_relu_max(h2, a.c2, w3, b3, a.c3, a.ns, out + ((size_t)q * a.ndepth + d) * a.c3);
     __syncthreads();  // samples/h1/h2 are rewritten by the next depth
   }
 }
@@ -294,6 +338,53 @@ crop_group_kernel(const float* __restrict__ xyz,
     crop_sample(pts, cx, cy, cz, r, a, s_idx[d], s_cnt[d], slot,
                 out + ((size_t)q * a.ndepth * a.ns + e) * 3);
   }
+}
+
+// The fused SA2-4 stage (K9): ball-mode steps 1-4 with normalize = 1/r,
+// the slots' feature rows gathered beside the offsets, then the folded
+// (3 + C) -> c1 -> c2 -> c3 MLP and the max.  out[center, 0..c3).
+__global__ void __launch_bounds__(kThreads)
+sa_feat_kernel(const float* __restrict__ xyz,
+               const float* __restrict__ centers,
+               const float* __restrict__ feat,
+               const float* __restrict__ w1, const float* __restrict__ b1,
+               const float* __restrict__ w2, const float* __restrict__ b2,
+               const float* __restrict__ w3, const float* __restrict__ b3,
+               float* __restrict__ out, CropArgs a, int c_in) {
+  extern __shared__ float smem[];
+  float* f = smem;                         // ns x c_in gathered features
+  float* h1 = f + a.ns * c_in;             // ns x c1
+  float* h2 = h1 + a.ns * a.c1;            // ns x c2
+  float* samples = h2 + a.ns * a.c2;       // ns x 3 scaled offsets
+  __shared__ int s_idx[kMaxDepths][kMaxSamples];
+  __shared__ int s_cnt[kMaxDepths];
+  __shared__ int s_wcnt[kWarps][kMaxDepths];
+
+  const int q = blockIdx.x;  // center index over batch * m
+  const int tid = threadIdx.x;
+  const size_t scene = (size_t)(q / a.m) * a.n;
+  const float* pts = xyz + scene * 3;
+  const float* fts = feat + scene * c_in;
+  const float cx = centers[3 * (size_t)q];
+  const float cy = centers[3 * (size_t)q + 1];
+  const float cz = centers[3 * (size_t)q + 2];
+  const float r[9] = {};
+
+  scan_first_hits(pts, cx, cy, cz, r, a, s_idx, s_cnt, s_wcnt);
+
+  if (tid < a.ns) crop_sample(pts, cx, cy, cz, r, a, s_idx[0], s_cnt[0], tid, samples + 3 * tid);
+  for (int e = tid; e < a.ns * c_in; e += kThreads) {
+    const int row = e / c_in;
+    f[e] = fts[(size_t)slot_index(s_idx[0], s_cnt[0], row) * c_in + (e - row * c_in)];
+  }
+  __syncthreads();
+  // layer 1: the feature part as a product against W1[3:], the xyz part
+  // (K = 3) as a broadcast-sum against W1[0:3]
+  dense_relu_rows(f, c_in, w1 + 3 * (size_t)a.c1, b1, h1, a.c1, a.ns, samples, w1);
+  __syncthreads();
+  dense_relu_rows(h1, a.c1, w2, b2, h2, a.c2, a.ns, nullptr, nullptr);
+  __syncthreads();
+  dense_relu_max(h2, a.c2, w3, b3, a.c3, a.ns, out + (size_t)q * a.c3);
 }
 
 }  // namespace
@@ -353,5 +444,37 @@ extern "C" int gn_crop_group(const float* xyz, const float* centers,
   if (batch * m == 0) return (int)cudaSuccess;
   crop_group_kernel<<<batch * m, kThreads, 0, (cudaStream_t)stream>>>(
       xyz, centers, rot, out, a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gn_sa_feat(const float* xyz, const float* centers,
+                          const float* feat, const float* w1, const float* b1,
+                          const float* w2, const float* b2, const float* w3,
+                          const float* b3, float* out, int batch, int n, int m,
+                          int ns, float r2, float inv_radius, int c_in, int c1,
+                          int c2, int c3, void* stream) {
+  if (ns < 1 || ns > kMaxSamples || c_in % 4 != 0 || c1 % 4 != 0 ||
+      c2 % 4 != 0 || c1 > kThreads || kThreads % c1 != 0 || c2 > kThreads ||
+      kThreads % c2 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  CropArgs a = {};
+  a.n = n;
+  a.m = m;
+  a.ndepth = 1;
+  a.ns = ns;
+  a.ball = 1;
+  a.c1 = c1;
+  a.c2 = c2;
+  a.c3 = c3;
+  a.r2 = r2;
+  a.normalize = inv_radius;
+  const size_t smem = (size_t)ns * (c_in + c1 + c2 + 3) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      sa_feat_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (batch * m == 0) return (int)cudaSuccess;
+  sa_feat_kernel<<<batch * m, kThreads, smem, (cudaStream_t)stream>>>(
+      xyz, centers, feat, w1, b1, w2, b2, w3, b3, out, a, c_in);
   return (int)cudaGetLastError();
 }

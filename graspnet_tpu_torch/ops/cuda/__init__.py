@@ -5,13 +5,13 @@ CUDA tensor and runs the plain PyTorch version beside it for a CPU tensor;
 each counts its launches in an integer attribute `launches`.
 """
 
-from graspnet_tpu_torch.ops.cuda.crop import crop_fused, crop_group, sa1_fused
+from graspnet_tpu_torch.ops.cuda.crop import crop_fused, crop_group, sa1_fused, sa_feat_fused
 from graspnet_tpu_torch.ops.cuda.fps import fps_chain
 from graspnet_tpu_torch.ops.cuda.mlp_train import crop_mlp_train, crop_mlp_train_backward
-from graspnet_tpu_torch.ops.cuda.query import ball_query
+from graspnet_tpu_torch.ops.cuda.query import ball_query, cylinder_query_multi, multi_query
 
 WRAPPERS = (fps_chain, ball_query, sa1_fused, crop_fused, crop_group, crop_mlp_train,
-            crop_mlp_train_backward)
+            crop_mlp_train_backward, cylinder_query_multi, sa_feat_fused, multi_query)
 
 
 def reset_launches() -> None:
@@ -24,4 +24,5 @@ def launches() -> dict:
 
 
 __all__ = ["WRAPPERS", "ball_query", "crop_fused", "crop_group", "crop_mlp_train",
-           "crop_mlp_train_backward", "fps_chain", "launches", "reset_launches", "sa1_fused"]
+           "crop_mlp_train_backward", "cylinder_query_multi", "fps_chain", "launches",
+           "multi_query", "reset_launches", "sa1_fused", "sa_feat_fused"]

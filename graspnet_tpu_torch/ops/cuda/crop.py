@@ -1,13 +1,15 @@
-"""Fused crop (query + gather + frame transform + folded MLP + max) and the
-crop group (its front half): the `csrc/crop.cu` kernels and their plain
-versions.
+"""Fused crop (query + gather + frame transform + folded MLP + max), the
+crop group (its front half) and the fused SA2-4 stage: the `csrc/crop.cu`
+kernels and their plain versions.
 
 Counterpart of `graspnet_tpu/ops/pallas/crop.py::crop_fused_pallas` (the
 inference CloudCrop), `sa1_fused_pallas` (backbone SA1, the same kernel in
-ball mode with offsets scaled by 1/r) and `crop_group_pallas` (the training
-crop's query + group + rotate).  Each wrapper launches one kernel for a CUDA
-tensor and runs the plain version (`crop_fused_plain`, `crop_group_plain`)
-for a CPU tensor; each keeps its own launch count.
+ball mode with offsets scaled by 1/r), `crop_group_pallas` (the training
+crop's query + group + rotate) and `sa_feat_fused_pallas` (an SA stage with
+feature grouping, ball mode with a feature input).  Each wrapper launches
+one kernel for a CUDA tensor and runs the plain version
+(`crop_fused_plain`, `crop_group_plain`, `sa_feat_fused_plain`) for a CPU
+tensor; each keeps its own launch count.
 """
 
 from __future__ import annotations
@@ -19,17 +21,18 @@ import torch
 
 from graspnet_tpu_torch.nn.layers import folded_mlp
 from graspnet_tpu_torch.ops.cuda import build
+from graspnet_tpu_torch.ops.cuda.query import MAX_DEPTHS, ball_query_plain
 from graspnet_tpu_torch.ops.query import (
-    CHUNK_ELEMS,
     ball_mask,
+    chunk_centers,
     cylinder_masks,
+    group_points,
     rotate_offsets,
     select_first_hits,
 )
 
 Folded = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 MAX_SAMPLES = 64
-MAX_DEPTHS = 8
 
 
 def _grouped_chunks(xyz, new_xyz, rot, radius, hmin, hmax_list, nsample, normalize, ball):
@@ -42,9 +45,7 @@ def _grouped_chunks(xyz, new_xyz, rot, radius, hmin, hmax_list, nsample, normali
     (`graspnet_tpu/ops/pallas/crop.py:145-157`); the centre is subtracted
     after the gather, then the rotation (cylinder) and `* normalize`.
     """
-    n = xyz.shape[1]
-    ndepth = 1 if ball else len(hmax_list)
-    chunk = max(1, CHUNK_ELEMS // (n * ndepth))
+    chunk = chunk_centers(1 if ball else len(hmax_list), xyz.shape[1])
     for m0 in range(0, new_xyz.shape[1], chunk):
         c = new_xyz[:, m0 : m0 + chunk]  # (B, m, 3)
         if ball:
@@ -243,6 +244,85 @@ def crop_group(
     return out
 
 
+def sa_feat_fused_plain(
+    xyz: torch.Tensor,
+    new_xyz: torch.Tensor,
+    features: torch.Tensor,
+    folded: Folded,
+    radius: float,
+    nsample: int,
+) -> torch.Tensor:
+    """(B, N, 3), (B, M, 3), (B, N, C) -> (B, M, C3): ball query, offsets
+    x (1/r) as `_sa_feat_kernel` scales them (`crop.py:491-493`; the
+    backbone's generic path divides by r), the features at the padded
+    indices (point 0's offset and features for a centre with no hits), the
+    folded MLP over [xyz | features] and the max over samples."""
+    idx = ball_query_plain(xyz, new_xyz, radius, nsample)
+    off = (group_points(xyz, idx) - new_xyz[:, :, None, :]) * (1.0 / radius)
+    grouped = torch.cat([off, group_points(features, idx)], dim=-1)
+    return torch.amax(folded_mlp(folded, grouped), dim=2)
+
+
+def _lib_sa_feat():
+    fn = build.load("crop").gn_sa_feat
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_void_p] * 10
+            + [ctypes.c_int] * 4
+            + [ctypes.c_float] * 2
+            + [ctypes.c_int] * 4
+            + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def sa_feat_fused(
+    xyz: torch.Tensor,
+    new_xyz: torch.Tensor,
+    features: torch.Tensor,
+    folded: Folded,
+    radius: float,
+    nsample: int,
+) -> torch.Tensor:
+    """Fused SA stage with feature grouping (backbone SA2-4, eval mode):
+    (B, N, 3), (B, M, 3), (B, N, C) float32 and the BN-folded MLP
+    (3 + C) -> c1 -> c2 -> c3 -> (B, M, c3).  CUDA tensor: the crop.cu
+    sa_feat kernel (K9); CPU tensor: `sa_feat_fused_plain`."""
+    if not xyz.is_cuda:
+        return sa_feat_fused_plain(xyz, new_xyz, features, folded, radius, nsample)
+    b, n, _ = xyz.shape
+    m = new_xyz.shape[1]
+    c_in = features.shape[-1]
+    (w1, b1), (w2, b2), (w3, b3) = folded
+    c1, c2, c3 = w1.shape[1], w2.shape[1], w3.shape[1]
+    if (
+        any(t.dtype != torch.float32 or not t.is_cuda for t in (xyz, new_xyz, features))
+        or xyz.shape[-1] != 3
+        or new_xyz.shape != (b, m, 3)
+        or features.shape[:2] != (b, n)
+        or w1.shape[0] != 3 + c_in
+        or not 1 <= nsample <= MAX_SAMPLES
+        or c_in % 4 or c1 % 4 or c2 % 4 or 256 % c1 or 256 % c2
+    ):
+        raise ValueError(
+            "sa_feat_fused takes float32 CUDA (B,N,3)/(B,M,3)/(B,N,C) inputs with C a multiple "
+            f"of 4, a 3-layer (3+C)->c1->c2->c3 MLP with c1, c2 dividing 256, ns <= {MAX_SAMPLES}"
+        )
+    ts = [t.detach().contiguous().float() for t in (xyz, new_xyz, features, w1, b1, w2, b2, w3, b3)]
+    out = torch.empty((b, m, c3), dtype=torch.float32, device=xyz.device)
+    # r*r and 1/r rounded to float32 once (crop.py:542-543)
+    err = _lib_sa_feat()(
+        *(t.data_ptr() for t in ts), out.data_ptr(), b, n, m, nsample,
+        radius * radius, 1.0 / radius, c_in, c1, c2, c3,
+        torch.cuda.current_stream(xyz.device).cuda_stream,
+    )
+    build.check(err, "sa_feat_fused")
+    sa_feat_fused.launches += 1
+    return out
+
+
 crop_fused.launches = 0
 sa1_fused.launches = 0
 crop_group.launches = 0
+sa_feat_fused.launches = 0

@@ -5,8 +5,9 @@ Counterpart of `graspnet_tpu/ops/query.py` and of the cylinder query in
 reference CUDA scan's: the first `nsample` hits in index order; an empty
 slot takes the first hit; a row with no hits is all index 0.
 
-The ball query's kernel wrapper and its plain version live in
-`ops/cuda/query.py` (exported as `ops.ball_query`).
+The kernel wrappers of the ball query and of the multi-depth cylinder
+query, with their plain versions, live in `ops/cuda/query.py` (exported as
+`ops.ball_query` and `ops.cylinder_query_multi_depth`).
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ def select_first_hits(mask: torch.Tensor, nsample: int) -> torch.Tensor:
     return idx.reshape(*lead, nsample)
 
 
-def _chunk(rows_per_center: int, n: int) -> int:
+def chunk_centers(rows_per_center: int, n: int) -> int:
+    """Centres per chunk of a plain query with rows_per_center masks of n points."""
     return max(1, CHUNK_ELEMS // max(1, rows_per_center * n))
 
 
@@ -86,25 +88,25 @@ def cylinder_masks(
     return base[:, :, None, :] & (x_r[:, :, None, :] < hmaxs[None, None, :, None])
 
 
-def cylinder_query_multi_depth(
+def cylinder_query(
     xyz: torch.Tensor,
     new_xyz: torch.Tensor,
     rot: torch.Tensor,
     radius: float,
     hmin: float,
-    hmax_list: Sequence[float],
+    hmax: float,
     nsample: int,
 ) -> torch.Tensor:
-    """(B, M, D, nsample) int64 cylinder-query indices for several hmax
-    sharing one rotation pass (`graspnet_tpu/models/heads.py:94-154`)."""
-    n = xyz.shape[1]
-    chunk = _chunk(len(hmax_list), n)
+    """(B, N, 3), (B, M, 3), (B, M, 3, 3) -> (B, M, nsample) int64: the
+    single-depth cylinder query (`graspnet_tpu/ops/query.py:131-193`), plain
+    torch on any device, as in the JAX package."""
+    chunk = chunk_centers(1, xyz.shape[1])
     out = [
         select_first_hits(
             cylinder_masks(
                 xyz, new_xyz[:, m0 : m0 + chunk], rot[:, m0 : m0 + chunk],
-                radius, hmin, hmax_list,
-            ),
+                radius, hmin, (hmax,),
+            )[:, :, 0],
             nsample,
         )
         for m0 in range(0, new_xyz.shape[1], chunk)

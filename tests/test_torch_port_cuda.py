@@ -107,7 +107,8 @@ def test_tiny_pipeline_card_matches_cpu_and_counts_launches(dev):
     kernels.reset_launches()
     got = card.get_grasps_topk_batch(clouds)
     assert kernels.launches() == {"fps_chain": 1, "ball_query": 3, "sa1_fused": 1, "crop_fused": 1,
-                                  "crop_group": 0, "crop_mlp_train": 0, "crop_mlp_train_backward": 0}
+                                  "crop_group": 0, "crop_mlp_train": 0, "crop_mlp_train_backward": 0,
+                                  "cylinder_query_multi": 0, "sa_feat_fused": 0, "multi_query": 0}
     for g, w in zip(got, cpu.get_grasps_topk_batch(clouds)):
         g, w = g.grasp_group_array, w.grasp_group_array
         assert g.shape == w.shape
@@ -217,3 +218,76 @@ def test_crop_mlp_train_pool_near_ties_at_production_shape(dev):
     _, _, g_64 = _mlp_grads(kmlp.crop_mlp_train_plain, mlp_with_stats(dims, 0, dev).double(), grouped.double(), w)
     assert _grad_err(g_p, g_64) <= 3e-2
     assert _grad_err(g_k, g_64) <= 1e-2
+
+
+def approach_rotations(cfg, rng, b, m, dev):
+    views = geometry.generate_grasp_views(cfg.num_view, dev)
+    pick = torch.from_numpy(rng.integers(0, cfg.num_view, (b, m))).to(dev)
+    return geometry.batch_viewpoint_params_to_matrix(-views[pick], torch.zeros(b, m, device=dev)).contiguous()
+
+
+def test_cylinder_query_multi_and_oracle_match_plain(dev):
+    """K8 and K10 (rotate=True) at the production shape: 1024 seeds x 4
+    depths x 20000 points, random approach rotations, 4 far seeds (zero
+    rows) and an unsorted hmax list; indices exactly equal."""
+    cfg = GraspNetConfig()
+    rng = np.random.default_rng(8)
+    xyz = cloud(rng, 2, 20000).to(dev)
+    seeds = xyz[:, :1024].clone()
+    seeds[:, -4:] = 10.0
+    rot = approach_rotations(cfg, rng, 2, 1024, dev)
+    for hmax in (cfg.hmax_list, (0.04, 0.01, 0.03)):
+        args = (xyz, seeds, rot, cfg.cylinder_radius, cfg.hmin, hmax, cfg.crop_nsample)
+        want = kquery.cylinder_query_multi_plain(*args)
+        got = kquery.cylinder_query_multi(*args)
+        assert torch.equal(got, want)
+        assert torch.equal(kquery.multi_query(*args), want)
+        assert (got[:, -4:] == 0).all()
+
+
+@pytest.mark.parametrize("stage", ["sa2", "sa3", "sa4"])
+def test_multi_query_ball_matches_ball_query(dev, stage):
+    """K10 (rotate=False) is bit-equal to K4 at the SA2-4 calls, in every
+    depth, with 3 far centres (zero rows)."""
+    cfg = GraspNetConfig()
+    sa = getattr(cfg, stage)
+    n = {"sa2": cfg.sa1.npoint, "sa3": cfg.sa2.npoint, "sa4": cfg.sa3.npoint}[stage]
+    xyz = cloud(np.random.default_rng(9), 2, n).to(dev)
+    centers = xyz[:, : sa.npoint].clone()
+    centers[:, -3:] = 9.0
+    want = kquery.ball_query(xyz, centers, sa.radius, sa.nsample)
+    assert torch.equal(want, kquery.ball_query_plain(xyz, centers, sa.radius, sa.nsample))
+    got = kquery.multi_query(xyz, centers, None, sa.radius, 0.0, (0.0, 0.0), sa.nsample, rotate=False)
+    assert torch.equal(got, want[:, :, None].expand(-1, -1, 2, -1))
+
+
+@pytest.mark.parametrize("stage", ["sa2", "sa3", "sa4"])
+def test_sa_feat_fused_matches_plain(dev, stage):
+    """K9 at the production SA2-4 shapes (B=2), with 3 far centres whose
+    samples are point 0's offset and features: features within 1e-4 x
+    max(1, scale)."""
+    cfg = GraspNetConfig()
+    sa = getattr(cfg, stage)
+    prev = {"sa2": cfg.sa1, "sa3": cfg.sa2, "sa4": cfg.sa3}[stage]
+    rng = np.random.default_rng(10)
+    xyz = cloud(rng, 2, prev.npoint).to(dev)
+    feats = torch.from_numpy(rng.normal(size=(2, prev.npoint, prev.mlp[-1])).astype(np.float32)).to(dev)
+    centers = xyz[:, : sa.npoint].clone()
+    centers[:, -3:] = 9.0
+    folded = folded_weights(sa.mlp, 2, dev)
+    args = (xyz, centers, feats, folded, sa.radius, sa.nsample)
+    assert_features_close(kcrop.sa_feat_fused(*args), kcrop.sa_feat_fused_plain(*args))
+
+
+def test_new_wrappers_reject_bad_input(dev):
+    xyz = torch.zeros(1, 100, 3, device=dev)
+    rot = torch.eye(3, device=dev).expand(1, 4, 3, 3).contiguous()
+    with pytest.raises(ValueError):
+        kquery.cylinder_query_multi(xyz, xyz[:, :4], None, 0.05, -0.02, (0.01,), 8)
+    with pytest.raises(ValueError):
+        kquery.cylinder_query_multi(xyz, xyz[:, :4], rot, 0.05, -0.02, (0.01,) * 9, 8)  # > 8 depths
+    with pytest.raises(ValueError):
+        kquery.multi_query(xyz.double(), xyz[:, :4], rot, 0.05, -0.02, (0.01,), 8)
+    feats = torch.zeros(1, 100, 6, device=dev)  # C = 6 is not a multiple of 4
+    with pytest.raises(ValueError):
+        kcrop.sa_feat_fused(xyz, xyz[:, :4], feats, folded_weights((9, 8, 8, 16), 0, dev), 0.1, 8)

@@ -1,7 +1,8 @@
 """Import hygiene of the port: `graspnet_tpu_torch` and `chip_smoke.py`
 import neither JAX nor anything of the JAX package (`graspnet_tpu.native`
 included), and build no kernel when imported; with JAX blocked, a tiny
-serving call and a tiny training step run on the CPU."""
+serving call, a tiny training step and the timing entry points run on the
+CPU."""
 
 import os
 import re
@@ -26,8 +27,13 @@ for name in ("jax", "jaxlib", "graspnet_tpu"):
 import importlib, pkgutil
 import numpy as np
 import graspnet_tpu_torch
-for mod in pkgutil.walk_packages(graspnet_tpu_torch.__path__, "graspnet_tpu_torch."):
-    importlib.import_module(mod.name)
+walked = [mod.name for mod in pkgutil.walk_packages(graspnet_tpu_torch.__path__, "graspnet_tpu_torch.")]
+for name in walked:
+    importlib.import_module(name)
+new = {"graspnet_tpu_torch.utils.timing", "graspnet_tpu_torch.scripts.bench",
+       "graspnet_tpu_torch.scripts.bench_crop_kernels", "graspnet_tpu_torch.scripts.profile_stages",
+       "graspnet_tpu_torch.scripts.crop_train_breakdown"}
+assert new <= set(walked), new - set(walked)
 import chip_smoke
 from graspnet_tpu_torch.apps import GraspPipeline
 from graspnet_tpu_torch.config import GraspNetConfig
@@ -55,6 +61,9 @@ batch.update(point_clouds=np.stack(clouds), objectness_label=rng.integers(0, 2, 
              sa_inds={k: np.stack([s[k] for s in inds]) for k in inds[0]})
 loss, _ = Trainer(cfg, device="cpu").step(batch)
 assert np.isfinite(float(loss))
+from graspnet_tpu_torch.scripts import bench_crop_kernels, crop_train_breakdown, profile_stages
+for tool in (bench_crop_kernels, crop_train_breakdown, profile_stages):
+    tool.main(["--device", "cpu", "--tiny", "--k-lo", "1", "--k-hi", "2"])
 assert not build._LIBS, "a kernel library was loaded on the CPU path"
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "graspnet_tpu") and sys.modules[m] is not None]
 assert not bad, bad
@@ -67,7 +76,7 @@ def test_port_runs_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", BLOCKED_RUN], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert r.stdout.startswith("ok")
+    assert r.stdout.strip().splitlines()[-1].startswith("ok")
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

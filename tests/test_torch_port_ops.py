@@ -245,5 +245,9 @@ def test_cpu_wrappers_do_not_count_launches():
     pts = t(make_cloud(np.random.default_rng(2), 200)[None])
     kfps.fps_chain(pts, (32, 16))
     kquery.ball_query(pts, pts[:, :8], 0.1, 4)
+    rot = t(random_rotations(np.random.default_rng(3), (1, 8)))
+    kquery.cylinder_query_multi(pts, pts[:, :8], rot, 0.05, -0.02, (0.02, 0.04), 4)
+    kquery.multi_query(pts, pts[:, :8], None, 0.1, 0.0, (0.0,), 4, rotate=False)
     assert kernels.launches() == {"fps_chain": 0, "ball_query": 0, "sa1_fused": 0, "crop_fused": 0,
-                                  "crop_group": 0, "crop_mlp_train": 0, "crop_mlp_train_backward": 0}
+                                  "crop_group": 0, "crop_mlp_train": 0, "crop_mlp_train_backward": 0,
+                                  "cylinder_query_multi": 0, "sa_feat_fused": 0, "multi_query": 0}

@@ -1,0 +1,115 @@
+"""The port's timing entry points on the CPU at `GraspNetConfig.tiny()`:
+each runs with `--device cpu --tiny` and the shortest windows, prints every
+stage name of its JAX counterpart under `scripts/` (read from that script's
+`timeit` calls; the remat row of `crop_train_breakdown.py` has no PyTorch
+counterpart), and writes a `dump_records` JSON with `backend: "cpu"`;
+`bench` prints one JSON line with `bench.py`'s keys.  The times themselves
+are host-clock numbers here and are not checked beyond being finite.
+"""
+
+import ast
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from graspnet_tpu_torch.config import GraspNetConfig
+from graspnet_tpu_torch.ops import cuda as kernels
+from graspnet_tpu_torch.scripts import bench_crop_kernels, crop_train_breakdown, profile_stages
+from graspnet_tpu_torch.utils import timing
+
+ROOT = Path(__file__).resolve().parents[1]
+FAST = ["--device", "cpu", "--tiny", "--k-lo", "1", "--k-hi", "2"]
+
+
+def jax_stage_names(script: str):
+    """The literal stage names a JAX timing script passes to timeit."""
+    tree = ast.parse((ROOT / "scripts" / script).read_text())
+    return [
+        node.args[0].value
+        for node in ast.walk(tree)
+        if isinstance(node, ast.Call) and getattr(node.func, "id", None) == "timeit"
+        and node.args and isinstance(node.args[0], ast.Constant)
+    ]
+
+
+def tiny_sa_names():
+    """profile_stages.py's f-string SA rows at the tiny config."""
+    cfg = GraspNetConfig.tiny()
+    n_in = (cfg.num_point, cfg.sa1.npoint, cfg.sa2.npoint, cfg.sa3.npoint)
+    return [f"sa{k + 1} ({n}->{sa.npoint}, ns={sa.nsample})"
+            for k, (n, sa) in enumerate(zip(n_in, (cfg.sa1, cfg.sa2, cfg.sa3, cfg.sa4)))]
+
+
+CASES = {
+    "bench_crop_kernels": (bench_crop_kernels, jax_stage_names("bench_crop_kernels.py")),
+    "profile_stages": (profile_stages, jax_stage_names("profile_stages.py") + tiny_sa_names()),
+    "crop_train_breakdown": (
+        crop_train_breakdown,
+        [n for n in jax_stage_names("crop_train_breakdown.py") if "remat" not in n],
+    ),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_entry_point_prints_jax_stage_names_and_dumps(name, tmp_path, capsys):
+    module, expected = CASES[name]
+    out = tmp_path / f"{name}.json"
+    records = module.main(FAST + ["--out", str(out)])
+    printed = capsys.readouterr().out
+    assert len(expected) >= 6
+    for stage in expected:
+        assert stage in printed, stage
+        assert math.isfinite(records[stage])
+    dumped = json.loads(out.read_text())
+    assert dumped["backend"] == "cpu" and dumped["gpu"] is None
+    assert dumped["source"] == f"graspnet_tpu_torch/scripts/{name}.py"
+    assert dumped["stage_ms"] == records
+
+
+def test_cpu_entry_points_launch_no_kernel():
+    kernels.reset_launches()
+    bench_crop_kernels.main(FAST)
+    assert set(kernels.launches().values()) == {0}
+
+
+def test_slope_timer_counts_calls_and_rejects_bad_windows():
+    import torch
+
+    calls = []
+    timing.reset(2, 5)
+    timing.timeit("count", lambda x: calls.append(1) or (x, [x * 2]), torch.ones(3))
+    assert len(calls) == timing.calls_per_stage() == 1 + timing.REPS * 7
+    assert list(timing.RECORDS) == ["count"] and timing.RUN["backend"] == "cpu"
+    with pytest.raises(ValueError):
+        timing.reset(3, 3)
+    with pytest.raises(ValueError):
+        timing.timeit("no tensor", lambda: 0)
+
+
+def bench_py_keys():
+    """The keys of bench.py's result dict."""
+    tree = ast.parse((ROOT / "bench.py").read_text())
+    result = next(n.value for n in ast.walk(tree)
+                  if isinstance(n, ast.Assign) and getattr(n.targets[0], "id", None) == "result")
+    return {k.value for k in result.keys}
+
+
+def test_bench_prints_one_json_line_with_bench_py_keys():
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    r = subprocess.run(
+        [sys.executable, "-m", "graspnet_tpu_torch.scripts.bench", "--device", "cpu", "--tiny",
+         "--frames", "2", "--repeats", "2", "--sync-frames", "2"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert r.returncode == 0, r.stderr[-3000:]
+    lines = r.stdout.strip().splitlines()
+    assert len(lines) == 1
+    got = json.loads(lines[0])
+    assert len(bench_py_keys()) == 10 and bench_py_keys() <= set(got)
+    assert got["backend"] == "cpu" and got["gpu"] is None and got["vs_baseline"] is None
+    assert len(got["observed_spread"]["frames_per_s_runs"]) == 2 and got["value"] > 0
