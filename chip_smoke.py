@@ -10,7 +10,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
   2. kernels: each CUDA kernel against its plain PyTorch version on the
      card, at the production main-path shapes with B=2 on a seeded
      synthetic tabletop cloud of 20000 points — indices exactly equal,
-     features within FEATURE_TOL; CUDA-event median times;
+     features within FEATURE_TOL; CUDA-event median times; FPS (K1) stage
+     by stage (the chain cut after 1-4 stages, us per argmax step) and
+     stage 0 on clusters of 1, 2, 4, 8 and 16 CTAs per scene;
   3. main path: GraspPipeline(GraspNetConfig(), seed=1) on the card —
      get_grasps_topk at B=1 and the batched calls at B=4 give (50, 17)
      finite rows, each forward launches FPS 1, ball query 3, SA1 crop 1 and
@@ -24,13 +26,15 @@ Phases (each prints one JSON line; any failure exits non-zero):
      rotations): K7 gradients against a float64 evaluation, as they are and
      with the cotangent zeroed where a pool maximum is ambiguous, and
      against the plain version at the tight bound on one distinct row per
-     group; the K7 backward run twice and bitwise equal;
+     group; the K7 backward run twice and bitwise equal, and the memory
+     one backward call adds;
   6. training step: Trainer(GraspNetConfig(), TrainConfig(), seed=0) on two
      synthetic labelled scenes with host labels from the port's
      label_pipeline — launch counts of step, prepare and step_prepared, a
      loss that falls over 5 steps on a fixed batch, step_compact == step,
      one step's loss and gradients against the same step on the CPU, and
-     step times, host label-prep time and peak memory;
+     step times, host label-prep time and peak memory, and a profiled
+     step with the K7 backward's time per kernel (pool sums, passes B and C);
   7. query-family and SA kernels: the multi-depth cylinder query (K8), the
      per-query oracle (K10) and the fused SA2-4 stage (K9) against their
      plain versions at production shapes, B=2, on the tabletop clouds —
@@ -217,6 +221,27 @@ def cylinder_tests(cfg, cloud: torch.Tensor, centers: torch.Tensor, rot: torch.T
     return tests
 
 
+def fps_stage_phase(cloud_b, npoints, want0):
+    """K1 stage by stage: the chain cut after 1-4 stages (B=2 and B=1), each
+    stage's share and its microseconds per argmax step, and stage 0 on
+    clusters of 1, 2, 4, 8 and 16 CTAs per scene (indices equal plain's)."""
+    from graspnet_tpu_torch.ops.cuda import fps as kfps
+
+    chain = [cuda_ms(lambda k=k: kfps.fps_chain(cloud_b, npoints[:k]), 10) for k in range(1, len(npoints) + 1)]
+    chain_b1 = [cuda_ms(lambda k=k: kfps.fps_chain(cloud_b[:1], npoints[:k]), 10) for k in range(1, len(npoints) + 1)]
+    stage = [chain[0]] + [b - a for a, b in zip(chain, chain[1:])]
+    steps = [p - 1 for p in npoints]
+    sweep = {}
+    for c in kfps.CLUSTER_SIZES:
+        if not torch.equal(kfps.fps_chain(cloud_b, npoints[:1], c)[0], want0):
+            raise AssertionError(f"fps_chain stage 0 on {c}-CTA clusters differs from plain")
+        sweep[str(c)] = cuda_ms(lambda c=c: kfps.fps_chain(cloud_b, npoints[:1], c), 10)
+    log(phase="fps_stages", b=cloud_b.shape[0], npoints=list(npoints), chain_ms_by_stage_count=chain,
+        chain_ms_by_stage_count_b1=chain_b1, stage_ms=stage,
+        us_per_step=[1e3 * t / max(n, 1) for t, n in zip(stage, steps)],
+        stage0_ms_by_cluster_size=sweep, stage0_equals_plain_for_every_cluster_size=True)
+
+
 def kernel_phase(cfg, model, cloud_b):
     """Phase 2: every kernel against its plain version at main-path shapes."""
     from graspnet_tpu_torch.nn.layers import fold_bn_eval
@@ -249,6 +274,7 @@ def kernel_phase(cfg, model, cloud_b):
         plain_ms=cuda_ms(lambda: kfps.fps_chain_plain(cloud_b, npoints), 2),
         bound_ms=t_bound, bound_by=by, library_ms=None,
     ))
+    fps_stage_phase(cloud_b, npoints, want[0])
 
     # stage point sets of the main path
     xyz = [cloud_b]
@@ -563,10 +589,13 @@ def profiled(name: str, fn, reps: int, unit: str):
             kernels.append((dev_us / reps / 1e3, ev.key[:60], ev.count // reps))
     kernels.sort(reverse=True)
     busy = sum(k[0] for k in kernels)
+    k7_bwd = {k: ms for ms, k, _ in kernels
+              if any(p in k for p in ("mlp_bwd_pass", "pool_sums_kernel", "finish_layer1", "sum_parts"))}
     log(**{"phase": name, f"{unit}s": reps, f"wall_ms_per_{unit}": wall_ms / reps,
            f"device_busy_ms_per_{unit}": busy if kernels else "not measured",
            "device_idle_share": (1 - busy * reps / wall_ms) if kernels else "not measured",
-           "top": [{"kernel": k, "ms": ms, "launches": c} for ms, k, c in kernels[:15]]})
+           "top": [{"kernel": k, "ms": ms, "launches": c} for ms, k, c in kernels[:15]],
+           **({f"k7_backward_ms_per_{unit}_by_kernel": k7_bwd} if k7_bwd else {})})
 
 
 def profile_phase(pipe, clouds, frames: int = 5):
@@ -584,12 +613,14 @@ def mlp_train_flops(c1: int, c2: int, c3: int):
     gradient, so no dx).  The backward's inputs hold no activations, so any
     version also recomputes the forward once: the bound leaves that out and
     errs low.  The kernels run layer 1 three times, layer 2 twice and layer
-    3 once in the forward, and the whole chain in each of the backward's 3
-    passes plus dW3 and da2 (pass B) and da2, dW2 and da1 (pass C).  BN and
-    dW1's x-moments are a few flops per element and are not counted."""
+    3 once in the forward; in the backward, pass B recomputes layers 1-2 for
+    each part of <= 128 layer-3 columns and layer 3 once, then forms dW3 and
+    da2, and pass C recomputes layer 1 and forms dW2 and da1.  BN and dW1's
+    x-moments are a few flops per element and are not counted."""
     l1, l2, l3 = 2 * 3 * c1, 2 * c1 * c2, 2 * c2 * c3
+    parts = c3 // min(c3, 128)
     function = (l1 + l2 + l3, 2 * l3 + 2 * l2 + l1)
-    executed = (3 * l1 + 2 * l2 + l3, 3 * (l1 + l2 + l3) + 3 * l3 + 2 * l2)
+    executed = (3 * l1 + 2 * l2 + l3, parts * (l1 + l2) + 3 * l3 + l1 + 2 * l2)
     return function, executed
 
 
@@ -735,6 +766,7 @@ def train_kernel_phase(cfg, mlp, cloud_b):
     gb = [torch.stack([layer.bn.scale, layer.bn.offset]).detach().contiguous() for layer in mlp]
     st = [torch.stack([s["mean"], s["var"] * (nrows - 1) / nrows]).contiguous() for s in st_k]
     gpool = w.reshape(x.shape[0], -1).contiguous()
+    zext = pool_extreme_z3(mlp, x)
     plain_graph = kmlp.crop_mlp_train_plain(mlp, grouped)[0]
     for name, flops, executed, nbytes, fn, plain, at in (
         ("crop_mlp_train", f_fwd * nrows, x_fwd * nrows, (grouped.numel() + p_k.numel()) * 4 + wbytes,
@@ -742,7 +774,7 @@ def train_kernel_phase(cfg, mlp, cloud_b):
          lambda: kmlp.crop_mlp_train_plain(mlp, grouped), "mlp_train.py:334 (_mlp_train_fwd_call)"),
         ("crop_mlp_train_backward", f_bwd * nrows, x_bwd * nrows,
          (grouped.numel() + w.numel()) * 4 + 2 * wbytes,
-         lambda: kmlp.crop_mlp_train_backward(x, gpool, wts, gb, st, mlp[0].bn.eps),
+         lambda: kmlp.crop_mlp_train_backward(x, gpool, zext, wts, gb, st, mlp[0].bn.eps),
          lambda: torch.autograd.grad(plain_graph, params, w, retain_graph=True),
          "mlp_train.py:394 (_mlp_train_bwd_call)"),
     ):
@@ -758,9 +790,29 @@ def train_kernel_phase(cfg, mlp, cloud_b):
             gflop_executed=executed / 1e9,
         ))
     del plain_graph
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kmlp.crop_mlp_train_backward(x, gpool, zext, wts, gb, st, mlp[0].bn.eps)
+    torch.cuda.synchronize()
+    log(phase="k7_backward_memory", extra_peak_bytes=torch.cuda.max_memory_allocated() - base)
     for r in rows:
         log(phase="kernel", **r)
     return rows
+
+
+def pool_extreme_z3(mlp, x: torch.Tensor) -> torch.Tensor:
+    """(G, S, 3) -> (G, C3): the pre-norm z3 pooled as the backward takes it,
+    the max over each group, or the min where gamma3 < 0 (plain torch)."""
+    from graspnet_tpu_torch.nn.layers import dense
+
+    with torch.no_grad():
+        *hidden, last = mlp
+        h = x
+        for layer in hidden:
+            h, _ = layer.forward_train(h)
+        z3 = dense(last.kernel, None, h)
+        return torch.where(last.bn.scale >= 0, z3.amax(dim=1), z3.amin(dim=1)).contiguous()
 
 
 def labelled_scene(rng: np.random.Generator, cloud: np.ndarray, cfg, n_obj: int = 8, n_pts: int = 300):

@@ -17,8 +17,10 @@ from graspnet_tpu_torch.ops.cuda import build
 
 NEAR_ORIGIN_SQ = 1e-3
 INIT_DIST = 1e10
-MAX_POINTS = 1024 * 24  # threads per block x points per thread in fps.cu
+MAX_POINTS = 1024 * 24  # threads x min-distances per thread of fps.cu's wide variant
 MAX_STAGES = 8
+MAX_FORWARD = 1024 * 10  # points a later stage holds in CTA 0's registers
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # CTAs per scene in stage 0; 0 takes fps.cu's default
 
 
 def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -65,17 +67,18 @@ def _lib():
     if fn.argtypes is None:
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return fn
 
 
-def fps_chain(xyz: torch.Tensor, npoints: Sequence[int]) -> Tuple[torch.Tensor, ...]:
+def fps_chain(xyz: torch.Tensor, npoints: Sequence[int], cluster: int = 0) -> Tuple[torch.Tensor, ...]:
     """Cascaded FPS: (B, N, 3) float32 -> one (B, npoint_k) int64 per stage.
 
-    CUDA tensor: one launch of the fps.cu kernel for every stage.  CPU
-    tensor: `fps_chain_plain`.
+    CUDA tensor: one launch of the fps.cu kernel for every stage, stage 0 on
+    a cluster of `cluster` CTAs per scene (0: the kernel's default; other
+    sizes are for measuring).  CPU tensor: `fps_chain_plain`.
     """
     npoints = tuple(int(p) for p in npoints)
     if not xyz.is_cuda:
@@ -90,12 +93,16 @@ def fps_chain(xyz: torch.Tensor, npoints: Sequence[int]) -> Tuple[torch.Tensor, 
         if not 1 <= p <= prev:
             raise ValueError(f"stage npoints {npoints} must shrink from N={n}")
         prev = p
+    if max(npoints[:-1], default=0) > MAX_FORWARD:
+        raise ValueError(f"fps_chain forwards at most {MAX_FORWARD} points to a next stage")
+    if cluster and cluster not in CLUSTER_SIZES:
+        raise ValueError(f"fps_chain cluster must be one of {CLUSTER_SIZES}, got {cluster}")
     xyz = xyz.contiguous()
     out = torch.empty((b, sum(npoints)), dtype=torch.int64, device=xyz.device)
     stages = (ctypes.c_int * len(npoints))(*npoints)
     err = _lib()(
         xyz.data_ptr(), out.data_ptr(), b, n, ctypes.cast(stages, ctypes.c_void_p),
-        len(npoints), torch.cuda.current_stream(xyz.device).cuda_stream,
+        len(npoints), cluster, torch.cuda.current_stream(xyz.device).cuda_stream,
     )
     build.check(err, "fps_chain")
     fps_chain.launches += 1

@@ -12,7 +12,11 @@ backward are the kernels.  The forward kernel counts in
 
 The kernels compute in float32 on the CUDA cores; the JAX package runs its
 kernel with bf16 matmul inputs on the TPU (`mlp_train.py:515-522`), and the
-port is held against the XLA float32 path instead.
+port is held against the XLA float32 path instead.  The backward takes the
+forward's pooled pre-norm z3 (`zext`, saved for it).  The kernels take
+s <= 64 samples and widths with c1 <= 64, c2 <= 128 (multiples of 8) and c3
+a multiple of 8 up to 128 or of 128 (`gn_mlp_train_dims_ok`), which
+`crop_mlp_train` checks before launching.
 """
 
 from __future__ import annotations
@@ -63,9 +67,19 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def crop_mlp_train_backward(x, g_pooled, w, gb, st, eps: float):
+def dims_supported(s: int, c1: int, c2: int, c3: int) -> bool:
+    """Whether the kernels take groups of s rows and widths (c1, c2, c3)."""
+    fn = build.load("mlp_train").gn_mlp_train_dims_ok
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 4
+        fn.restype = ctypes.c_int
+    return bool(fn(s, c1, c2, c3))
+
+
+def crop_mlp_train_backward(x, g_pooled, zext, w, gb, st, eps: float):
     """The backward kernels: (G, S, 3) rows, (G, C3) pooled cotangent, the
-    three kernels, [gamma; beta] and [mean; biased var] per layer ->
+    forward's (G, C3) pooled pre-norm z3 (the max, or the min where gamma3 <
+    0), the three kernels, [gamma; beta] and [mean; biased var] per layer ->
     (dW1, dW2, dW3), ([dgamma; dbeta] per layer)."""
     g, s, _ = x.shape
     c1, c2, c3 = (k.shape[1] for k in w)
@@ -73,10 +87,9 @@ def crop_mlp_train_backward(x, g_pooled, w, gb, st, eps: float):
     dgb = [torch.empty_like(v) for v in gb]
     sm = _sm_count(x.device)
     scratch = _scratch(g, (s, c1, c2, c3), sm, True, x.device)
-    w2t, w3t = w[1].t().contiguous(), w[2].t().contiguous()
-    err = _fn("gn_mlp_train_bwd", 20)(
-        x.data_ptr(), g_pooled.data_ptr(), w[0].data_ptr(), w[1].data_ptr(), w[2].data_ptr(),
-        w2t.data_ptr(), w3t.data_ptr(), gb[0].data_ptr(), gb[1].data_ptr(), gb[2].data_ptr(),
+    err = _fn("gn_mlp_train_bwd", 19)(
+        x.data_ptr(), g_pooled.data_ptr(), zext.data_ptr(), w[0].data_ptr(), w[1].data_ptr(),
+        w[2].data_ptr(), gb[0].data_ptr(), gb[1].data_ptr(), gb[2].data_ptr(),
         st[0].data_ptr(), st[1].data_ptr(), st[2].data_ptr(),
         dw[0].data_ptr(), dw[1].data_ptr(), dw[2].data_ptr(),
         dgb[0].data_ptr(), dgb[1].data_ptr(), dgb[2].data_ptr(), scratch.data_ptr(),
@@ -124,16 +137,16 @@ class _CropMLPTrain(torch.autograd.Function):
         mean3, var3 = st[2][0], st[2][1]
         zext = torch.where(s3 >= 0.0, zmax, zmin)
         pooled = torch.relu((zext - mean3) * (torch.rsqrt(var3 + eps) * s3) + o3)
-        ctx.save_for_backward(x, *w, *gb, *st)
+        ctx.save_for_backward(x, zext, *w, *gb, *st)
         ctx.eps = eps
         ctx.mark_non_differentiable(*st)
         return (pooled.reshape(*lead, -1), *st)
 
     @staticmethod
     def backward(ctx, g_pooled, *_g_stats):
-        x, w1, w2, w3, gb1, gb2, gb3, st1, st2, st3 = ctx.saved_tensors
+        x, zext, w1, w2, w3, gb1, gb2, gb3, st1, st2, st3 = ctx.saved_tensors
         g = g_pooled.reshape(x.shape[0], -1).contiguous()
-        dw, dgb = crop_mlp_train_backward(x, g, (w1, w2, w3), (gb1, gb2, gb3), (st1, st2, st3), ctx.eps)
+        dw, dgb = crop_mlp_train_backward(x, g, zext, (w1, w2, w3), (gb1, gb2, gb3), (st1, st2, st3), ctx.eps)
         out = [None, None]
         for k, v in zip(dw, dgb):
             out += [k, v[0], v[1]]
@@ -154,6 +167,9 @@ def crop_mlp_train(mlp: SharedMLP, grouped: torch.Tensor) -> Tuple[torch.Tensor,
         return crop_mlp_train_plain(mlp, grouped)
     if len(mlp) != 3 or grouped.dtype != torch.float32 or grouped.shape[-1] != 3:
         raise ValueError("crop_mlp_train takes float32 (..., S, 3) rows and a 3-layer SharedMLP")
+    dims = (grouped.shape[-2], *(layer.kernel.shape[1] for layer in mlp))
+    if not dims_supported(*dims):
+        raise ValueError(f"crop_mlp_train kernels do not take (s, c1, c2, c3) = {dims}")
     eps = mlp[0].bn.eps
     params = [p for layer in mlp for p in (layer.kernel, layer.bn.scale, layer.bn.offset)]
     pooled, *st = _CropMLPTrain.apply(grouped, eps, *params)

@@ -63,6 +63,43 @@ def test_fps_chain_matches_plain(dev, n, npoints):
         assert torch.equal(g, w)
 
 
+def tie_lattice(rng, b, n):
+    """Coordinates in multiples of 1/8 (exact squares: distances tie), with
+    near-origin points that are never picked."""
+    pts = (rng.integers(-6, 7, (b, n, 3)) / 8.0).astype(np.float32)
+    near = rng.choice(n, max(1, n // 50), replace=False)
+    pts[:, near] = rng.uniform(-0.01, 0.01, (b, len(near), 3))
+    return torch.from_numpy(pts)
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("kind", ["uniform", "lattice"])
+def test_fps_chain_full_size_matches_plain(dev, b, kind):
+    """N = MAX_POINTS (24,576) with the production cascade, every cluster
+    size of stage 0 (the default, 1 and 2 on the 1024-thread variant, 4, 16)."""
+    rng = np.random.default_rng(b)
+    n = kfps.MAX_POINTS
+    xyz = (cloud(rng, b, n) if kind == "uniform" else tie_lattice(rng, b, n)).to(dev)
+    npoints = (2048, 1024, 512, 256)
+    want = kfps.fps_chain_plain(xyz, npoints)
+    for cluster in (0, 1, 2, 4, 16):
+        for g, w in zip(kfps.fps_chain(xyz, npoints, cluster), want):
+            assert torch.equal(g, w), cluster
+
+
+@pytest.mark.parametrize("n,npoints", [(20001, (2048, 1024)), (1001, (1001,)), (3000, (3000, 2500)),
+                                       (4099, (700,)), (9, (9, 9, 3)), (1, (1,))])
+@pytest.mark.parametrize("cluster", [0, 2, 8, 16])
+def test_fps_chain_edge_shapes_match_plain(dev, n, npoints, cluster):
+    """N not divisible by the cluster size, npoint = N, forwarded stages
+    above 2048 points (the 1024-thread variant), one-stage calls, tiny N;
+    on a tie lattice with near-origin points."""
+    rng = np.random.default_rng(n + cluster)
+    xyz = tie_lattice(rng, 2, n).to(dev)
+    for g, w in zip(kfps.fps_chain(xyz, npoints, cluster), kfps.fps_chain_plain(xyz, npoints)):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("radius,ns", [(0.1, 32), (0.2, 16), (0.03, 64), (5.0, 8)])
 def test_ball_query_matches_plain(dev, radius, ns):
     rng = np.random.default_rng(int(radius * 100) + ns)
@@ -198,6 +235,61 @@ def test_crop_mlp_train_matches_plain(dev, dims, m, rows):
     _, _, again = _mlp_grads(kmlp.crop_mlp_train, mlp, grouped, w)
     for a, b in zip(g_k, again):
         assert torch.equal(a, b)  # no atomics: the backward is bitwise repeatable
+
+
+def unambiguous_pool(mlp64, grouped, margin=1e-4):
+    """(..., S, 3) -> (..., C3) bool: in float64 the pre-relu pool maximum
+    beats every row of another value, and clears the relu kink, by margin x
+    max(1, max |y|) (chip_smoke.py's POOL_MARGIN); equal rows are exact ties
+    that every version splits evenly."""
+    from graspnet_tpu_torch.nn.layers import dense
+
+    with torch.no_grad():
+        *hidden, last = mlp64
+        h = grouped.double()
+        for layer in hidden:
+            h, _ = layer.forward_train(h)
+        y, _ = last.bn.forward_train(dense(last.kernel, None, h))
+        top = y.amax(dim=-2, keepdim=True)
+        below = torch.where(y < top, y, -torch.inf).amax(dim=-2)
+        tau = margin * max(1.0, y.abs().max().item())
+        return (top[..., 0, :] - below >= tau) & (top[..., 0, :].abs() >= tau)
+
+
+@pytest.mark.parametrize("dims", [(3, 8, 16, 32), (3, 64, 128, 256)])
+@pytest.mark.parametrize("s,rows", [(1, "random"), (17, "padded"), (64, "duplicate")])
+def test_crop_mlp_train_backward_small_groups_and_duplicates(dev, dims, s, rows):
+    """K7 backward on s in {1, 17, 64} and on groups of 64 identical rows
+    (every maximum a 64-way tie), against float64 with the cotangent zeroed
+    where a pool maximum is ambiguous (chip_smoke.py's 2e-3 x max(1, scale)
+    bound for that check); bitwise repeatable."""
+    rng = np.random.default_rng(s + dims[1])
+    g = rng.uniform(-0.3, 0.3, (2, 96, 4, s, 3)).astype(np.float32)
+    if rows == "padded":
+        g[:, :, :, s // 2:] = g[:, :, :, :1]
+    elif rows == "duplicate":
+        g[:, ::2] = g[:, ::2, :, :1]
+    grouped = torch.from_numpy(g).to(dev)
+    mlp = mlp_with_stats(dims, 1, dev)
+    mlp64 = mlp_with_stats(dims, 1, dev).double()
+    w = torch.from_numpy(rng.normal(size=(2, 96, 4, dims[-1])).astype(np.float32)).to(dev)
+    w = w * unambiguous_pool(mlp64, grouped)
+    _, _, g_k = _mlp_grads(kmlp.crop_mlp_train, mlp, grouped, w)
+    _, _, g_64 = _mlp_grads(kmlp.crop_mlp_train_plain, mlp64, grouped.double(), w)
+    _, _, again = _mlp_grads(kmlp.crop_mlp_train, mlp, grouped, w)
+    assert _grad_err(g_k, g_64) <= 2e-3
+    for a, b in zip(g_k, again):
+        assert torch.equal(a, b)
+
+
+def test_crop_mlp_train_rejects_unsupported_widths(dev):
+    from graspnet_tpu_torch.nn.layers import SharedMLP
+
+    grouped = torch.zeros(1, 2, 4, 64, 3, device=dev)
+    with pytest.raises(ValueError):
+        kmlp.crop_mlp_train(SharedMLP((3, 128, 64, 32)).to(dev), grouped)  # c1 > 64
+    with pytest.raises(ValueError):
+        kmlp.crop_mlp_train(SharedMLP((3, 8, 16, 32)).to(dev), torch.zeros(1, 2, 4, 65, 3, device=dev))
 
 
 def test_crop_mlp_train_pool_near_ties_at_production_shape(dev):
