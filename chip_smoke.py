@@ -6,11 +6,14 @@ GPU and check them.
 Phases (each prints one JSON line; any failure exits non-zero):
   1. environment: card name and power limit (nvidia-smi), torch and CUDA
      versions, and the parallel nvcc build of every kernel in
-     graspnet_tpu_torch/csrc;
+     graspnet_tpu_torch/csrc, with each kernel's registers, spills and
+     shared memory from ptxas;
   2. kernels: each CUDA kernel against its plain PyTorch version on the
      card, at the production main-path shapes with B=2 on a seeded
      synthetic tabletop cloud of 20000 points — indices exactly equal,
-     features within FEATURE_TOL; CUDA-event median times; FPS (K1) stage
+     features within FEATURE_TOL; CUDA-event median times; bounds with
+     MLP products at the 3xTF32 tensor-core rate and scans at the f32
+     CUDA-core rate; the CloudCrop's (K5) scan share; FPS (K1) stage
      by stage (the chain cut after 1-4 stages, us per argmax step) and
      stage 0 on clusters of 1, 2, 4, 8 and 16 CTAs per scene;
   3. main path: GraspPipeline(GraspNetConfig(), seed=1) on the card —
@@ -18,8 +21,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
      finite rows, each forward launches FPS 1, ball query 3, SA1 crop 1 and
      CloudCrop 1 times, the card's top-50 matches the same pipeline on the
      CPU, and p50 latency / sustained frames/s at B=1;
-  4. a torch.profiler window over B=1 frames: device time per kernel and
-     the device's idle share;
+  4. a torch.profiler window over B=1 frames: device time per kernel (K5's
+     scan and MLP launches apart) and the device's idle share;
   5. training kernels: the crop group (K6) and the train MLP forward and
      backward (K7) against their plain versions at the training shape
      (B=2, 1024 label points near the tabletop's objects, random
@@ -34,7 +37,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
      loss that falls over 5 steps on a fixed batch, step_compact == step,
      one step's loss and gradients against the same step on the CPU, and
      step times, host label-prep time and peak memory, and a profiled
-     step with the K7 backward's time per kernel (pool sums, passes B and C);
+     step with the K7 forward's (passes 1-3, reductions) and backward's
+     (pool sums, passes B and C) time per kernel;
   7. query-family and SA kernels: the multi-depth cylinder query (K8), the
      per-query oracle (K10) and the fused SA2-4 stage (K9) against their
      plain versions at production shapes, B=2, on the tabletop clouds —
@@ -58,6 +62,7 @@ from __future__ import annotations
 
 import copy
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -78,6 +83,7 @@ FEATURE_TOL = 1e-4  # max |kernel - plain| / max(1, max |plain|): f32 sums in an
 TOOL_K_LO, TOOL_K_HI = 2, 6
 TOPK_ATOL = 1e-4  # CPU vs card top-50 floats: CPU BLAS vs cuBLAS f32 sums
 PEAK_F32_FLOPS = 67e12  # H100 SXM, non-tensor f32 (NVIDIA data sheet)
+PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 tensor cores (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 TEST_FLOPS = {"ball": 8, "cylinder": 21}  # flops per point-center membership test
 # K7 pooled x max(1, scale) and stats (tests/test_mlp_train.py's bounds)
@@ -112,6 +118,45 @@ TRAIN_SEED = 0
 
 def log(**kv) -> None:
     print(json.dumps(kv), flush=True)
+
+
+def ptxas_records(source: str, out: str) -> list:
+    """nvcc -Xptxas -v output -> one record per kernel: its name (template
+    arguments as <...>), registers, spill bytes and static shared memory;
+    for the crop's tensor-core MLP also the dynamic shared memory it takes
+    at GraspNetConfig()'s widths."""
+    from graspnet_tpu_torch.config import GraspNetConfig
+    from graspnet_tpu_torch.ops.cuda import crop as kcrop
+
+    records, current = [], None
+    for line in out.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            name = mangled
+            # length-prefixed identifiers; a prefix may follow hex digits of a hash
+            lengths = [(m.end(), int(m.group()[i:])) for m in re.finditer(r"\d+", mangled)
+                       for i in range(len(m.group()))]
+            for end, n in lengths:
+                word = mangled[end: end + n]
+                if word.endswith("kernel") and re.fullmatch(r"[A-Za-z_]\w*", word):
+                    args = re.match(r"ILi(\d+)E", mangled[end + n:])
+                    name = word + (f"<{args.group(1)}>" if args else "")
+                    break
+            current = {"source": source, "kernel": name}
+            records.append(current)
+        elif current is not None:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spill:
+                current["spill_bytes"] = int(spill.group(1)) + int(spill.group(2))
+            used = re.search(r"Used (\d+) registers", line)
+            if used:
+                current["registers"] = int(used.group(1))
+                smem = re.search(r"(\d+) bytes smem", line)
+                current["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+                if current["kernel"].startswith("crop_mlp_tc_kernel"):
+                    current["dynamic_smem_bytes"] = kcrop.cylinder_smem_bytes(*GraspNetConfig().crop_mlp[1:])
+    return records
 
 
 def nvidia_smi() -> str:
@@ -175,8 +220,15 @@ def nth_hit_tests(mask: torch.Tensor, ns: int) -> torch.Tensor:
     return torch.clamp(pos + 1, max=n)
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(nbytes: float, flops: float = 0.0, mlp_flops: float = 0.0):
+    """The least time of a kernel's work in ms, and what bounds it: the
+    larger of its bytes over the memory rate and its operations, each type
+    over its own peak.  Scans and membership tests (`flops`) run at the f32
+    CUDA-core peak; MLP products (`mlp_flops`) at the least time f32
+    accuracy allows, 3xTF32 on the tensor cores (3 x flops / 495 TFLOP/s,
+    below flops / 67 TFLOP/s)."""
+    t_ops = (flops / PEAK_F32_FLOPS + 3 * mlp_flops / PEAK_TF32_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -265,7 +317,7 @@ def kernel_phase(cfg, model, cloud_b):
     for p in npoints:
         flops += b * (p - 1) * n * 9
         n = p
-    t_bound, by = bound(flops, cloud_b.numel() * 4 + b * sum(npoints) * 8)
+    t_bound, by = bound(cloud_b.numel() * 4 + b * sum(npoints) * 8, flops)
     rows.append(dict(
         name="fps_chain", route="cuda", source="graspnet_tpu_torch/csrc/fps.cu",
         replaces="graspnet_tpu/ops/pallas/fps.py:242 (fps_chain_pallas) + fps.py:161 (fps_pallas)",
@@ -291,7 +343,7 @@ def kernel_phase(cfg, model, cloud_b):
             raise AssertionError(f"ball_query indices differ for r={args[2]}")
         flops += nth_hit_tests(ball_mask(args[0], args[1], args[2]), args[3]).sum().item() * TEST_FLOPS["ball"]
         nbytes += (args[0].numel() + args[1].numel()) * 4 + w.numel() * 8
-    t_bound, by = bound(flops, nbytes)
+    t_bound, by = bound(nbytes, flops)
     rows.append(dict(
         name="ball_query", route="cuda", source="graspnet_tpu_torch/csrc/query.cu",
         replaces="graspnet_tpu/ops/pallas/query.py:554 (ball_query_pallas -> multi_query_batched_pallas)",
@@ -311,8 +363,9 @@ def kernel_phase(cfg, model, cloud_b):
     err = feature_err(g, w)
     tests = sum(nth_hit_tests(ball_mask(cloud_b, centers[:, m0:m0 + 256], sa.radius), sa.nsample).sum().item()
                 for m0 in range(0, centers.shape[1], 256))
-    flops = tests * TEST_FLOPS["ball"] + mlp_flops(folded, centers.shape[0] * centers.shape[1] * sa.nsample)
-    t_bound, by = bound(flops, (cloud_b.numel() + centers.numel() + g.numel()) * 4 + weight_bytes(folded))
+    t_bound, by = bound((cloud_b.numel() + centers.numel() + g.numel()) * 4 + weight_bytes(folded),
+                        tests * TEST_FLOPS["ball"],
+                        mlp_flops(folded, centers.shape[0] * centers.shape[1] * sa.nsample))
     rows.append(dict(
         name="sa1_fused", route="cuda", source="graspnet_tpu_torch/csrc/crop.cu",
         replaces="graspnet_tpu/ops/pallas/crop.py:297 (sa1_fused_pallas -> crop_fused_pallas(ball=True))",
@@ -333,9 +386,8 @@ def kernel_phase(cfg, model, cloud_b):
     err = feature_err(g, w)
     tests = cylinder_tests(cfg, cloud_b, seeds, rot)
     nrows = seeds.shape[0] * seeds.shape[1] * len(cfg.hmax_list) * cfg.crop_nsample
-    flops = tests * TEST_FLOPS["cylinder"] + mlp_flops(folded, nrows)
-    t_bound, by = bound(flops, (cloud_b.numel() + seeds.numel() + rot.numel() + g.numel()) * 4
-                        + weight_bytes(folded))
+    t_bound, by = bound((cloud_b.numel() + seeds.numel() + rot.numel() + g.numel()) * 4
+                        + weight_bytes(folded), tests * TEST_FLOPS["cylinder"], mlp_flops(folded, nrows))
     rows.append(dict(
         name="crop_fused", route="cuda", source="graspnet_tpu_torch/csrc/crop.cu",
         replaces="graspnet_tpu/ops/pallas/crop.py:297 (crop_fused_pallas)",
@@ -344,6 +396,12 @@ def kernel_phase(cfg, model, cloud_b):
         plain_ms=cuda_ms(lambda: kcrop.crop_fused_plain(*args), 3),
         bound_ms=t_bound, bound_by=by, library_ms=None,
     ))
+    # its two launches: the scan (the crop group's kernel, timed alone here)
+    # and the tensor-core MLP
+    scan_ms = cuda_ms(lambda: kcrop.crop_group(cloud_b, seeds, rot, *args[4:]), 10)
+    log(phase="crop_fused_split", ms=rows[-1]["ms"], scan_ms=scan_ms, scan_share=scan_ms / rows[-1]["ms"],
+        mlp_gflop=mlp_flops(folded, nrows) / 1e9,
+        mlp_tflop_per_s=mlp_flops(folded, nrows) / (rows[-1]["ms"] - scan_ms) / 1e9)
     for r in rows:
         log(phase="kernel", **r)
     return rows
@@ -376,8 +434,8 @@ def query_sa_kernel_phase(cfg, model, cloud_b):
     for name, got in (("cylinder_query_multi", got8), ("multi_query(rotate=True)", got10)):
         if not torch.equal(got, want):
             raise AssertionError(f"{name} indices differ at {(got != want).nonzero()[:5].tolist()}")
-    t_bound, by = bound(cylinder_tests(cfg, cloud_b, seeds, rot) * TEST_FLOPS["cylinder"],
-                        (cloud_b.numel() + seeds.numel() + rot.numel()) * 4 + want.numel() * 8)
+    t_bound, by = bound((cloud_b.numel() + seeds.numel() + rot.numel()) * 4 + want.numel() * 8,
+                        cylinder_tests(cfg, cloud_b, seeds, rot) * TEST_FLOPS["cylinder"])
     rows.append(dict(
         name="cylinder_query_multi", route="cuda", source="graspnet_tpu_torch/csrc/query.cu",
         replaces="graspnet_tpu/ops/pallas/query.py:554 (cylinder_query_multi_pallas -> "
@@ -413,16 +471,16 @@ def query_sa_kernel_phase(cfg, model, cloud_b):
         sa_calls.append((xyz[k], xyz[k + 1], feats[-1], fold_bn_eval(stage.mlp), sa.radius, sa.nsample))
         feats.append(stage(xyz[k], feats[-1], inds[k])[1])  # the backbone's own path (K4 + gather)
     err = backbone_err = 0.0
-    flops = nbytes = 0
+    flops = nbytes = mlp = 0
     for call, backbone_out in zip(sa_calls, feats[1:]):
         got, want = kcrop.sa_feat_fused(*call), kcrop.sa_feat_fused_plain(*call)
         err = max(err, feature_err(got, want))
         backbone_err = max(backbone_err, feature_err(got, backbone_out))  # / r there, x (1/r) here
         x, c, f, folded, r, ns = call
-        flops += (nth_hit_tests(ball_mask(x, c, r), ns).sum().item() * TEST_FLOPS["ball"]
-                  + mlp_flops(folded, c.shape[0] * c.shape[1] * ns))
+        flops += nth_hit_tests(ball_mask(x, c, r), ns).sum().item() * TEST_FLOPS["ball"]
+        mlp += mlp_flops(folded, c.shape[0] * c.shape[1] * ns)
         nbytes += (x.numel() + c.numel() + f.numel() + got.numel()) * 4 + weight_bytes(folded)
-    t_bound, by = bound(flops, nbytes)
+    t_bound, by = bound(nbytes, flops, mlp)
     rows.append(dict(
         name="sa_feat_fused", route="cuda", source="graspnet_tpu_torch/csrc/crop.cu",
         replaces="graspnet_tpu/ops/pallas/crop.py:547 (sa_feat_fused_pallas -> _sa_feat_fused)",
@@ -568,10 +626,12 @@ def main_path_phase(cfg, pipe, clouds):
     return launches, timing
 
 
-def profiled(name: str, fn, reps: int, unit: str):
+def profiled(name: str, fn, reps: int, unit: str, groups=None):
     """Device time per kernel over `reps` calls of fn(i) under
     torch.profiler; the device's busy share is the summed kernel time over
-    the wall time of the window.  Logs the top kernels per call (`unit`)."""
+    the wall time of the window.  Logs the top kernels per call (`unit`) and,
+    for each of `groups` ({label: kernel-name parts}), the time per call of
+    every kernel whose name holds one of the parts."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -589,19 +649,20 @@ def profiled(name: str, fn, reps: int, unit: str):
             kernels.append((dev_us / reps / 1e3, ev.key[:60], ev.count // reps))
     kernels.sort(reverse=True)
     busy = sum(k[0] for k in kernels)
-    k7_bwd = {k: ms for ms, k, _ in kernels
-              if any(p in k for p in ("mlp_bwd_pass", "pool_sums_kernel", "finish_layer1", "sum_parts"))}
+    by_group = {f"{label}_ms_per_{unit}_by_kernel": {k: ms for ms, k, _ in kernels if any(p in k for p in parts)}
+                for label, parts in (groups or {}).items()}
     log(**{"phase": name, f"{unit}s": reps, f"wall_ms_per_{unit}": wall_ms / reps,
            f"device_busy_ms_per_{unit}": busy if kernels else "not measured",
            "device_idle_share": (1 - busy * reps / wall_ms) if kernels else "not measured",
            "top": [{"kernel": k, "ms": ms, "launches": c} for ms, k, c in kernels[:15]],
-           **({f"k7_backward_ms_per_{unit}_by_kernel": k7_bwd} if k7_bwd else {})})
+           **{k: v for k, v in by_group.items() if v}})
 
 
 def profile_phase(pipe, clouds, frames: int = 5):
     """Where a B=1 serving frame spends device time: a few get_grasps_topk
     calls under torch.profiler."""
-    profiled("profile_b1", lambda i=0: pipe.get_grasps_topk(clouds[i % len(clouds)]), frames, "frame")
+    profiled("profile_b1", lambda i=0: pipe.get_grasps_topk(clouds[i % len(clouds)]), frames, "frame",
+             {"k5": ("crop_group_kernel", "crop_mlp_tc_kernel")})
 
 
 def mlp_train_flops(c1: int, c2: int, c3: int):
@@ -681,8 +742,8 @@ def train_kernel_phase(cfg, mlp, cloud_b):
     if not torch.equal(grouped, want):
         raise AssertionError(f"crop_group offsets differ from the plain version by {err}")
     tests = cylinder_tests(cfg, cloud_b, centers, rot)
-    t_bound, by = bound(tests * TEST_FLOPS["cylinder"],
-                        (cloud_b.numel() + centers.numel() + rot.numel() + grouped.numel()) * 4)
+    t_bound, by = bound((cloud_b.numel() + centers.numel() + rot.numel() + grouped.numel()) * 4,
+                        tests * TEST_FLOPS["cylinder"])
     rows.append(dict(
         name="crop_group", route="cuda", source="graspnet_tpu_torch/csrc/crop.cu",
         replaces="graspnet_tpu/ops/pallas/crop.py:423 (crop_group_pallas)",
@@ -778,7 +839,7 @@ def train_kernel_phase(cfg, mlp, cloud_b):
          lambda: torch.autograd.grad(plain_graph, params, w, retain_graph=True),
          "mlp_train.py:394 (_mlp_train_bwd_call)"),
     ):
-        t_bound, by = bound(flops, nbytes)
+        t_bound, by = bound(nbytes, mlp_flops=flops)
         with torch.no_grad() if name == "crop_mlp_train" else torch.enable_grad():
             ms = cuda_ms(fn, 5)
             plain_ms = cuda_ms(plain, 3)
@@ -939,7 +1000,9 @@ def train_phase(cfg, clouds: np.ndarray):
     timing = dict(train_step_ms=step_ms, pipelined_compact_step_ms=pipelined_ms,
                   host_label_prep_ms_per_scene=prep_ms, peak_memory_bytes=peak)
     log(phase="train_timing", **timing)
-    profiled("profile_train_step", lambda i=0: tr.step(dev_full), 3, "step")
+    profiled("profile_train_step", lambda i=0: tr.step(dev_full), 3, "step",
+             {"k7_forward": ("mlp_fwd_pass", "chan_reduce"),
+              "k7_backward": ("mlp_bwd_pass", "pool_sums_kernel", "finish_layer1", "sum_parts")})
     return step_launches, timing
 
 
@@ -956,12 +1019,9 @@ def main() -> int:
     t0 = time.perf_counter()
     nvcc_out = build.build_all()
     build_s = time.perf_counter() - t0
-    for name, out in nvcc_out.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"nvcc {name}: {line.strip()}", flush=True)
     log(phase="environment", gpu=smi, torch=torch.__version__, cuda=torch.version.cuda,
         build_s=build_s)
+    log(phase="build", kernels=[r for name, out in nvcc_out.items() for r in ptxas_records(name, out)])
 
     cfg = GraspNetConfig()
     pipe = GraspPipeline(cfg=cfg, seed=WEIGHT_SEED)  # default device: the card

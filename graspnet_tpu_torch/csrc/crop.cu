@@ -18,28 +18,51 @@
 //   6. the max over the ns samples -> out[center, d, :].
 // crop_group_kernel stops after step 4 and writes the (D, ns, 3) offsets.
 //
-// What bounds it on an H100: the MLP's f32 FMAs.  Per frame the crop runs
-// 1024 x 4 x 64 rows through 3 -> 64 -> 128 -> 256 (about 21.6 GFLOP) and
-// SA1 2048 x 64 rows through 3 -> 64 -> 64 -> 128 (about 3.3 GFLOP); the
-// scans test 20.5 M and 41 M point-center pairs.  This first version runs
-// the MLP on the CUDA cores in f32 (no tensor cores), so it is far from
-// the f32 peak; wgmma is later work.
+// SA1 (K3, ball mode, crop_fused_kernel): what bounds it on an H100 is the
+// MLP, 2048 x 64 rows through 3 -> 64 -> 64 -> 128 per frame (about 3.3
+// GFLOP), and a scan of 41 M point-center pairs.  It runs the MLP on the
+// CUDA cores in f32: the folded weights stay in device memory (read through
+// L1/L2) and a block runs one centre's ns <= 64 rows, h1 and h2 tiles in
+// shared memory, the last layer reduced to a running max in registers.
 //
-// Design: the folded crop weights are ~41k floats (165 KB); beside them a
-// 256-row x 128 activation tile (128 KB) would not fit in 227 KB of shared
-// memory.  So the weights stay in device memory (read through L1/L2, every
-// block reads the same 165 KB) and the rows go one depth (ns <= 64 rows) at a
-// time: h1 (64 x c1) and h2 (64 x c2) tiles in shared memory, and the last
-// layer is reduced to a running max in registers, so h3 never exists.
+// CloudCrop (K5, cylinder mode): steps 1-4 are crop_group_kernel, unchanged
+// (the same offsets bit for bit), into a (B, M, D, ns, 3) scratch, then
+// crop_mlp_tc_kernel runs steps 5-6 on the tensor cores.  Per frame the MLP
+// is 1024 x 4 x 64 rows through 3 -> 64 -> 128 -> 256 (21.6 GFLOP); the scan
+// tests 20.5 M point-center pairs.  The two halves want opposite shapes: the
+// scan is latency-bound (three barriers per 256 points) and needs many
+// resident blocks to hide it, the MLP wants its 160 KB of folded W2/W3
+// resident, which leaves one block per SM.  So they are two launches, and
+// the offsets (6.3 MB at B=2) go through device memory once.
+//   crop_mlp_tc_kernel: about one block per SM walks the (centre, depth)
+// groups with W2 and W3 resident in shared memory (f32, transposed, loaded
+// once per block).  A group's ns rows, padded to m16 tiles, go through layer
+// 1 (K = 3) on the CUDA cores in the JAX broadcast-sum order, then layers 2
+// and 3 as mma.sync.m16n8k8 TF32 products in 3xTF32: each f32 operand x
+// splits into hi = tf32(x) (round to nearest, ties away: cvt.rna's bits)
+// and lo = x - hi, which the tensor core reads as TF32 (truncated), and the
+// f32 accumulator takes lo*hi + hi*lo + hi*hi.  The error is ~2^-21
+// relative, f32-accurate for the 1e-4 feature gate (plain TF32 keeps ~3
+// digits and would break it).  Operands come from shared memory by
+// ldmatrix.x4 and are split on the fly (pre-split hi/lo weights would need
+// 330 KB).  Layer 3's accumulators are max-reduced over rows in registers
+// and warp shuffles straight into out: a warp owns 32 columns over all rows,
+// so h3 never exists and no cross-warp reduction is needed.  Rows are padded
+// to a stride of 4 mod 32 floats (bank_ld), so every ldmatrix phase hits 32
+// banks.  What bounds it: the splits and fragment loads on the CUDA cores,
+// not the tensor cores (on an earlier version of this loop one mma per tile
+// in place of three saved 9 %); bound 3 x 43.2 GFLOP at B=2, 0.26 ms at
+// 495 TFLOP/s.
+//
 // The scan uses 8 warps over 256 consecutive points per round; per depth a
 // ballot gives each hit its slot after the hits of lower warps.  The mask
 // arithmetic uses __fmul_rn/__fadd_rn in the JAX order (crop.py:109-125),
 // so no FMA contraction moves a point across a boundary.
 //
-// The crop group is bound by its scan: 41 M point tests per training step
-// (B=2, 1024 label points, 20000 points) against 6.3 MB of output, so it
+// The crop group (K6) is bound by its scan: 41 M point tests per training
+// step (B=2, 1024 label points, 20000 points) against 6.3 MB of output; it
 // shares the fused kernel's scan (scan_first_hits) and sample transform
-// (crop_sample) unchanged; its indices are those of the fused kernel.
+// (crop_sample), so its indices are those of the fused kernels.
 //
 // sa_feat_kernel replaces crop.py::sa_feat_fused_pallas (K9, body
 // _sa_feat_kernel, crop.py:448-519), the fused SA2-4 eval stage: the same
@@ -387,50 +410,222 @@ sa_feat_kernel(const float* __restrict__ xyz,
   dense_relu_max(h2, a.c2, w3, b3, a.c3, a.ns, out + (size_t)q * a.c3);
 }
 
-}  // namespace
+// ---------------------------------------------- K5: tensor-core crop MLP --
 
-extern "C" int gn_crop_fused(const float* xyz, const float* centers,
-                             const float* rot, const float* w1, const float* b1,
-                             const float* w2, const float* b2, const float* w3,
-                             const float* b3, float* out, int batch, int n,
-                             int m, int ns, int ball, float r2, float hmin,
-                             const float* hmax, int ndepth, float normalize,
-                             int c1, int c2, int c3, void* stream) {
-  if (ns < 1 || ns > kMaxSamples || ndepth < 1 || ndepth > kMaxDepths ||
-      c1 % 4 != 0 || c2 % 4 != 0 || c2 > kThreads || kThreads % c2 != 0 ||
-      (!ball && rot == nullptr)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  CropArgs a;
-  a.n = n;
-  a.m = m;
-  a.ndepth = ndepth;
-  a.ns = ns;
-  a.ball = ball;
-  a.c1 = c1;
-  a.c2 = c2;
-  a.c3 = c3;
-  a.r2 = r2;
-  a.hmin = hmin;
-  a.normalize = normalize;
-  for (int d = 0; d < kMaxDepths; ++d) a.hmax[d] = d < ndepth ? hmax[d] : 0.0f;
-  const size_t smem = (size_t)kMaxSamples * (c1 + c2 + 3) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      crop_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (batch * m == 0) return (int)cudaSuccess;
-  crop_fused_kernel<<<batch * m, kThreads, smem, (cudaStream_t)stream>>>(
-      xyz, centers, rot, w1, b1, w2, b2, w3, b3, out, a);
-  return (int)cudaGetLastError();
+constexpr int kTile = 16;                     // rows of an mma tile
+constexpr int kN2 = 2, kN3 = 4;               // n tiles (8 columns each) a warp owns, layers 2 / 3
+constexpr size_t kMaxSmemBytes = 232448;      // shared memory a block may use
+
+// Smallest ld >= k with ld = 4 (mod 32) floats: the 8 rows of 16 bytes that
+// an ldmatrix phase reads fall in 32 distinct banks.
+__host__ __device__ inline int bank_ld(int k) { return k + ((4 - k) % 32 + 32) % 32; }
+
+// Shared-memory floats of crop_mlp_tc_kernel: W2^T | W3^T | a1 | a2 |
+// samples.  Every mma operand is K-contiguous: [n][k] for the weights,
+// [row][k] for the activations.
+struct TcLayout {
+  int ld1, ld2;  // row strides of the K = c1 operands (W2^T, a1) and K = c2 ones (W3^T, a2)
+  size_t w3, a1, a2, smp, floats;
+};
+
+__host__ __device__ inline TcLayout tc_layout(int c1, int c2, int c3) {
+  TcLayout l;
+  l.ld1 = bank_ld(c1);
+  l.ld2 = bank_ld(c2);
+  l.w3 = (size_t)c2 * l.ld1;
+  l.a1 = l.w3 + (size_t)c3 * l.ld2;
+  l.a2 = l.a1 + (size_t)kMaxSamples * l.ld1;
+  l.smp = l.a2 + (size_t)kMaxSamples * l.ld2;
+  l.floats = l.smp + 3 * kMaxSamples;
+  return l;
 }
 
-extern "C" int gn_crop_group(const float* xyz, const float* centers,
-                             const float* rot, float* out, int batch, int n,
-                             int m, int ns, float r2, float hmin,
-                             const float* hmax, int ndepth, void* stream) {
-  if (ns < 1 || ns > kMaxSamples || ndepth < 1 || ndepth > kMaxDepths) {
-    return (int)cudaErrorInvalidValue;
+// W (k_dim x n, row-major in device memory) -> wt[c * ld + j] = W[j][c]
+__device__ __forceinline__ void load_transposed(const float* __restrict__ w, int k_dim, int n,
+                                                float* wt, int ld) {
+  for (int e = threadIdx.x; e < k_dim * n; e += kThreads) {
+    const int j = e / n, c = e - j * n;
+    wt[c * ld + j] = __ldg(w + e);
   }
+}
+
+// hi = tf32(x), rounded to nearest with ties away from zero (the bits
+// cvt.rna.tf32.f32 gives, in two integer ops); lo = x - hi, exact, whose low
+// 13 bits the tensor core ignores (lo rounds to TF32 toward zero).  hi + lo
+// meets x within 2^-21 |x|.
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  hi = (x + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(__fsub_rn(__uint_as_float(x), __uint_as_float(hi)));
+}
+
+// Four 8 x 4 tiles of 32-bit words from shared memory: lanes 8i .. 8i+7
+// address the rows of tile i; r[i] holds word (lane % 4) of row lane / 4.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const float* p) {
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc[m][j] += A(16m .. 16m+15, 0:K) B(0:K, column tile t0 + j) in 3xTF32,
+// m < MT, K % 8 == 0.  A is [row][k] with stride lda, B is held transposed,
+// [n][k] with stride ldb; tiles past tlast read tile tlast (computed, never
+// stored).  Fragments of m16n8k8 (lane = 4 g + t): A (g, t), (g+8, t),
+// (g, t+4), (g+8, t+4), one ldmatrix.x4 per m tile (lanes 0-15 address
+// rows 16m + lane at k0, lanes 16-31 the same rows at k0 + 4); B (k = t,
+// n = g), (t+4, g), one ldmatrix.x4 per two column tiles.  Per k step the
+// small terms go first, lo*hi, hi*lo, hi*hi, each over every (m, j) in
+// turn: a warp runs its instructions in order, and consecutive mmas into one accumulator
+// would wait out each other's latency.
+template <int MT, int NJ>
+__device__ __forceinline__ void mma_3xtf32(const float* A, int lda, const float* B, int ldb, int t0,
+                                           int tlast, int k_dim, float (&acc)[MT][NJ][4]) {
+  const int lane = threadIdx.x & 31;
+  const float* ap = A + (lane & 15) * lda + (lane >> 4) * 4;
+  const float* bp[NJ / 2];
+#pragma unroll
+  for (int j = 0; j < NJ; j += 2) {
+    const int tile = min(t0 + j + (lane >> 4), tlast);
+    bp[j / 2] = B + (8 * tile + (lane & 7)) * ldb + ((lane >> 3) & 1) * 4;
+  }
+#pragma unroll 2
+  for (int k0 = 0; k0 < k_dim; k0 += 8) {
+    uint32_t ah[MT][4], al[MT][4], bh[NJ][2], bl[NJ][2];
+#pragma unroll
+    for (int j = 0; j < NJ; j += 2) {
+      uint32_t r[4];
+      ldmatrix_x4(r, bp[j / 2] + k0);
+      split_tf32(r[0], bh[j][0], bl[j][0]);
+      split_tf32(r[1], bh[j][1], bl[j][1]);
+      split_tf32(r[2], bh[j + 1][0], bl[j + 1][0]);
+      split_tf32(r[3], bh[j + 1][1], bl[j + 1][1]);
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      uint32_t r[4];
+      ldmatrix_x4(r, ap + kTile * m * lda + k0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(r[i], ah[m][i], al[m][i]);
+    }
+#pragma unroll
+    for (int term = 0; term < 3; ++term) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) mma_tf32(acc[m][j], term == 0 ? al[m] : ah[m], term == 1 ? bl[j] : bh[j]);
+      }
+    }
+  }
+}
+
+// Steps 5-6 of the CloudCrop on the tensor cores.  grouped (G, ns, 3) ->
+// out (G, c3) = max over the ns rows of relu(relu(relu(x W1 + b1) W2 + b2)
+// W3 + b3), with MT = ceil(ns / 16) m tiles.  Persistent: block b runs
+// groups b, b + gridDim.x, ...
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+crop_mlp_tc_kernel(const float* __restrict__ grouped, int groups, int ns,
+                   const float* __restrict__ w1, const float* __restrict__ b1,
+                   const float* __restrict__ w2, const float* __restrict__ b2,
+                   const float* __restrict__ w3, const float* __restrict__ b3,
+                   float* __restrict__ out, int c1, int c2, int c3) {
+  extern __shared__ __align__(16) float tc_smem[];
+  constexpr int rows = MT * kTile;
+  const TcLayout l = tc_layout(c1, c2, c3);
+  float* w2t = tc_smem;
+  float* w3t = tc_smem + l.w3;
+  float* a1s = tc_smem + l.a1;
+  float* a2s = tc_smem + l.a2;
+  float* smp = tc_smem + l.smp;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int nt2 = c2 / 8, nt3 = c3 / 8;
+
+  load_transposed(w2, c1, c2, w2t, l.ld1);
+  load_transposed(w3, c2, c3, w3t, l.ld2);
+  // the group's 3 ns floats, fetched one group ahead
+  float next = 0.0f;
+  if (blockIdx.x < groups && tid < 3 * ns) next = __ldg(grouped + (size_t)blockIdx.x * 3 * ns + tid);
+
+  for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {
+    __syncthreads();  // the weights are in; the previous group's layer 1 is done
+    if (tid < 3 * rows) smp[tid] = tid < 3 * ns ? next : 0.0f;  // padded rows: zeros
+    const int ahead = grp + gridDim.x;
+    if (ahead < groups && tid < 3 * ns) next = __ldg(grouped + (size_t)ahead * 3 * ns + tid);
+    __syncthreads();
+
+    // layer 1 (K = 3): the broadcast-sum on the CUDA cores
+    for (int e = tid; e < rows * c1; e += kThreads) {
+      const int row = e / c1, c = e - row * c1;
+      const float v = smp[3 * row] * __ldg(w1 + c) + smp[3 * row + 1] * __ldg(w1 + c1 + c) +
+                      smp[3 * row + 2] * __ldg(w1 + 2 * c1 + c) + __ldg(b1 + c);
+      a1s[row * l.ld1 + c] = fmaxf(v, 0.0f);
+    }
+    __syncthreads();
+
+    // layer 2: a2 = relu(a1 W2 + b2); warp w owns column tiles kN2 w + 8 kN2 i ..
+    for (int t0 = kN2 * warp; t0 < nt2; t0 += kN2 * kWarps) {
+      float acc[MT][kN2][4] = {};
+      mma_3xtf32<MT, kN2>(a1s, l.ld1, w2t, l.ld1, t0, nt2 - 1, c1, acc);
+#pragma unroll
+      for (int j = 0; j < kN2; ++j) {
+        if (t0 + j >= nt2) continue;
+        const int col = 8 * (t0 + j) + 2 * t;
+        const float bb0 = __ldg(b2 + col), bb1 = __ldg(b2 + col + 1);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const int r = kTile * m + g;
+          *reinterpret_cast<float2*>(a2s + r * l.ld2 + col) =
+              make_float2(fmaxf(acc[m][j][0] + bb0, 0.0f), fmaxf(acc[m][j][1] + bb1, 0.0f));
+          *reinterpret_cast<float2*>(a2s + (r + 8) * l.ld2 + col) =
+              make_float2(fmaxf(acc[m][j][2] + bb0, 0.0f), fmaxf(acc[m][j][3] + bb1, 0.0f));
+        }
+      }
+    }
+    __syncthreads();
+
+    // layer 3 folded into the max over the ns rows: registers, then the 8
+    // lanes that share a column (xor 4, 8, 16)
+    for (int t0 = kN3 * warp; t0 < nt3; t0 += kN3 * kWarps) {
+      float acc[MT][kN3][4] = {};
+      mma_3xtf32<MT, kN3>(a2s, l.ld2, w3t, l.ld2, t0, nt3 - 1, c2, acc);
+#pragma unroll
+      for (int j = 0; j < kN3; ++j) {
+        if (t0 + j >= nt3) continue;  // warp-uniform
+        const int col = 8 * (t0 + j) + 2 * t;
+        const float bb0 = __ldg(b3 + col), bb1 = __ldg(b3 + col + 1);
+        float m0 = 0.0f, m1 = 0.0f;  // every candidate is a relu output, >= 0
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const int r = kTile * m + g;
+          if (r < ns) {
+            m0 = fmaxf(m0, fmaxf(acc[m][j][0] + bb0, 0.0f));
+            m1 = fmaxf(m1, fmaxf(acc[m][j][1] + bb1, 0.0f));
+          }
+          if (r + 8 < ns) {
+            m0 = fmaxf(m0, fmaxf(acc[m][j][2] + bb0, 0.0f));
+            m1 = fmaxf(m1, fmaxf(acc[m][j][3] + bb1, 0.0f));
+          }
+        }
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+          m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+        }
+        if (g == 0) *reinterpret_cast<float2*>(out + (size_t)grp * c3 + col) = make_float2(m0, m1);
+      }
+    }
+  }
+}
+
+// CropArgs of a cylinder-mode scan (crop group and CloudCrop)
+CropArgs cylinder_args(int n, int m, int ns, float r2, float hmin, const float* hmax, int ndepth) {
   CropArgs a = {};
   a.n = n;
   a.m = m;
@@ -441,6 +636,92 @@ extern "C" int gn_crop_group(const float* xyz, const float* centers,
   a.hmin = hmin;
   a.normalize = 1.0f;
   for (int d = 0; d < kMaxDepths; ++d) a.hmax[d] = d < ndepth ? hmax[d] : 0.0f;
+  return a;
+}
+
+}  // namespace
+
+// SA1 (K3): crop_fused_kernel in ball mode, offsets x normalize.
+extern "C" int gn_sa1_fused(const float* xyz, const float* centers, const float* w1,
+                            const float* b1, const float* w2, const float* b2,
+                            const float* w3, const float* b3, float* out, int batch,
+                            int n, int m, int ns, float r2, float normalize, int c1,
+                            int c2, int c3, void* stream) {
+  if (ns < 1 || ns > kMaxSamples || c1 % 4 != 0 || c2 % 4 != 0 || c2 > kThreads ||
+      kThreads % c2 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  CropArgs a = {};
+  a.n = n;
+  a.m = m;
+  a.ndepth = 1;
+  a.ns = ns;
+  a.ball = 1;
+  a.c1 = c1;
+  a.c2 = c2;
+  a.c3 = c3;
+  a.r2 = r2;
+  a.normalize = normalize;
+  const size_t smem = (size_t)kMaxSamples * (c1 + c2 + 3) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      crop_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (batch * m == 0) return (int)cudaSuccess;
+  crop_fused_kernel<<<batch * m, kThreads, smem, (cudaStream_t)stream>>>(
+      xyz, centers, nullptr, w1, b1, w2, b2, w3, b3, out, a);
+  return (int)cudaGetLastError();
+}
+
+// Bytes of dynamic shared memory crop_mlp_tc_kernel takes at these widths,
+// or 0 where it does not take them (widths multiples of 8, the layout
+// within a block's shared memory).
+extern "C" size_t gn_crop_mlp_tc_smem(int c1, int c2, int c3) {
+  if (c1 < 8 || c2 < 8 || c3 < 8 || c1 % 8 != 0 || c2 % 8 != 0 || c3 % 8 != 0) return 0;
+  const size_t bytes = tc_layout(c1, c2, c3).floats * sizeof(float);
+  return bytes <= kMaxSmemBytes ? bytes : 0;
+}
+
+// CloudCrop (K5): the crop group's scan into grouped (B, M, D, ns, 3), then
+// the tensor-core MLP + max into out (B, M, D, c3).  w* 16-byte aligned.
+extern "C" int gn_crop_cylinder(const float* xyz, const float* centers, const float* rot,
+                                const float* w1, const float* b1, const float* w2,
+                                const float* b2, const float* w3, const float* b3,
+                                float* out, float* grouped, int batch, int n, int m,
+                                int ns, float r2, float hmin, const float* hmax,
+                                int ndepth, int c1, int c2, int c3, void* stream) {
+  const size_t smem = gn_crop_mlp_tc_smem(c1, c2, c3);
+  if (ns < 1 || ns > kMaxSamples || ndepth < 1 || ndepth > kMaxDepths || smem == 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const CropArgs a = cylinder_args(n, m, ns, r2, hmin, hmax, ndepth);
+  void (*mlp)(const float*, int, int, const float*, const float*, const float*, const float*,
+              const float*, const float*, float*, int, int, int) =
+      ns <= kTile ? crop_mlp_tc_kernel<1> : ns <= 2 * kTile ? crop_mlp_tc_kernel<2>
+                  : ns <= 3 * kTile ? crop_mlp_tc_kernel<3> : crop_mlp_tc_kernel<4>;
+  cudaError_t err = cudaFuncSetAttribute(mlp, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (batch * m == 0) return (int)cudaSuccess;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
+    return (int)err;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  crop_group_kernel<<<batch * m, kThreads, 0, st>>>(xyz, centers, rot, grouped, a);
+  const int groups = batch * m * ndepth;
+  mlp<<<groups < sms ? groups : sms, kThreads, smem, st>>>(grouped, groups, ns, w1, b1, w2, b2, w3,
+                                                            b3, out, c1, c2, c3);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gn_crop_group(const float* xyz, const float* centers,
+                             const float* rot, float* out, int batch, int n,
+                             int m, int ns, float r2, float hmin,
+                             const float* hmax, int ndepth, void* stream) {
+  if (ns < 1 || ns > kMaxSamples || ndepth < 1 || ndepth > kMaxDepths) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const CropArgs a = cylinder_args(n, m, ns, r2, hmin, hmax, ndepth);
   if (batch * m == 0) return (int)cudaSuccess;
   crop_group_kernel<<<batch * m, kThreads, 0, (cudaStream_t)stream>>>(
       xyz, centers, rot, out, a);

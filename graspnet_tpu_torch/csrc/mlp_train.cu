@@ -8,10 +8,11 @@
 // _make_fused.  Rows: x is (G, s, 3) with G = B * Ns * D groups of s = 64
 // samples, 524,288 rows at the production shape.
 //
-// What bounds it on an H100: f32 FMAs on the CUDA cores.  A row's forward
-// costs 2 * (3*c1 + c1*c2 + c2*c3) = 82 k flops at (64, 128, 256) and its
-// gradient products (dW3, da2, dW2, da1, dW1) 164 k: 43 + 86 GFLOP per
-// training step at B=2, 0.64 + 1.29 ms at the 67 TFLOP/s f32 peak.  The
+// What bounds it on an H100: its products.  A row's forward costs 2 *
+// (3*c1 + c1*c2 + c2*c3) = 82 k flops at (64, 128, 256) and its gradient
+// products (dW3, da2, dW2, da1, dW1) 164 k: 43 + 86 GFLOP per training step
+// at B=2, 0.64 + 1.29 ms at the 67 TFLOP/s f32 CUDA-core peak, 0.26 + 0.52
+// ms as 3xTF32 on the tensor cores (the least time at f32 accuracy).  The
 // forward runs layer 1 three times, layer 2 twice and layer 3 once (52
 // GFLOP).  The backward recomputes layers 1-3 once (pass B, layers 1-2 once
 // per layer-3 column part) and layer 1 again (pass C): ~246 k flops a row,
@@ -48,14 +49,26 @@
 //     x-moments x^T r1, x^T zhat1, sum x, from which dW1 = x^T dz1 follows
 //     directly (K = 3): no normal equations as on the TPU, and no fourth
 //     pass.
-// The forward keeps whole groups in a block: a tile is one group of s <= 64
-// rows, h1/h2 tiles in shared memory, the weights read through L1/L2.  The
-// backward's products are register-tiled (each thread a 4 x 8 or 8 x 8
-// outer-product tile, operands float4 loads from shared memory) with the
-// weights resident in shared memory: a pass-B block owns W2 and a part of
-// at most 128 columns of W3 (215 KB of shared memory at the production
-// shape, one block per SM), so c3 = 256 runs as two column parts whose r2
+// A block keeps whole groups: a tile is one group of s <= 64 rows (padded
+// to 64 with zero rows, which no sum, pool or store takes).  Products are
+// register-tiled (mma_tile: each thread a 4 x 8 or 8 x 8 outer-product tile,
+// operands float4 loads from shared memory) with the weights resident in
+// shared memory.  Forward pass 2 holds W2 (two blocks per SM); pass 3 holds
+// W2 and all of W3 (c3 <= 256: 213 KB at the production shape, one block
+// per SM, layers 1-2 computed once per group).  A pass-B block owns W2 and a part of at most 128
+// columns of W3 (215 KB), so c3 = 256 runs as two column parts whose r2
 // slabs pass C adds in order.
+//   The forward and pass B build a1 and a2 with the same helpers (load_a1,
+// layer2_tile) and every product with mma_tile, whose sums are fmaf chains
+// in ascending k whatever the thread tile: the forward's z2 and z3 are
+// bitwise what pass B recomputes, so the pool maxima that T3/S3 take from
+// z_ext (pool_sums_kernel) are the rows that pass B routes r3 to.
+//   Pass 3's epilogue: each thread reduces its tile rows (r = tm + tmt i <
+// s) of each of its 8 columns to a (mean, M2) pair and a max and min of the
+// pre-norm z3; thread c then combines the tmt row-threads of column c in
+// ascending tm with Chan's formula (the group's pair, then into the block's
+// running pair) and takes the group's max and min.  Fixed orders
+// throughout: the forward is bitwise repeatable.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -64,25 +77,20 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxRows = 64;  // samples per group
-constexpr int kRows = 32;     // rows per register tile in matmul_rows
+constexpr int kMaxC1 = 64;    // widest layer 1 the kernels take
 
 struct Dims {
   int g, s, c1, c2, c3;
   float eps;
 };
 
-__host__ __device__ inline int pad4(int v) { return (v + 3) & ~3; }
-
-// forward shared-memory tiles: x | a1 | a2 (floats)
-__host__ __device__ inline size_t smem_floats(const Dims& d, int upto) {
-  const size_t sz[3] = {(size_t)pad4(3 * d.s), (size_t)d.s * d.c1, (size_t)d.s * d.c2};
-  size_t total = 0;
-  for (int i = 0; i < upto; ++i) total += sz[i];
-  return total;
-}
-
 __device__ __forceinline__ float relu_bn(float zh, float gamma, float beta) {
   return fmaxf(fmaf(zh, gamma, beta), 0.0f);
+}
+
+// zhat of z in column c of a layer with [mean; biased var] st over nc columns
+__device__ __forceinline__ float zhat(float z, const float* __restrict__ st, int c, int nc, float eps) {
+  return (z - __ldg(st + c)) * rsqrtf(__ldg(st + nc + c) + eps);
 }
 
 // Chan's combine of (mean, m2) over n rows with a part (mt, m2t) over nt.
@@ -99,12 +107,6 @@ __device__ __forceinline__ void chan_add(float& mean, float& m2, float n,
   m2 = m2 + m2t + delta * delta * (n * nt / nn);
 }
 
-__device__ __forceinline__ void load_x(const float* __restrict__ x, int grp,
-                                       const Dims& d, float* xs) {
-  const float* src = x + (size_t)grp * d.s * 3;
-  for (int e = threadIdx.x; e < d.s * 3; e += kThreads) xs[e] = src[e];
-}
-
 // z1 = x @ W1 for one row and column, in the JAX broadcast-sum order
 __device__ __forceinline__ float z1_at(const float* xs, const float* __restrict__ w1,
                                        int r, int c, int c1) {
@@ -114,186 +116,52 @@ __device__ __forceinline__ float z1_at(const float* xs, const float* __restrict_
   return y;
 }
 
-// out(r, c) = sum_k in[r * nin + k] * w[k * nout + c] for r < s, c < nout;
-// thread (c = tid % nout, row group tid / nout), nout | kThreads, nin % 4 == 0.
-// epi(r, c, value) consumes each result; a thread always gets the same c.
-template <typename Epi>
-__device__ __forceinline__ void matmul_rows(const float* in, int nin,
-                                            const float* __restrict__ w, int nout,
-                                            int s, Epi epi) {
-  const int groups = kThreads / nout;
-  const int c = threadIdx.x % nout;
-  const int g = threadIdx.x / nout;
-  for (int r0 = g; r0 < s; r0 += groups * kRows) {
-    float acc[kRows];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) acc[i] = 0.0f;
-    for (int k = 0; k < nin; k += 4) {
-      const float wa = __ldg(w + (size_t)k * nout + c);
-      const float wb = __ldg(w + (size_t)(k + 1) * nout + c);
-      const float wc = __ldg(w + (size_t)(k + 2) * nout + c);
-      const float wd = __ldg(w + (size_t)(k + 3) * nout + c);
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int row = r0 + i * groups;
-        if (row < s) {
-          const float4 h = *reinterpret_cast<const float4*>(in + row * nin + k);
-          acc[i] += h.x * wa + h.y * wb + h.z * wc + h.w * wd;
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = r0 + i * groups;
-      if (row < s) epi(row, c, acc[i]);
-    }
-  }
-}
-
-// z3 column c for the s rows of the tile: z[r] = sum_k a2[r][k] W3[k][c]
-__device__ __forceinline__ void layer3_column(const float* a2, int c2,
-                                              const float* __restrict__ w3, int c3,
-                                              int c, int s, float (&z)[kMaxRows]) {
-#pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) z[r] = 0.0f;
-  for (int k = 0; k < c2; k += 4) {
-    const float wa = __ldg(w3 + (size_t)k * c3 + c);
-    const float wb = __ldg(w3 + (size_t)(k + 1) * c3 + c);
-    const float wc = __ldg(w3 + (size_t)(k + 2) * c3 + c);
-    const float wd = __ldg(w3 + (size_t)(k + 3) * c3 + c);
-#pragma unroll
-    for (int r = 0; r < kMaxRows; ++r) {
-      if (r < s) {
-        const float4 h = *reinterpret_cast<const float4*>(a2 + r * c2 + k);
-        z[r] += h.x * wa + h.y * wb + h.z * wc + h.w * wd;
-      }
-    }
-  }
-}
-
-// Per-column (mean, M2) of an s x nc tile in shared memory, folded into the
-// thread's running pair; threads c < nc own column c.
-__device__ __forceinline__ void column_stats(const float* buf, int nc, int s, int tiles,
+// Per-column (mean, M2) of the s rows of a tile in shared memory (row stride
+// ld), folded into the thread's running pair; threads c < nc own column c.
+__device__ __forceinline__ void column_stats(const float* buf, int ld, int nc, int s, int tiles,
                                              float& mean, float& m2) {
   const int c = threadIdx.x;
   if (c >= nc) return;
   float sum = 0.0f;
-  for (int r = 0; r < s; ++r) sum += buf[r * nc + c];
+  for (int r = 0; r < s; ++r) sum += buf[r * ld + c];
   const float mt = sum / (float)s;
   float m2t = 0.0f;
   for (int r = 0; r < s; ++r) {
-    const float dv = buf[r * nc + c] - mt;
+    const float dv = buf[r * ld + c] - mt;
     m2t += dv * dv;
   }
   chan_add(mean, m2, (float)tiles * s, mt, m2t, (float)s);
 }
 
-// Layer 1 into a1 (batch-normalized and relu'd unless RAW); zh1 optional.
-template <bool RAW>
-__device__ __forceinline__ void layer1(const float* xs, const float* __restrict__ w1,
-                                       const float* __restrict__ gb1,
-                                       const float* __restrict__ st1, const Dims& d,
-                                       float* a1, float* zh1) {
-  for (int e = threadIdx.x; e < d.s * d.c1; e += kThreads) {
-    const int r = e / d.c1;
-    const int c = e - r * d.c1;
-    const float z = z1_at(xs, w1, r, c, d.c1);
-    if (RAW) {
-      a1[e] = z;
-    } else {
-      const float zh = (z - __ldg(st1 + c)) * rsqrtf(__ldg(st1 + d.c1 + c) + d.eps);
-      a1[e] = relu_bn(zh, __ldg(gb1 + c), __ldg(gb1 + d.c1 + c));
-      if (zh1 != nullptr) zh1[e] = zh;
-    }
-  }
-}
-
-// ------------------------------------------------------------- forward --
-
-// PASS 1, 2, 3: per-block partials part[block][0|1][C] = (mean, M2) of
-// z1, z2 or z3; pass 3 also writes zmax/zmin (G, c3).
-template <int PASS>
-__global__ void __launch_bounds__(kThreads)
-mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-               const float* __restrict__ w2, const float* __restrict__ w3,
-               const float* __restrict__ gb1, const float* __restrict__ gb2,
-               const float* __restrict__ st1, const float* __restrict__ st2,
-               float* __restrict__ part, float* __restrict__ zmax,
-               float* __restrict__ zmin, Dims d) {
-  extern __shared__ float smem[];
-  float* xs = smem;
-  float* a1 = xs + smem_floats(d, 1);
-  float* a2 = xs + smem_floats(d, 2);
-  const int tid = threadIdx.x;
-  const int nc = PASS == 1 ? d.c1 : (PASS == 2 ? d.c2 : d.c3);
-  float mean = 0.0f, m2 = 0.0f;
-  int tiles = 0;
-  for (int grp = blockIdx.x; grp < d.g; grp += gridDim.x, ++tiles) {
-    load_x(x, grp, d, xs);
-    __syncthreads();  // also: the previous tile's readers are done
-    layer1<PASS == 1>(xs, w1, gb1, st1, d, a1, nullptr);
-    __syncthreads();
-    if (PASS == 1) {
-      column_stats(a1, d.c1, d.s, tiles, mean, m2);
-      continue;
-    }
-    matmul_rows(a1, d.c1, w2, d.c2, d.s, [&](int r, int c, float v) {
-      if (PASS == 2) {
-        a2[r * d.c2 + c] = v;
-      } else {
-        const float zh = (v - __ldg(st2 + c)) * rsqrtf(__ldg(st2 + d.c2 + c) + d.eps);
-        a2[r * d.c2 + c] = relu_bn(zh, __ldg(gb2 + c), __ldg(gb2 + d.c2 + c));
-      }
-    });
-    __syncthreads();
-    if (PASS == 2) {
-      column_stats(a2, d.c2, d.s, tiles, mean, m2);
-      continue;
-    }
-    if (tid < d.c3) {
-      float z[kMaxRows];
-      layer3_column(a2, d.c2, w3, d.c3, tid, d.s, z);
-      float sum = 0.0f, mx = -INFINITY, mn = INFINITY;
-#pragma unroll
-      for (int r = 0; r < kMaxRows; ++r) {
-        if (r < d.s) {
-          sum += z[r];
-          mx = fmaxf(mx, z[r]);
-          mn = fminf(mn, z[r]);
-        }
-      }
-      const float mt = sum / (float)d.s;
-      float m2t = 0.0f;
-#pragma unroll
-      for (int r = 0; r < kMaxRows; ++r) {
-        if (r < d.s) m2t += (z[r] - mt) * (z[r] - mt);
-      }
-      chan_add(mean, m2, (float)tiles * d.s, mt, m2t, (float)d.s);
-      zmax[(size_t)grp * d.c3 + tid] = mx;
-      zmin[(size_t)grp * d.c3 + tid] = mn;
-    }
-  }
-  if (tid < nc) {
-    part[(size_t)blockIdx.x * 2 * nc + tid] = mean;
-    part[(size_t)blockIdx.x * 2 * nc + nc + tid] = m2;
-  }
-}
-
-// Combine the per-block (mean, M2) in block order -> out = [mean; biased var].
+// Combine the per-block (mean, M2) -> out = [mean; biased var].  One warp
+// per column: lane l takes blocks l, l + 32, ... in order, then lane l
+// absorbs lane l + 1, 2, 4, 8, 16 (a fixed tree): bitwise repeatable.
+// Launched with whole warps per block.
 __global__ void chan_reduce_kernel(const float* __restrict__ part, int nparts, int nc,
                                    int g, int s, float* __restrict__ out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= nc) return;
+  const int c = (blockIdx.x * blockDim.x + threadIdx.x) / 32, lane = threadIdx.x & 31;
+  if (c >= nc) return;  // the whole warp
   float mean = 0.0f, m2 = 0.0f, n = 0.0f;
-  for (int b = 0; b < nparts; ++b) {
+  for (int b = lane; b < nparts; b += 32) {
     const int groups = b < g ? (g - 1 - b) / nparts + 1 : 0;
     if (groups == 0) continue;
     const float nb = (float)groups * s;
     chan_add(mean, m2, n, part[(size_t)b * 2 * nc + c], part[(size_t)b * 2 * nc + nc + c], nb);
     n += nb;
   }
-  out[c] = mean;
-  out[nc + c] = m2 / n;
+  for (int off = 1; off < 32; off <<= 1) {
+    const float om = __shfl_down_sync(0xffffffffu, mean, off);
+    const float om2 = __shfl_down_sync(0xffffffffu, m2, off);
+    const float on = __shfl_down_sync(0xffffffffu, n, off);
+    if (lane + off < 32 && on > 0.0f) {
+      chan_add(mean, m2, n, om, om2, on);
+      n += on;
+    }
+  }
+  if (lane == 0) {
+    out[c] = mean;
+    out[nc + c] = m2 / n;
+  }
 }
 
 // out[i] = sum over p in order of part[p * size + i]
@@ -306,7 +174,7 @@ __global__ void sum_parts_kernel(const float* __restrict__ part, int nparts, int
   out[i] = acc;
 }
 
-// ------------------------------------------------------------ backward --
+// ------------------------------------------------------- register tiles --
 
 constexpr int kPad = 4;                     // row padding of K-contiguous tiles (bank spread)
 constexpr int kRowTiles = kMaxRows / 4;     // thread rows of a 64-row tile at 4 rows each
@@ -384,6 +252,253 @@ __device__ __forceinline__ void mma_tile(const float* A, int lda, const float* B
     }
   }
 }
+
+// Group grp's rows into xs (zeros past s), then a1 = relu(bn1(x W1)) for all
+// kMaxRows rows into a1s (row stride ld1).  Starts with a barrier (the
+// previous group's readers are done) and ends with one.
+__device__ __forceinline__ void load_a1(const float* __restrict__ x, const float* __restrict__ w1,
+                                        const float* __restrict__ gb1, const float* __restrict__ st1,
+                                        const Dims& d, int grp, float* xs, float* a1s, int ld1) {
+  __syncthreads();
+  const float* xg = x + (size_t)grp * d.s * 3;
+  for (int e = threadIdx.x; e < 3 * kMaxRows; e += kThreads) xs[e] = e < 3 * d.s ? xg[e] : 0.0f;
+  __syncthreads();
+  for (int e = threadIdx.x; e < kMaxRows * d.c1; e += kThreads) {
+    const int r = e / d.c1, c = e - r * d.c1;
+    const float zh = zhat(z1_at(xs, w1, r, c, d.c1), st1, c, d.c1, d.eps);
+    a1s[r * ld1 + c] = relu_bn(zh, __ldg(gb1 + c), __ldg(gb1 + d.c1 + c));
+  }
+  __syncthreads();
+}
+
+// z2 = a1 W2 for the thread's 4 x 8 tile, thread (tm2, tn2) of kRowTiles x
+// c2 / 8; W2 resident as [j][c] (c1 x c2).
+__device__ __forceinline__ void layer2_tile(const float* a1s, int ld1, const float* w2s, const Dims& d,
+                                            int tm2, int tn2, float (&acc)[4][8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  }
+  mma_tile<4, 8, true, false>(a1s, ld1, w2s, d.c2, d.c1, tm2, kRowTiles, tn2, d.c2 / 8, acc);
+}
+
+// ------------------------------------------------------------- forward --
+
+struct FwdArgs {
+  const float* x;  // (G, s, 3)
+  const float *w1, *w2, *w3;
+  const float *gb1, *gb2;  // (2, C) [gamma; beta]
+  const float *st1, *st2;  // (2, C) [mean; biased var]
+  float* part;             // per-block (mean, M2): [block][0|1][C]
+  float *zmax, *zmin;      // (G, c3) pooled pre-norm z3
+};
+
+// Rows of a pass-3 thread tile: 8 where c3 > 128 (c3 / 8 <= 32 thread
+// columns), else 4 (<= 16).
+__host__ __device__ inline int fwd_tm3(const Dims& d) { return d.c3 > kMaxHalf3 ? 8 : 4; }
+
+// Shared-memory floats of pass 2 (W2 | x | a1 | z2) and pass 3 (W2 | W3 |
+// x | a1, which the epilogue's partials reuse | a2).
+__host__ __device__ inline size_t pass2_floats(const Dims& d) {
+  return (size_t)d.c1 * d.c2 + 3 * kMaxRows + (size_t)kMaxRows * ((d.c1 + kPad) + (d.c2 + kPad));
+}
+__host__ __device__ inline size_t pass3_red(const Dims& d) {
+  const size_t a1 = (size_t)kMaxRows * (d.c1 + kPad), red = 2 * (size_t)(kMaxRows / fwd_tm3(d)) * d.c3;
+  return a1 > red ? a1 : red;
+}
+__host__ __device__ inline size_t pass3_floats(const Dims& d) {
+  return (size_t)d.c1 * d.c2 + (size_t)d.c2 * (d.c3 + kPad) + 3 * kMaxRows + pass3_red(d) +
+         (size_t)kMaxRows * (d.c2 + kPad);
+}
+
+// Pass 1: z1 = x W1 (K = 3) -> per-block (mean, M2) of z1.
+__global__ void __launch_bounds__(kThreads)
+mlp_fwd_pass1_kernel(FwdArgs p, Dims d) {
+  __shared__ float xs[3 * kMaxRows];
+  __shared__ float z1s[kMaxRows * kMaxC1];
+  float mean = 0.0f, m2 = 0.0f;
+  int tiles = 0;
+  for (int grp = blockIdx.x; grp < d.g; grp += gridDim.x, ++tiles) {
+    const float* xg = p.x + (size_t)grp * d.s * 3;
+    for (int e = threadIdx.x; e < 3 * d.s; e += kThreads) xs[e] = xg[e];
+    __syncthreads();  // also: the previous group's column_stats are done
+    for (int e = threadIdx.x; e < d.s * d.c1; e += kThreads) {
+      const int r = e / d.c1, c = e - r * d.c1;
+      z1s[e] = z1_at(xs, p.w1, r, c, d.c1);
+    }
+    __syncthreads();
+    column_stats(z1s, d.c1, d.c1, d.s, tiles, mean, m2);
+  }
+  if (threadIdx.x < d.c1) {
+    p.part[(size_t)blockIdx.x * 2 * d.c1 + threadIdx.x] = mean;
+    p.part[(size_t)blockIdx.x * 2 * d.c1 + d.c1 + threadIdx.x] = m2;
+  }
+}
+
+// Pass 2: a1, z2 = a1 W2 (W2 resident, 4 x 8 thread tiles) -> per-block
+// (mean, M2) of z2.
+__global__ void __launch_bounds__(kThreads, 2)
+mlp_fwd_pass2_kernel(FwdArgs p, Dims d) {
+  extern __shared__ float smem[];
+  const int ld1 = d.c1 + kPad, ld2 = d.c2 + kPad;
+  float* w2s = smem;  // [j][c] (c1 x c2)
+  float* xs = w2s + d.c1 * d.c2;
+  float* a1s = xs + 3 * kMaxRows;
+  float* z2s = a1s + kMaxRows * ld1;
+  const int tid = threadIdx.x;
+  for (int e = tid; e < d.c1 * d.c2; e += kThreads) w2s[e] = p.w2[e];
+  const int tnt2 = d.c2 / 8;
+  const bool act2 = tid < kRowTiles * tnt2;
+  const int tm2 = tid / tnt2, tn2 = tid - tm2 * tnt2;
+  float mean = 0.0f, m2 = 0.0f;
+  int tiles = 0;
+  for (int grp = blockIdx.x; grp < d.g; grp += gridDim.x, ++tiles) {
+    load_a1(p.x, p.w1, p.gb1, p.st1, d, grp, xs, a1s, ld1);
+    if (act2) {
+      float acc[4][8];
+      layer2_tile(a1s, ld1, w2s, d, tm2, tn2, acc);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = tile_index<true>(tm2, kRowTiles, i);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) z2s[r * ld2 + tile_index<false>(tn2, tnt2, j)] = acc[i][j];
+      }
+    }
+    __syncthreads();
+    column_stats(z2s, ld2, d.c2, d.s, tiles, mean, m2);
+  }
+  if (tid < d.c2) {
+    p.part[(size_t)blockIdx.x * 2 * d.c2 + tid] = mean;
+    p.part[(size_t)blockIdx.x * 2 * d.c2 + d.c2 + tid] = m2;
+  }
+}
+
+// Rows of thread row tm (of tmt) in a group of s rows: tm + tmt i < s, i < TM.
+template <int TM>
+__device__ __forceinline__ int tile_rows(int tm, int tmt, int s) {
+  if (tm >= s) return 0;
+  const int n = (s - tm + tmt - 1) / tmt;
+  return n < TM ? n : TM;
+}
+
+// Pass 3.  Block b walks groups b, b + gridDim.x, ... with W2 and W3
+// resident.  Per group: a1, a2 (as pass B), z3 = a2 W3 in TM x 8 thread
+// tiles, then the epilogue (file note): the block's running (mean, M2) of
+// z3 and zmax/zmin.
+template <int TM>
+__global__ void __launch_bounds__(kThreads, 1)
+mlp_fwd_pass3_kernel(FwdArgs p, Dims d) {
+  extern __shared__ float smem[];
+  constexpr int tmt = kMaxRows / TM;
+  const int ld1 = d.c1 + kPad, ld2 = d.c2 + kPad, ld3 = d.c3 + kPad;
+  float* w2s = smem;                    // [j][c] (c1 x c2)
+  float* w3s = w2s + d.c1 * d.c2;       // [j][c] (c2 x ld3)
+  float* xs = w3s + d.c2 * ld3;
+  float* a1s = xs + 3 * kMaxRows;       // a1, then the epilogue's partials
+  float* a2s = a1s + pass3_red(d);
+  float* red = a1s;                     // [2][tmt][d.c3]
+  const int tid = threadIdx.x;
+  for (int e = tid; e < d.c1 * d.c2; e += kThreads) w2s[e] = p.w2[e];
+  for (int e = tid; e < d.c2 * d.c3; e += kThreads) {
+    const int j = e / d.c3, c = e - j * d.c3;
+    w3s[j * ld3 + c] = p.w3[e];
+  }
+  const int tnt2 = d.c2 / 8, tnt3 = d.c3 / 8;
+  const bool act2 = tid < kRowTiles * tnt2, act3 = tid < tmt * tnt3, own = tid < d.c3;
+  const int tm2 = tid / tnt2, tn2 = tid - tm2 * tnt2;
+  const int tm3 = tid / tnt3, tn3 = tid - tm3 * tnt3;
+  const int nrows = act3 ? tile_rows<TM>(tm3, tmt, d.s) : 0;
+  float mean = 0.0f, m2 = 0.0f;
+  int tiles = 0;
+  for (int grp = blockIdx.x; grp < d.g; grp += gridDim.x, ++tiles) {
+    load_a1(p.x, p.w1, p.gb1, p.st1, d, grp, xs, a1s, ld1);
+    if (act2) {
+      float acc[4][8];
+      layer2_tile(a1s, ld1, w2s, d, tm2, tn2, acc);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = tile_index<true>(tm2, kRowTiles, i);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = tile_index<false>(tn2, tnt2, j);
+          a2s[r * ld2 + c] = relu_bn(zhat(acc[i][j], p.st2, c, d.c2, d.eps), __ldg(p.gb2 + c),
+                                     __ldg(p.gb2 + d.c2 + c));
+        }
+      }
+    }
+    __syncthreads();  // a2 is in, and a1 is no longer read: red may take its place
+    float mx[8], mn[8];
+    if (act3) {
+      float acc[TM][8];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+      }
+      mma_tile<TM, 8, true, false>(a2s, ld2, w3s, ld3, d.c2, tm3, tmt, tn3, tnt3, acc);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float sum = 0.0f;
+        mx[j] = -INFINITY;
+        mn[j] = INFINITY;
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          if (i < nrows) {
+            sum += acc[i][j];
+            mx[j] = fmaxf(mx[j], acc[i][j]);
+            mn[j] = fminf(mn[j], acc[i][j]);
+          }
+        }
+        const float mt = nrows > 0 ? sum / (float)nrows : 0.0f;
+        float m2t = 0.0f;
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          if (i < nrows) m2t += (acc[i][j] - mt) * (acc[i][j] - mt);
+        }
+        const int c = tile_index<false>(tn3, tnt3, j);
+        red[tm3 * d.c3 + c] = mt;
+        red[(tmt + tm3) * d.c3 + c] = m2t;
+      }
+    }
+    __syncthreads();
+    if (own) {  // the group's (mean, M2) from the row-threads in ascending tm
+      float gm = 0.0f, gm2 = 0.0f, gn = 0.0f;
+      for (int tm = 0; tm < tmt; ++tm) {
+        const float nt = (float)tile_rows<TM>(tm, tmt, d.s);
+        if (nt == 0.0f) break;
+        chan_add(gm, gm2, gn, red[tm * d.c3 + tid], red[(tmt + tm) * d.c3 + tid], nt);
+        gn += nt;
+      }
+      chan_add(mean, m2, (float)tiles * d.s, gm, gm2, (float)d.s);
+    }
+    __syncthreads();
+    if (act3) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = tile_index<false>(tn3, tnt3, j);
+        red[tm3 * d.c3 + c] = mx[j];
+        red[(tmt + tm3) * d.c3 + c] = mn[j];
+      }
+    }
+    __syncthreads();
+    if (own) {
+      float gmax = -INFINITY, gmin = INFINITY;
+      for (int tm = 0; tm < tmt; ++tm) {
+        gmax = fmaxf(gmax, red[tm * d.c3 + tid]);
+        gmin = fminf(gmin, red[(tmt + tm) * d.c3 + tid]);
+      }
+      p.zmax[(size_t)grp * d.c3 + tid] = gmax;
+      p.zmin[(size_t)grp * d.c3 + tid] = gmin;
+    }
+  }
+  if (own) {
+    p.part[(size_t)blockIdx.x * 2 * d.c3 + tid] = mean;
+    p.part[(size_t)blockIdx.x * 2 * d.c3 + d.c3 + tid] = m2;
+  }
+}
+
+// ------------------------------------------------------------ backward --
 
 struct BwdArgs {
   const float* x;      // (G, s, 3)
@@ -495,32 +610,17 @@ mlp_bwd_pass_b_kernel(BwdArgs p, Dims d) {
   __syncthreads();
 
   for (int grp = b; grp < d.g; grp += nblk) {
-    __syncthreads();  // the previous group's readers are done
-    const float* xg = p.x + (size_t)grp * d.s * 3;
-    for (int e = tid; e < 3 * kMaxRows; e += kThreads) xs[e] = e < 3 * d.s ? xg[e] : 0.0f;
-    __syncthreads();
-    for (int e = tid; e < kMaxRows * d.c1; e += kThreads) {
-      const int r = e / d.c1, c = e - r * d.c1;
-      const float zh = (z1_at(xs, p.w1, r, c, d.c1) - __ldg(p.st1 + c)) *
-                       rsqrtf(__ldg(p.st1 + d.c1 + c) + d.eps);
-      a1s[r * ld1 + c] = relu_bn(zh, __ldg(p.gb1 + c), __ldg(p.gb1 + d.c1 + c));
-    }
-    __syncthreads();
+    load_a1(p.x, p.w1, p.gb1, p.st1, d, grp, xs, a1s, ld1);
     if (act2) {  // G2: z2 = a1 W2 -> zhat2, a2
       float acc[4][8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-      }
-      mma_tile<4, 8, true, false>(a1s, ld1, w2s, d.c2, d.c1, tm2, kRowTiles, tn2, tnt2, acc);
+      layer2_tile(a1s, ld1, w2s, d, tm2, tn2, acc);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = tile_index<true>(tm2, kRowTiles, i);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int c = tile_index<false>(tn2, tnt2, j);
-          const float zh = (acc[i][j] - __ldg(p.st2 + c)) * rsqrtf(__ldg(p.st2 + d.c2 + c) + d.eps);
+          const float zh = zhat(acc[i][j], p.st2, c, d.c2, d.eps);
           zh2s[r * ld2 + c] = zh;
           a2s[r * ld2 + c] = relu_bn(zh, __ldg(p.gb2 + c), __ldg(p.gb2 + d.c2 + c));
           if (h == 0 && r < d.s) p.zh2[((size_t)grp * d.s + r) * d.c2 + c] = zh;
@@ -543,7 +643,7 @@ mlp_bwd_pass_b_kernel(BwdArgs p, Dims d) {
         for (int j = 0; j < 8; ++j) {
           const int c = tile_index<false>(tn3, tnt3, j);
           const int cc = h * h3 + c;
-          dz3s[r * ld3 + c] = (acc[i][j] - __ldg(p.st3 + cc)) * rsqrtf(__ldg(p.st3 + d.c3 + cc) + d.eps);
+          dz3s[r * ld3 + c] = zhat(acc[i][j], p.st3, cc, d.c3, d.eps);
         }
       }
     }
@@ -796,11 +896,13 @@ bool dims_ok(const Dims& d) {
          kThreads % d.c1 == 0 && kThreads % d.c2 == 0 && d.c3 <= kThreads;
 }
 
-// The backward's thread tiles: G-da1 takes c1 / 4 <= 16 thread columns,
-// G2/G-da2 c2 / 8 <= 16, G3/G-dW3 c3h / 8 <= 16; c3 splits into parts of 128.
-bool bwd_dims_ok(const Dims& d) {
-  return dims_ok(d) && d.c1 <= 64 && d.c2 % 8 == 0 && d.c2 <= 128 && d.c3 % 8 == 0 &&
-         d.c3 % half3(d) == 0 && pass_b_floats(d) * sizeof(float) <= kMaxSmem;
+// The kernels' thread tiles: G-da1 takes c1 / 4 <= 16 thread columns,
+// G2/G-da2 c2 / 8 <= 16, G3/G-dW3 c3h / 8 <= 16 (c3 splits into parts of 128
+// in pass B), forward pass 3 c3 / 8 <= 32; W2 and W3 fit forward pass 3.
+bool train_dims_ok(const Dims& d) {
+  return dims_ok(d) && d.c1 <= kMaxC1 && d.c2 % 8 == 0 && d.c2 <= 128 && d.c3 % 8 == 0 &&
+         d.c3 % half3(d) == 0 && pass_b_floats(d) * sizeof(float) <= kMaxSmem &&
+         pass3_floats(d) * sizeof(float) <= kMaxSmem;
 }
 
 int light_blocks(const Dims& d, int sm) { return d.g < 2 * sm ? d.g : 2 * sm; }
@@ -810,7 +912,8 @@ int pass_b_strides(const Dims& d, int sm) {
   const int per = sm / parts3(d) > 0 ? sm / parts3(d) : 1;
   return d.g < per ? d.g : per;
 }
-int pass_c_blocks(const Dims& d, int sm) { return d.g < sm ? d.g : sm; }
+// one block per SM: pass C and forward pass 3
+int sm_blocks(const Dims& d, int sm) { return d.g < sm ? d.g : sm; }
 int pool_chunk(const Dims& d) { return (d.g + kPoolChunks - 1) / kPoolChunks; }
 
 inline size_t round4(size_t v) { return (v + 3) & ~(size_t)3; }
@@ -820,7 +923,7 @@ struct BwdScratch {
 };
 
 size_t bwd_scratch(const Dims& d, int sm, float* base, BwdScratch* out) {
-  const size_t nb = pass_b_strides(d, sm), gb = nb * parts3(d), nc = pass_c_blocks(d, sm);
+  const size_t nb = pass_b_strides(d, sm), gb = nb * parts3(d), nc = sm_blocks(d, sm);
   const size_t rows = (size_t)d.g * d.s;
   const size_t chunks = (d.g + pool_chunk(d) - 1) / pool_chunk(d);
   const size_t dw_b = nb * d.c2 * d.c3, dw_c = nc * d.c1 * d.c2;
@@ -868,10 +971,10 @@ extern "C" size_t gn_mlp_train_scratch(int g, int s, int c1, int c2, int c3, int
   return bwd_scratch(d, sm, nullptr, &unused);
 }
 
-// 1 if the backward takes these dims (the forward's, and its own tiles).
+// 1 if the forward and backward kernels take these dims.
 extern "C" int gn_mlp_train_dims_ok(int s, int c1, int c2, int c3) {
   const Dims d = {1, s, c1, c2, c3, 0.0f};
-  return bwd_dims_ok(d) ? 1 : 0;
+  return train_dims_ok(d) ? 1 : 0;
 }
 
 // Forward: st1/st2/st3 = [mean; biased var] of z1/z2/z3, zmax/zmin (G, c3).
@@ -881,24 +984,28 @@ extern "C" int gn_mlp_train_fwd(const float* x, const float* w1, const float* w2
                                 float* zmin, float* scratch, int g, int s, int c1, int c2,
                                 int c3, float eps, int sm, void* stream) {
   const Dims d = {g, s, c1, c2, c3, eps};
-  if (!dims_ok(d) || sm < 1) return (int)cudaErrorInvalidValue;
+  if (!train_dims_ok(d) || sm < 1) return (int)cudaErrorInvalidValue;
   if (g == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t bytes = smem_floats(d, 3) * sizeof(float);
+  const size_t bytes2 = pass2_floats(d) * sizeof(float), bytes3 = pass3_floats(d) * sizeof(float);
+  const bool wide = fwd_tm3(d) == 8;
   cudaError_t err;
-  if ((err = allow_smem(mlp_fwd_kernel<1>, bytes)) != cudaSuccess) return (int)err;
-  if ((err = allow_smem(mlp_fwd_kernel<2>, bytes)) != cudaSuccess) return (int)err;
-  if ((err = allow_smem(mlp_fwd_kernel<3>, bytes)) != cudaSuccess) return (int)err;
-  const int nb = light_blocks(d, sm);
-  mlp_fwd_kernel<1><<<nb, kThreads, bytes, st>>>(x, w1, w2, w3, gb1, gb2, st1, st2, scratch,
-                                                 zmax, zmin, d);
-  chan_reduce_kernel<<<cdiv(c1, 128), 128, 0, st>>>(scratch, nb, c1, g, s, st1);
-  mlp_fwd_kernel<2><<<nb, kThreads, bytes, st>>>(x, w1, w2, w3, gb1, gb2, st1, st2, scratch,
-                                                 zmax, zmin, d);
-  chan_reduce_kernel<<<cdiv(c2, 128), 128, 0, st>>>(scratch, nb, c2, g, s, st2);
-  mlp_fwd_kernel<3><<<nb, kThreads, bytes, st>>>(x, w1, w2, w3, gb1, gb2, st1, st2, scratch,
-                                                 zmax, zmin, d);
-  chan_reduce_kernel<<<cdiv(c3, 128), 128, 0, st>>>(scratch, nb, c3, g, s, st3);
+  if ((err = allow_smem(mlp_fwd_pass2_kernel, bytes2)) != cudaSuccess) return (int)err;
+  if ((err = allow_smem(wide ? mlp_fwd_pass3_kernel<8> : mlp_fwd_pass3_kernel<4>, bytes3)) != cudaSuccess) {
+    return (int)err;
+  }
+  const int nb = light_blocks(d, sm), nb3 = sm_blocks(d, sm);
+  const FwdArgs p = {x, w1, w2, w3, gb1, gb2, st1, st2, scratch, zmax, zmin};
+  mlp_fwd_pass1_kernel<<<nb, kThreads, 0, st>>>(p, d);
+  chan_reduce_kernel<<<cdiv(32 * c1, 256), 256, 0, st>>>(scratch, nb, c1, g, s, st1);
+  mlp_fwd_pass2_kernel<<<nb, kThreads, bytes2, st>>>(p, d);
+  chan_reduce_kernel<<<cdiv(32 * c2, 256), 256, 0, st>>>(scratch, nb, c2, g, s, st2);
+  if (wide) {
+    mlp_fwd_pass3_kernel<8><<<nb3, kThreads, bytes3, st>>>(p, d);
+  } else {
+    mlp_fwd_pass3_kernel<4><<<nb3, kThreads, bytes3, st>>>(p, d);
+  }
+  chan_reduce_kernel<<<cdiv(32 * c3, 256), 256, 0, st>>>(scratch, nb3, c3, g, s, st3);
   return (int)cudaGetLastError();
 }
 
@@ -912,7 +1019,7 @@ extern "C" int gn_mlp_train_bwd(const float* x, const float* gpool, const float*
                                 float* dgb3, float* scratch, int g, int s, int c1, int c2,
                                 int c3, float eps, int sm, void* stream) {
   const Dims d = {g, s, c1, c2, c3, eps};
-  if (!bwd_dims_ok(d) || sm < 1) return (int)cudaErrorInvalidValue;
+  if (!train_dims_ok(d) || sm < 1) return (int)cudaErrorInvalidValue;
   if (g == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   BwdScratch sc;
@@ -922,7 +1029,7 @@ extern "C" int gn_mlp_train_bwd(const float* x, const float* gpool, const float*
   cudaError_t err;
   if ((err = allow_smem(mlp_bwd_pass_b_kernel, bytes_b)) != cudaSuccess) return (int)err;
   if ((err = allow_smem(mlp_bwd_pass_c_kernel, bytes_c)) != cudaSuccess) return (int)err;
-  const int nb = pass_b_strides(d, sm), gb = nb * parts3(d), nc = pass_c_blocks(d, sm);
+  const int nb = pass_b_strides(d, sm), gb = nb * parts3(d), nc = sm_blocks(d, sm);
   const int per = pool_chunk(d), chunks = cdiv(g, per);
 
   BwdArgs p = {x, gpool, zext, w1, w2, w3, gb1, gb2, gb3, st1, st2, st3, sc.sums3, dgb2,

@@ -7,9 +7,10 @@ inference CloudCrop), `sa1_fused_pallas` (backbone SA1, the same kernel in
 ball mode with offsets scaled by 1/r), `crop_group_pallas` (the training
 crop's query + group + rotate) and `sa_feat_fused_pallas` (an SA stage with
 feature grouping, ball mode with a feature input).  Each wrapper launches
-one kernel for a CUDA tensor and runs the plain version
-(`crop_fused_plain`, `crop_group_plain`, `sa_feat_fused_plain`) for a CPU
-tensor; each keeps its own launch count.
+its kernel for a CUDA tensor (`crop_fused`: the crop group's scan, then the
+tensor-core MLP `crop_mlp_tc_kernel`, one launch count for the pair) and
+runs the plain version (`crop_fused_plain`, `crop_group_plain`,
+`sa_feat_fused_plain`) for a CPU tensor; each keeps its own launch count.
 """
 
 from __future__ import annotations
@@ -101,62 +102,88 @@ def crop_fused_plain(
     return torch.cat([torch.amax(folded_mlp(folded, off), dim=3) for off in chunks], dim=1)
 
 
-def _lib_group():
-    fn = build.load("crop").gn_crop_group
+def _fn(name: str, argtypes, restype=ctypes.c_int):
+    fn = getattr(build.load("crop"), name)
     if fn.argtypes is None:
-        fn.argtypes = (
-            [ctypes.c_void_p] * 4
-            + [ctypes.c_int] * 4
-            + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        fn.restype = restype
     return fn
 
 
-def _lib():
-    fn = build.load("crop").gn_crop_fused
-    if fn.argtypes is None:
-        fn.argtypes = (
-            [ctypes.c_void_p] * 10
-            + [ctypes.c_int] * 5
-            + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_float]
-            + [ctypes.c_int] * 3
-            + [ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-    return fn
+def _operands(*ts: torch.Tensor):
+    """Contiguous float32 tensors whose data are 16-byte aligned (the
+    kernels read weights as float4)."""
+    out = [t.detach().contiguous().float() for t in ts]
+    return [t.clone() if t.data_ptr() % 16 else t for t in out]
 
 
-def _launch(xyz, new_xyz, rot, folded, radius, hmin, hmax_list, nsample, normalize, ball):
+def _check_inputs(xyz, new_xyz, rot, w1, nsample, ndepth, ball):
+    b, _, _ = xyz.shape
+    m = new_xyz.shape[1]
+    return (
+        xyz.dtype == torch.float32
+        and new_xyz.shape == (b, m, 3)
+        and (ball or (rot is not None and rot.shape == (b, m, 3, 3)))
+        and w1.shape[0] == 3
+        and 1 <= nsample <= MAX_SAMPLES
+        and 1 <= ndepth <= MAX_DEPTHS
+    )
+
+
+def cylinder_smem_bytes(c1: int, c2: int, c3: int) -> int:
+    """Dynamic shared memory of the CloudCrop's tensor-core MLP kernel at
+    widths (c1, c2, c3); 0 where it does not take them (widths multiples of
+    8 whose resident W2, W3 and activation tiles fit one block)."""
+    fn = _fn("gn_crop_mlp_tc_smem", [ctypes.c_int] * 3, ctypes.c_size_t)
+    return int(fn(c1, c2, c3))
+
+
+def _launch_ball(xyz, new_xyz, folded, radius, nsample, normalize):
+    """K3: crop_fused_kernel in ball mode -> (B, M, c3)."""
     b, n, _ = xyz.shape
     m = new_xyz.shape[1]
-    ndepth = 1 if ball else len(hmax_list)
     (w1, b1), (w2, b2), (w3, b3) = folded
     c1, c2, c3 = w1.shape[1], w2.shape[1], w3.shape[1]
-    if (
-        xyz.dtype != torch.float32
-        or new_xyz.shape != (b, m, 3)
-        or (not ball and (rot is None or rot.shape != (b, m, 3, 3)))
-        or w1.shape[0] != 3
-        or not 1 <= nsample <= MAX_SAMPLES
-        or not 1 <= ndepth <= MAX_DEPTHS
-        or c1 % 4 or c2 % 4 or 256 % c2
-    ):
+    if not _check_inputs(xyz, new_xyz, None, w1, nsample, 1, True) or c1 % 4 or c2 % 4 or 256 % c2:
         raise ValueError(
-            "crop kernel takes float32 (B,N,3)/(B,M,3)/(B,M,3,3) inputs, a 3-layer "
-            f"3->c1->c2->c3 MLP with c1, c2 multiples of 4 and c2 | 256, ns <= {MAX_SAMPLES}"
+            "sa1_fused takes float32 (B,N,3)/(B,M,3) inputs, a 3-layer 3->c1->c2->c3 MLP "
+            f"with c1, c2 multiples of 4 and c2 | 256, ns <= {MAX_SAMPLES}"
         )
-    ts = [t.contiguous().float() for t in (xyz, new_xyz, w1, b1, w2, b2, w3, b3)]
-    rot_t = None if ball else rot.contiguous()
-    hmax = (ctypes.c_float * ndepth)(*([0.0] if ball else hmax_list))
+    ts = _operands(xyz, new_xyz, w1, b1, w2, b2, w3, b3)
+    out = torch.empty((b, m, c3), dtype=torch.float32, device=xyz.device)
+    fn = _fn("gn_sa1_fused", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+             + [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    err = fn(
+        *(t.data_ptr() for t in ts), out.data_ptr(), b, n, m, nsample,
+        radius * radius, normalize, c1, c2, c3, torch.cuda.current_stream(xyz.device).cuda_stream,
+    )
+    build.check(err, "sa1_fused")
+    return out
+
+
+def _launch_cylinder(xyz, new_xyz, rot, folded, radius, hmin, hmax_list, nsample):
+    """K5: the crop group's scan, then the tensor-core MLP -> (B, M, D, c3)."""
+    b, n, _ = xyz.shape
+    m = new_xyz.shape[1]
+    ndepth = len(hmax_list)
+    (w1, b1), (w2, b2), (w3, b3) = folded
+    c1, c2, c3 = w1.shape[1], w2.shape[1], w3.shape[1]
+    if not _check_inputs(xyz, new_xyz, rot, w1, nsample, ndepth, False) or not cylinder_smem_bytes(c1, c2, c3):
+        raise ValueError(
+            "crop_fused takes float32 (B,N,3)/(B,M,3)/(B,M,3,3) inputs, <= "
+            f"{MAX_DEPTHS} depths, ns <= {MAX_SAMPLES} and a 3-layer 3->c1->c2->c3 MLP with "
+            "widths multiples of 8 whose W2 and W3 fit in one block's shared memory"
+        )
+    ts = _operands(xyz, new_xyz, rot, w1, b1, w2, b2, w3, b3)
+    hmax = (ctypes.c_float * ndepth)(*hmax_list)
     out = torch.empty((b, m, ndepth, c3), dtype=torch.float32, device=xyz.device)
-    err = _lib()(
-        ts[0].data_ptr(), ts[1].data_ptr(), 0 if rot_t is None else rot_t.data_ptr(),
-        ts[2].data_ptr(), ts[3].data_ptr(), ts[4].data_ptr(), ts[5].data_ptr(),
-        ts[6].data_ptr(), ts[7].data_ptr(), out.data_ptr(),
-        b, n, m, nsample, int(ball),
-        radius * radius, hmin, ctypes.cast(hmax, ctypes.c_void_p), ndepth, normalize,
-        c1, c2, c3, torch.cuda.current_stream(xyz.device).cuda_stream,
+    grouped = torch.empty((b, m, ndepth, nsample, 3), dtype=torch.float32, device=xyz.device)
+    fn = _fn("gn_crop_cylinder", [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+             + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    err = fn(
+        *(t.data_ptr() for t in ts), out.data_ptr(), grouped.data_ptr(), b, n, m, nsample,
+        radius * radius, hmin, ctypes.cast(hmax, ctypes.c_void_p), ndepth, c1, c2, c3,
+        torch.cuda.current_stream(xyz.device).cuda_stream,
     )
     build.check(err, "crop_fused")
     return out
@@ -172,11 +199,13 @@ def crop_fused(
     hmax_list: Sequence[float],
     nsample: int,
 ) -> torch.Tensor:
-    """Fused CloudCrop: (B, N, 3), (B, M, 3), (B, M, 3, 3) -> (B, M, D, C3)."""
-    args = (xyz, new_xyz, rot, folded, radius, hmin, tuple(hmax_list), nsample, 1.0, False)
+    """Fused CloudCrop: (B, N, 3), (B, M, 3), (B, M, 3, 3) -> (B, M, D, C3).
+    CUDA tensor: the crop group's scan and the tensor-core MLP (one call,
+    two kernels); CPU tensor: `crop_fused_plain`."""
+    hmax_list = tuple(hmax_list)
     if not xyz.is_cuda:
-        return crop_fused_plain(*args)
-    out = _launch(*args)
+        return crop_fused_plain(xyz, new_xyz, rot, folded, radius, hmin, hmax_list, nsample)
+    out = _launch_cylinder(xyz, new_xyz, rot, folded, radius, hmin, hmax_list, nsample)
     crop_fused.launches += 1
     return out
 
@@ -186,12 +215,12 @@ def sa1_fused(
 ) -> torch.Tensor:
     """Fused SA1 stage: ball query + group + /r + folded MLP + max,
     (B, N, 3), (B, M, 3) -> (B, M, C3)."""
-    args = (xyz, new_xyz, None, folded, radius, 0.0, (0.0,), nsample, 1.0 / radius, True)
     if not xyz.is_cuda:
-        return crop_fused_plain(*args)[:, :, 0]
-    out = _launch(*args)
+        return crop_fused_plain(xyz, new_xyz, None, folded, radius, 0.0, (0.0,), nsample,
+                                1.0 / radius, True)[:, :, 0]
+    out = _launch_ball(xyz, new_xyz, folded, radius, nsample, 1.0 / radius)
     sa1_fused.launches += 1
-    return out[:, :, 0]
+    return out
 
 
 def crop_group(
@@ -233,7 +262,9 @@ def crop_group(
     xyz, new_xyz, rot = xyz.contiguous(), new_xyz.contiguous(), rot.contiguous()
     hmax = (ctypes.c_float * ndepth)(*hmax_list)
     out = torch.empty((b, m, ndepth, nsample, 3), dtype=torch.float32, device=xyz.device)
-    err = _lib_group()(
+    fn = _fn("gn_crop_group", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+             + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    err = fn(
         xyz.data_ptr(), new_xyz.data_ptr(), rot.data_ptr(), out.data_ptr(),
         b, n, m, nsample, radius * radius, hmin,
         ctypes.cast(hmax, ctypes.c_void_p), ndepth,
@@ -261,20 +292,6 @@ def sa_feat_fused_plain(
     off = (group_points(xyz, idx) - new_xyz[:, :, None, :]) * (1.0 / radius)
     grouped = torch.cat([off, group_points(features, idx)], dim=-1)
     return torch.amax(folded_mlp(folded, grouped), dim=2)
-
-
-def _lib_sa_feat():
-    fn = build.load("crop").gn_sa_feat
-    if fn.argtypes is None:
-        fn.argtypes = (
-            [ctypes.c_void_p] * 10
-            + [ctypes.c_int] * 4
-            + [ctypes.c_float] * 2
-            + [ctypes.c_int] * 4
-            + [ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def sa_feat_fused(
@@ -312,7 +329,9 @@ def sa_feat_fused(
     ts = [t.detach().contiguous().float() for t in (xyz, new_xyz, features, w1, b1, w2, b2, w3, b3)]
     out = torch.empty((b, m, c3), dtype=torch.float32, device=xyz.device)
     # r*r and 1/r rounded to float32 once (crop.py:542-543)
-    err = _lib_sa_feat()(
+    fn = _fn("gn_sa_feat", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+             + [ctypes.c_float] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    err = fn(
         *(t.data_ptr() for t in ts), out.data_ptr(), b, n, m, nsample,
         radius * radius, 1.0 / radius, c_in, c1, c2, c3,
         torch.cuda.current_stream(xyz.device).cuda_stream,

@@ -13,10 +13,12 @@ backward are the kernels.  The forward kernel counts in
 The kernels compute in float32 on the CUDA cores; the JAX package runs its
 kernel with bf16 matmul inputs on the TPU (`mlp_train.py:515-522`), and the
 port is held against the XLA float32 path instead.  The backward takes the
-forward's pooled pre-norm z3 (`zext`, saved for it).  The kernels take
-s <= 64 samples and widths with c1 <= 64, c2 <= 128 (multiples of 8) and c3
-a multiple of 8 up to 128 or of 128 (`gn_mlp_train_dims_ok`), which
-`crop_mlp_train` checks before launching.
+forward's pooled pre-norm z3 (`zext`, saved for it); the forward computes
+z3 with the backward's products in the same order, so the two agree bitwise
+on every pool maximum.  The kernels take s <= 64 samples and widths with
+c1 <= 64, c2 <= 128 (multiples of 8) and c3 a multiple of 8 up to 128, or
+256 (`gn_mlp_train_dims_ok`), which `crop_mlp_train` checks before
+launching.
 """
 
 from __future__ import annotations

@@ -123,6 +123,43 @@ def test_crop_fused_matches_plain(dev):
     assert_features_close(kcrop.crop_fused(*args), kcrop.crop_fused_plain(*args))
 
 
+@pytest.mark.parametrize("widths", ["tiny", "production"])
+@pytest.mark.parametrize("ns", [1, 17, 64])
+@pytest.mark.parametrize("ndepth", [1, 4, 8])
+def test_crop_fused_tensor_cores_match_plain(dev, widths, ns, ndepth):
+    """K5's 3xTF32 tensor-core MLP at ns in {1, 17, 64} (one m16 tile, a
+    padded last tile, four tiles) and 1, 4 or 8 depths, tiny (3, 8, 16, 32)
+    and production (3, 64, 128, 256) widths, with 3 far seeds whose every
+    slot is point 0: features within 1e-4 x max(1, scale)."""
+    cfg = GraspNetConfig()
+    mlp = GraspNetConfig.tiny().crop_mlp if widths == "tiny" else cfg.crop_mlp
+    rng = np.random.default_rng(ns * 10 + ndepth)
+    xyz = cloud(rng, 2, 20000).to(dev)
+    seeds = xyz[:, :133].clone()
+    seeds[:, -3:] = 10.0
+    rot = approach_rotations(cfg, rng, 2, 133, dev)
+    hmax = tuple(np.linspace(0.01, 0.04, ndepth).tolist())
+    folded = folded_weights(mlp, ns, dev)
+    args = (xyz, seeds, rot, folded, 0.1, cfg.hmin, hmax, ns)
+    got = kcrop.crop_fused(*args)
+    assert got.shape == (2, 133, ndepth, mlp[-1])
+    assert_features_close(got, kcrop.crop_fused_plain(*args))
+
+
+def test_crop_fused_rejects_widths_outside_its_domain(dev):
+    """The tensor-core crop takes widths that are multiples of 8 and raises
+    ValueError before any launch otherwise."""
+    xyz = torch.zeros(1, 100, 3, device=dev)
+    rot = torch.eye(3, device=dev).expand(1, 4, 3, 3).contiguous()
+    before = kcrop.crop_fused.launches
+    for dims in ((3, 8, 12, 16), (3, 12, 16, 32), (3, 8, 16, 36)):
+        with pytest.raises(ValueError):
+            kcrop.crop_fused(xyz, xyz[:, :4], rot, folded_weights(dims, 0, dev), 0.05, -0.02, (0.01,), 8)
+    with pytest.raises(ValueError):  # W3 of 128 x 1024 does not fit a block's shared memory
+        kcrop.crop_fused(xyz, xyz[:, :4], rot, folded_weights((3, 64, 128, 1024), 0, dev), 0.05, -0.02, (0.01,), 8)
+    assert kcrop.crop_fused.launches == before
+
+
 def test_sa1_fused_matches_plain(dev):
     sa = GraspNetConfig().sa1
     xyz = cloud(np.random.default_rng(2), 2, 20000).to(dev)
@@ -280,6 +317,28 @@ def test_crop_mlp_train_backward_small_groups_and_duplicates(dev, dims, s, rows)
     assert _grad_err(g_k, g_64) <= 2e-3
     for a, b in zip(g_k, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dims", [(3, 8, 16, 32), (3, 64, 128, 256)])
+@pytest.mark.parametrize("s", [1, 17, 64])
+def test_crop_mlp_train_forward_bitwise_repeatable(dev, dims, s):
+    """The K7 forward (pass 3's per-thread Chan partials combined in a fixed
+    order, per-block partials reduced in block order) gives bitwise equal
+    pooled outputs and stats on two runs, and meets the plain version (pooled
+    at 2e-5 x max(1, scale), stats at 1e-5) at s in {1, 17, 64}."""
+    rng = np.random.default_rng(s + dims[1])
+    grouped = torch.from_numpy(rng.uniform(-0.3, 0.3, (2, 300, 4, s, 3)).astype(np.float32)).to(dev)
+    mlp = mlp_with_stats(dims, 2, dev)
+    with torch.no_grad():
+        runs = [kmlp.crop_mlp_train(mlp, grouped) for _ in range(2)]
+        p_p, st_p = kmlp.crop_mlp_train_plain(mlp, grouped)
+    (p_a, st_a), (p_b, st_b) = runs
+    assert torch.equal(p_a, p_b)
+    for a, b, c in zip(st_a, st_b, st_p):
+        for k in ("mean", "var"):
+            assert torch.equal(a[k], b[k])
+            torch.testing.assert_close(a[k], c[k], rtol=1e-5, atol=1e-5)
+    assert (p_a - p_p).abs().max().item() <= 2e-5 * max(1.0, p_p.abs().max().item())
 
 
 def test_crop_mlp_train_rejects_unsupported_widths(dev):
