@@ -13,7 +13,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
      synthetic tabletop cloud of 20000 points — indices exactly equal,
      features within FEATURE_TOL; CUDA-event median times; bounds with
      MLP products at the 3xTF32 tensor-core rate and scans at the f32
-     CUDA-core rate; the CloudCrop's (K5) scan share; FPS (K1) stage
+     CUDA-core rate; the ball query (K4) at each of a training step's SA1-4
+     calls (SA2-4 are a serving forward's), with the points its blocks
+     scan and load against the centres' nth-hit tests; the scan shares of
+     SA1 (K3) and the CloudCrop (K5); FPS (K1) stage
      by stage (the chain cut after 1-4 stages, us per argmax step) and
      stage 0 on clusters of 1, 2, 4, 8 and 16 CTAs per scene;
   3. main path: GraspPipeline(GraspNetConfig(), seed=1) on the card —
@@ -22,7 +25,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
      CloudCrop 1 times, the card's top-50 matches the same pipeline on the
      CPU, and p50 latency / sustained frames/s at B=1;
   4. a torch.profiler window over B=1 frames: device time per kernel (K5's
-     scan and MLP launches apart) and the device's idle share;
+     scan and MLP launches apart, K3's MLP beside the ball scans of K3 and
+     K4) and the device's idle share;
   5. training kernels: the crop group (K6) and the train MLP forward and
      backward (K7) against their plain versions at the training shape
      (B=2, 1024 label points near the tabletop's objects, random
@@ -37,13 +41,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
      loss that falls over 5 steps on a fixed batch, step_compact == step,
      one step's loss and gradients against the same step on the CPU, and
      step times, host label-prep time and peak memory, and a profiled
-     step with the K7 forward's (passes 1-3, reductions) and backward's
-     (pool sums, passes B and C) time per kernel;
+     step with the K7 forward's (passes 1-3, reductions), backward's
+     (pool sums, passes B and C) and K4's time per kernel;
   7. query-family and SA kernels: the multi-depth cylinder query (K8), the
      per-query oracle (K10) and the fused SA2-4 stage (K9) against their
      plain versions at production shapes, B=2, on the tabletop clouds —
      K8 and K10 indices equal to plain, K10 bit-equal to K8 and (ball mode)
-     to K4 at the SA2-4 calls, K9 within FEATURE_TOL at SA2, SA3 and SA4 on
+     to K4 at the SA1-4 calls, K9 within FEATURE_TOL at SA2, SA3 and SA4 on
      the model's own stage points and features; CUDA-event times;
   8. tools: the four timing entry points (graspnet_tpu_torch/scripts/)
      in-process at GraspNetConfig() with short slope windows (2 and 6
@@ -123,10 +127,11 @@ def log(**kv) -> None:
 def ptxas_records(source: str, out: str) -> list:
     """nvcc -Xptxas -v output -> one record per kernel: its name (template
     arguments as <...>), registers, spill bytes and static shared memory;
-    for the crop's tensor-core MLP also the dynamic shared memory it takes
-    at GraspNetConfig()'s widths."""
+    for the tensor-core MLPs and the ball scan also the dynamic shared
+    memory they take at GraspNetConfig()'s shapes."""
     from graspnet_tpu_torch.config import GraspNetConfig
     from graspnet_tpu_torch.ops.cuda import crop as kcrop
+    from graspnet_tpu_torch.ops.cuda import query as kquery
 
     records, current = [], None
     for line in out.splitlines():
@@ -156,6 +161,10 @@ def ptxas_records(source: str, out: str) -> list:
                 current["static_smem_bytes"] = int(smem.group(1)) if smem else 0
                 if current["kernel"].startswith("crop_mlp_tc_kernel"):
                     current["dynamic_smem_bytes"] = kcrop.cylinder_smem_bytes(*GraspNetConfig().crop_mlp[1:])
+                elif current["kernel"].startswith("sa1_mlp_tc_kernel"):
+                    current["dynamic_smem_bytes"] = kcrop.cylinder_smem_bytes(*GraspNetConfig().sa1.mlp[1:])
+                elif current["kernel"] == "ball_scan_kernel":  # the full ring (N >= 4 stages of points)
+                    current["dynamic_smem_bytes"] = kquery.BALL_SCAN_STAGES * (3 * kquery.BALL_SCAN_TILE + 4) * 4
     return records
 
 
@@ -165,33 +174,6 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def tabletop_cloud(rng: np.random.Generator, n: int = N_POINTS) -> np.ndarray:
-    """A camera-frame tabletop: a plane at z=0.55 m with boxes and spheres
-    standing on it, about 0.5 m from the camera."""
-    parts = []
-    n_table = n * 2 // 5
-    parts.append(np.stack([rng.uniform(-0.3, 0.3, n_table), rng.uniform(-0.3, 0.3, n_table),
-                           0.55 + rng.normal(0, 0.001, n_table)], 1))
-    n_obj = n - n_table
-    per = n_obj // 6
-    for k in range(6):
-        cnt = per if k < 5 else n_obj - 5 * per
-        cx, cy = rng.uniform(-0.2, 0.2, 2)
-        if k % 2 == 0:  # box: points on its faces
-            half = rng.uniform(0.02, 0.06, 3)
-            p = rng.uniform(-1, 1, (cnt, 3))
-            face = rng.integers(0, 3, cnt)
-            p[np.arange(cnt), face] = np.sign(p[np.arange(cnt), face])
-            p = p * half + [cx, cy, 0.55 - half[2]]
-        else:  # sphere
-            r = rng.uniform(0.02, 0.05)
-            v = rng.normal(size=(cnt, 3))
-            p = v / np.linalg.norm(v, axis=1, keepdims=True) * r + [cx, cy, 0.55 - r]
-        parts.append(p)
-    cloud = np.concatenate(parts, 0).astype(np.float32)
-    return cloud[rng.permutation(len(cloud))]
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -218,6 +200,32 @@ def nth_hit_tests(mask: torch.Tensor, ns: int) -> torch.Tensor:
     target = torch.full((*rank.shape[:-1], 1), ns, dtype=torch.int32, device=mask.device)
     pos = torch.searchsorted(rank.contiguous(), target)[..., 0]
     return torch.clamp(pos + 1, max=n)
+
+
+def ball_nth_hits(xyz: torch.Tensor, centers: torch.Tensor, radius: float, ns: int) -> torch.Tensor:
+    """(B, M): the points K4's first-ns scan tests for each centre, 256
+    centres at a time."""
+    from graspnet_tpu_torch.ops.query import ball_mask
+
+    return torch.cat([nth_hit_tests(ball_mask(xyz, centers[:, m0:m0 + 256], radius), ns)
+                      for m0 in range(0, centers.shape[1], 256)], dim=1)
+
+
+def ball_scan_blocks(nth: torch.Tensor, n: int) -> dict:
+    """What K4's blocks scan and load, from the centres' nth-hit tests (B,
+    M): a block of BALL_SCAN_CENTERS consecutive centres scans as far as
+    its slowest centre needs and loads STAGES - 1 tiles past the tile it
+    stops in (tests/test_torch_port_ball_scan_plan.py emulates it)."""
+    from graspnet_tpu_torch.ops.cuda import query as kquery
+
+    tile, stages = kquery.BALL_SCAN_TILE, kquery.BALL_SCAN_STAGES
+    slowest = torch.stack([blk.amax(dim=1) for blk in nth.split(kquery.BALL_SCAN_CENTERS, dim=1)], 1).double()
+    tiles = -(-n // tile)
+    loaded = torch.clamp(tile * torch.clamp(torch.ceil(slowest / tile) - 1 + stages, max=tiles), max=n)
+    mean_nth = nth.double().mean().item()
+    return dict(mean_nth_hit_tests=mean_nth, mean_block_scanned_points=slowest.mean().item(),
+                block_scanned_over_nth_hit_tests=slowest.mean().item() / mean_nth,
+                mean_block_loaded_points=loaded.mean().item())
 
 
 def bound(nbytes: float, flops: float = 0.0, mlp_flops: float = 0.0):
@@ -300,7 +308,6 @@ def kernel_phase(cfg, model, cloud_b):
     from graspnet_tpu_torch.ops.cuda import crop as kcrop
     from graspnet_tpu_torch.ops.cuda import fps as kfps
     from graspnet_tpu_torch.ops.cuda import query as kquery
-    from graspnet_tpu_torch.ops.query import ball_mask
 
     rows = []
 
@@ -333,24 +340,38 @@ def kernel_phase(cfg, model, cloud_b):
     for idx in got:
         xyz.append(torch.gather(xyz[-1], 1, idx[..., None].expand(-1, -1, 3)))
 
-    # -- ball query (K4), SA2-4 --
+    # -- ball query (K4): the SA1-4 calls of a training step (as
+    # Trainer.prepare makes them), of which SA2-4 are a serving forward's --
     calls = [(xyz[k], xyz[k + 1], sa.radius, sa.nsample)
-             for k, sa in ((1, cfg.sa2), (2, cfg.sa3), (3, cfg.sa4))]
-    flops = nbytes = 0
-    for args in calls:
+             for k, sa in enumerate((cfg.sa1, cfg.sa2, cfg.sa3, cfg.sa4))]
+    shapes = []
+    for name, args in zip(("sa1", "sa2", "sa3", "sa4"), calls):
         g, w = kquery.ball_query(*args), kquery.ball_query_plain(*args)
         if not torch.equal(g, w):
-            raise AssertionError(f"ball_query indices differ for r={args[2]}")
-        flops += nth_hit_tests(ball_mask(args[0], args[1], args[2]), args[3]).sum().item() * TEST_FLOPS["ball"]
-        nbytes += (args[0].numel() + args[1].numel()) * 4 + w.numel() * 8
-    t_bound, by = bound(nbytes, flops)
+            raise AssertionError(f"ball_query indices differ for {name} at {(g != w).nonzero()[:5].tolist()}")
+        nth = ball_nth_hits(*args)
+        work = ((args[0].numel() + args[1].numel()) * 4 + w.numel() * 8, nth.sum().item() * TEST_FLOPS["ball"])
+        t_bound, by = bound(*work)
+        shapes.append(dict(call=name, b=args[0].shape[0], n=args[0].shape[1], m=args[1].shape[1],
+                           radius=args[2], ns=args[3], ms=cuda_ms(lambda a=args: kquery.ball_query(*a), 20),
+                           plain_ms=cuda_ms(lambda a=args: kquery.ball_query_plain(*a), 5),
+                           bound_ms=t_bound, bound_by=by, bytes=work[0], flops=work[1],
+                           **ball_scan_blocks(nth, args[0].shape[1])))
+    sa1_nth_flops = shapes[0]["flops"]
+
+    def total(sel):
+        """ms, plain ms and the bound of a set of calls, taken together."""
+        t_bound, by = bound(sum(c["bytes"] for c in sel), sum(c["flops"] for c in sel))
+        return dict(ms=sum(c["ms"] for c in sel), plain_ms=sum(c["plain_ms"] for c in sel),
+                    bound_ms=t_bound, bound_by=by)
+
+    # a serving forward makes the SA2-4 calls, a training step all four
+    split = {"serving_calls": total(shapes[1:]), "train_step_calls": total(shapes)}
+    log(phase="ball_query_shapes", calls=shapes, **split)
     rows.append(dict(
         name="ball_query", route="cuda", source="graspnet_tpu_torch/csrc/query.cu",
         replaces="graspnet_tpu/ops/pallas/query.py:554 (ball_query_pallas -> multi_query_batched_pallas)",
-        max_abs_err=0.0,
-        ms=sum(cuda_ms(lambda a=a: kquery.ball_query(*a), 20) for a in calls),
-        plain_ms=sum(cuda_ms(lambda a=a: kquery.ball_query_plain(*a), 5) for a in calls),
-        bound_ms=t_bound, bound_by=by, library_ms=None,
+        max_abs_err=0.0, **total(shapes[1:] + shapes), library_ms=None,
     ))
 
     # -- SA1 fused (K3) --
@@ -361,11 +382,9 @@ def kernel_phase(cfg, model, cloud_b):
     w = kcrop.crop_fused_plain(cloud_b, centers, None, folded, sa.radius, 0.0, (0.0,),
                                sa.nsample, 1.0 / sa.radius, True)[:, :, 0]
     err = feature_err(g, w)
-    tests = sum(nth_hit_tests(ball_mask(cloud_b, centers[:, m0:m0 + 256], sa.radius), sa.nsample).sum().item()
-                for m0 in range(0, centers.shape[1], 256))
+    nrows = centers.shape[0] * centers.shape[1] * sa.nsample
     t_bound, by = bound((cloud_b.numel() + centers.numel() + g.numel()) * 4 + weight_bytes(folded),
-                        tests * TEST_FLOPS["ball"],
-                        mlp_flops(folded, centers.shape[0] * centers.shape[1] * sa.nsample))
+                        sa1_nth_flops, mlp_flops(folded, nrows))
     rows.append(dict(
         name="sa1_fused", route="cuda", source="graspnet_tpu_torch/csrc/crop.cu",
         replaces="graspnet_tpu/ops/pallas/crop.py:297 (sa1_fused_pallas -> crop_fused_pallas(ball=True))",
@@ -375,6 +394,12 @@ def kernel_phase(cfg, model, cloud_b):
             cloud_b, centers, None, folded, sa.radius, 0.0, (0.0,), sa.nsample, 1.0 / sa.radius, True), 3),
         bound_ms=t_bound, bound_by=by, library_ms=None,
     ))
+    # its two launches: K4's scan at this shape (the SA1 call above) and the
+    # tensor-core MLP
+    scan_ms = shapes[0]["ms"]
+    log(phase="sa1_fused_split", ms=rows[-1]["ms"], scan_ms=scan_ms, scan_share=scan_ms / rows[-1]["ms"],
+        mlp_ms=rows[-1]["ms"] - scan_ms, mlp_gflop=mlp_flops(folded, nrows) / 1e9,
+        mlp_tflop_per_s=mlp_flops(folded, nrows) / (rows[-1]["ms"] - scan_ms) / 1e9)
 
     # -- CloudCrop fused (K5) at the seeds, with approach-view rotations --
     seeds = xyz[2]
@@ -452,16 +477,16 @@ def query_sa_kernel_phase(cfg, model, cloud_b):
         bound_ms=t_bound, bound_by=by, library_ms=None,
     )
 
-    # -- K10 in ball mode == K4 == plain at the SA2-4 calls --
+    # -- K10 in ball mode == K4 == plain at the SA1-4 calls --
     calls = [(xyz[k], xyz[k + 1], sa.radius, sa.nsample)
-             for k, sa in ((1, cfg.sa2), (2, cfg.sa3), (3, cfg.sa4))]
+             for k, sa in enumerate((cfg.sa1, cfg.sa2, cfg.sa3, cfg.sa4))]
     ball_tests = 0
     for x, c, r, ns in calls:
         k4 = kquery.ball_query(x, c, r, ns)
         k10 = kquery.multi_query(x, c, None, r, 0.0, (0.0,), ns, rotate=False)[:, :, 0]
         if not (torch.equal(k10, k4) and torch.equal(k4, kquery.ball_query_plain(x, c, r, ns))):
             raise AssertionError(f"multi_query(rotate=False) differs from ball_query for r={r}")
-        ball_tests += nth_hit_tests(ball_mask(x, c, r), ns).sum().item()
+        ball_tests += ball_nth_hits(x, c, r, ns).sum().item()
 
     # -- K9 fused SA2-4 on the model's stage points and SA1-3 features --
     feats = [kcrop.sa1_fused(cloud_b, xyz[1], fold_bn_eval(bb.sa1.mlp), cfg.sa1.radius, cfg.sa1.nsample)]
@@ -490,7 +515,7 @@ def query_sa_kernel_phase(cfg, model, cloud_b):
     ))
     rows.append(oracle)
     log(phase="query_sa_kernels_checked", k8_equals_plain=True, k10_equals_plain_and_k8=True,
-        k10_ball_equals_k4_at_sa2_4=True, k4_tests_sa2_4=ball_tests,
+        k10_ball_equals_k4_at_sa1_4=True, k4_tests_sa1_4=ball_tests,
         sa_feat_max_abs_err=err, sa_feat_vs_backbone_path_max_abs_err=backbone_err,
         feature_tol=FEATURE_TOL)
     for r in rows:
@@ -662,7 +687,9 @@ def profile_phase(pipe, clouds, frames: int = 5):
     """Where a B=1 serving frame spends device time: a few get_grasps_topk
     calls under torch.profiler."""
     profiled("profile_b1", lambda i=0: pipe.get_grasps_topk(clouds[i % len(clouds)]), frames, "frame",
-             {"k5": ("crop_group_kernel", "crop_mlp_tc_kernel")})
+             {"k5": ("crop_group_kernel", "crop_mlp_tc_kernel"),
+              # ball_scan_kernel: K3's scan and K4's 3 calls, 4 launches a frame
+              "k3_and_k4": ("ball_scan_kernel", "sa1_mlp_tc_kernel")})
 
 
 def mlp_train_flops(c1: int, c2: int, c3: int):
@@ -1002,7 +1029,8 @@ def train_phase(cfg, clouds: np.ndarray):
     log(phase="train_timing", **timing)
     profiled("profile_train_step", lambda i=0: tr.step(dev_full), 3, "step",
              {"k7_forward": ("mlp_fwd_pass", "chan_reduce"),
-              "k7_backward": ("mlp_bwd_pass", "pool_sums_kernel", "finish_layer1", "sum_parts")})
+              "k7_backward": ("mlp_bwd_pass", "pool_sums_kernel", "finish_layer1", "sum_parts"),
+              "k4": ("ball_scan_kernel",)})
     return step_launches, timing
 
 
@@ -1014,6 +1042,7 @@ def main() -> int:
     from graspnet_tpu_torch.apps import GraspPipeline
     from graspnet_tpu_torch.config import GraspNetConfig
     from graspnet_tpu_torch.ops.cuda import build
+    from graspnet_tpu_torch.utils.synthetic import tabletop_cloud
 
     smi = nvidia_smi()
     t0 = time.perf_counter()

@@ -1,6 +1,6 @@
 // Fused crop: query + first-hits gather + frame transform + BN-folded MLP +
-// max over samples, one block per center; and the crop group, the same
-// front half writing the offsets instead of running the MLP.
+// max over samples; and the crop group, the same front half writing the
+// offsets instead of running the MLP.
 //
 // Replaces graspnet_tpu/ops/pallas/crop.py::crop_fused_pallas (K5, the
 // inference CloudCrop; body _crop_kernel over _gather_grouped_core),
@@ -18,13 +18,23 @@
 //   6. the max over the ns samples -> out[center, d, :].
 // crop_group_kernel stops after step 4 and writes the (D, ns, 3) offsets.
 //
-// SA1 (K3, ball mode, crop_fused_kernel): what bounds it on an H100 is the
-// MLP, 2048 x 64 rows through 3 -> 64 -> 64 -> 128 per frame (about 3.3
-// GFLOP), and a scan of 41 M point-center pairs.  It runs the MLP on the
-// CUDA cores in f32: the folded weights stay in device memory (read through
-// L1/L2) and a block runs one centre's ns <= 64 rows, h1 and h2 tiles in
-// shared memory, the last layer reduced to a running max in registers.
-//
+// SA1 (K3, ball mode): steps 1-3 are K4's ball scan (query.cu,
+// ball_scan_kernel, launched by the wrapper through gn_ball_query), which
+// writes the padded indices (B, M, ns) to a scratch; then sa1_mlp_tc_kernel
+// builds each group's rows from them (step 4: xyz[idx] - centre, then x 1/r,
+// rounded as crop_sample rounds them, so the offsets are bitwise those of
+// the plain version) and runs steps 5-6 as K5's MLP does, below.  The scan
+// writes indices rather than offsets: they are what the scan makes anyway
+// (2 MB at B=2), K4 stays one kernel with one output, and the gather is 3
+// loads a row that the MLP's prologue starts one group ahead.  Per frame
+// the MLP is 2048 x 64 rows through 3 -> 64 -> 64 -> 128 (3.3 GFLOP; bound
+// 3 x 6.5 GFLOP at B=2, 0.04 ms at 495 TFLOP/s) and the scan tests a few
+// tens of millions of point-center pairs.  SA1's layout takes 88 KB, so two
+// blocks share an SM and the grid is sized by occupancy; with 64 and 128
+// columns, layer 2 splits its m tiles over two warps and layer 3 takes 2
+// column tiles a warp, so all 8 warps work (K5's 2 + 4 would leave warps
+// 4-7 idle).
+
 // CloudCrop (K5, cylinder mode): steps 1-4 are crop_group_kernel, unchanged
 // (the same offsets bit for bit), into a (B, M, D, ns, 3) scratch, then
 // crop_mlp_tc_kernel runs steps 5-6 on the tensor cores.  Per frame the MLP
@@ -34,7 +44,8 @@
 // resident blocks to hide it, the MLP wants its 160 KB of folded W2/W3
 // resident, which leaves one block per SM.  So they are two launches, and
 // the offsets (6.3 MB at B=2) go through device memory once.
-//   crop_mlp_tc_kernel: about one block per SM walks the (centre, depth)
+//   crop_mlp_tc_kernel (and sa1_mlp_tc_kernel, the same body tc_mlp with
+// other rows and warp tiles): about one block per SM walks the (centre, depth)
 // groups with W2 and W3 resident in shared memory (f32, transposed, loaded
 // once per block).  A group's ns rows, padded to m16 tiles, go through layer
 // 1 (K = 3) on the CUDA cores in the JAX broadcast-sum order, then layers 2
@@ -60,9 +71,9 @@
 // so no FMA contraction moves a point across a boundary.
 //
 // The crop group (K6) is bound by its scan: 41 M point tests per training
-// step (B=2, 1024 label points, 20000 points) against 6.3 MB of output; it
-// shares the fused kernel's scan (scan_first_hits) and sample transform
-// (crop_sample), so its indices are those of the fused kernels.
+// step (B=2, 1024 label points, 20000 points) against 6.3 MB of output.
+// crop_group_kernel is also K5's first launch, and it shares its scan
+// (scan_first_hits) and sample transform (crop_sample) with K9.
 //
 // sa_feat_kernel replaces crop.py::sa_feat_fused_pallas (K9, body
 // _sa_feat_kernel, crop.py:448-519), the fused SA2-4 eval stage: the same
@@ -74,7 +85,7 @@
 // per B=1 frame ~4.3 GFLOP at SA2 (1024 x 32 rows, 131 -> 128 -> 128 -> 256),
 // ~1.35 at SA3 and ~0.67 at SA4 (~0.1 ms at the f32 peak).  The folded
 // weights (66k-82k floats, 264-329 KB) do not fit in shared memory, so they
-// stream through L1/L2 as the crop's do; the ns <= 32 rows of a centre
+// stream through L1/L2; the ns <= 32 rows of a centre
 // (features, h1, h2: at most 50 KB) sit in shared memory, so several blocks
 // share an SM.
 
@@ -280,59 +291,6 @@ __device__ __forceinline__ void dense_relu_max(
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-crop_fused_kernel(const float* __restrict__ xyz,
-                  const float* __restrict__ centers,
-                  const float* __restrict__ rot,
-                  const float* __restrict__ w1, const float* __restrict__ b1,
-                  const float* __restrict__ w2, const float* __restrict__ b2,
-                  const float* __restrict__ w3, const float* __restrict__ b3,
-                  float* __restrict__ out, CropArgs a) {
-  extern __shared__ float smem[];
-  float* h1 = smem;                         // kMaxSamples x c1
-  float* h2 = h1 + kMaxSamples * a.c1;      // kMaxSamples x c2
-  float* samples = h2 + kMaxSamples * a.c2; // kMaxSamples x 3
-  __shared__ int s_idx[kMaxDepths][kMaxSamples];
-  __shared__ int s_cnt[kMaxDepths];
-  __shared__ int s_wcnt[kWarps][kMaxDepths];
-
-  const int q = blockIdx.x;  // center index over batch * m
-  const int tid = threadIdx.x;
-  const float* pts = xyz + (size_t)(q / a.m) * a.n * 3;
-  const float cx = centers[3 * (size_t)q];
-  const float cy = centers[3 * (size_t)q + 1];
-  const float cz = centers[3 * (size_t)q + 2];
-  float r[9];
-#pragma unroll
-  for (int i = 0; i < 9; ++i) r[i] = a.ball ? 0.0f : rot[9 * (size_t)q + i];
-
-  // ---- 1-2: masks and the first ns hits per depth, in index order ----
-  scan_first_hits(pts, cx, cy, cz, r, a, s_idx, s_cnt, s_wcnt);
-
-  for (int d = 0; d < a.ndepth; ++d) {
-    // ---- 3-4: padded raw coordinates -> offsets in the crop frame ----
-    if (tid < a.ns) crop_sample(pts, cx, cy, cz, r, a, s_idx[d], s_cnt[d], tid, samples + 3 * tid);
-    __syncthreads();
-
-    // ---- 5a: layer 1 (K = 3) as a broadcast-sum ----
-    for (int e = tid; e < a.ns * a.c1; e += kThreads) {
-      const int row = e / a.c1, c = e - row * a.c1;
-      const float v = samples[3 * row] * w1[c] + samples[3 * row + 1] * w1[a.c1 + c] +
-                      samples[3 * row + 2] * w1[2 * a.c1 + c] + b1[c];
-      h1[row * a.c1 + c] = fmaxf(v, 0.0f);
-    }
-    __syncthreads();
-
-    // ---- 5b: layer 2, h2 = relu(h1 @ W2 + b2) ----
-    dense_relu_rows(h1, a.c1, w2, b2, h2, a.c2, a.ns, nullptr, nullptr);
-    __syncthreads();
-
-    // ---- 5c-6: layer 3 folded into the max over samples ----
-    dense_relu_max(h2, a.c2, w3, b3, a.c3, a.ns, out + ((size_t)q * a.ndepth + d) * a.c3);
-    __syncthreads();  // samples/h1/h2 are rewritten by the next depth
-  }
-}
-
 // The crop group (K6): steps 1-4 only; out[center, d, slot, 0..3).
 __global__ void __launch_bounds__(kThreads)
 crop_group_kernel(const float* __restrict__ xyz,
@@ -413,7 +371,6 @@ sa_feat_kernel(const float* __restrict__ xyz,
 // ---------------------------------------------- K5: tensor-core crop MLP --
 
 constexpr int kTile = 16;                     // rows of an mma tile
-constexpr int kN2 = 2, kN3 = 4;               // n tiles (8 columns each) a warp owns, layers 2 / 3
 constexpr size_t kMaxSmemBytes = 232448;      // shared memory a block may use
 
 // Smallest ld >= k with ld = 4 (mod 32) floats: the 8 rows of 16 bytes that
@@ -525,19 +482,87 @@ __device__ __forceinline__ void mma_3xtf32(const float* A, int lda, const float*
   }
 }
 
-// Steps 5-6 of the CloudCrop on the tensor cores.  grouped (G, ns, 3) ->
-// out (G, c3) = max over the ns rows of relu(relu(relu(x W1 + b1) W2 + b2)
-// W3 + b3), with MT = ceil(ns / 16) m tiles.  Persistent: block b runs
-// groups b, b + gridDim.x, ...
-template <int MT>
-__global__ void __launch_bounds__(kThreads, 1)
-crop_mlp_tc_kernel(const float* __restrict__ grouped, int groups, int ns,
-                   const float* __restrict__ w1, const float* __restrict__ b1,
-                   const float* __restrict__ w2, const float* __restrict__ b2,
-                   const float* __restrict__ w3, const float* __restrict__ b3,
-                   float* __restrict__ out, int c1, int c2, int c3) {
+// A group's rows from the CloudCrop's offsets, (G, ns, 3) floats in
+// device memory: thread e < 3 ns holds float e, fetched one group ahead.
+struct GroupedRows {
+  const float* grouped;
+  int ns;
+  float next;
+
+  __device__ __forceinline__ void start(int grp, int groups) {
+    next = 0.0f;
+    if (grp < groups && threadIdx.x < 3 * ns) next = __ldg(grouped + (size_t)grp * 3 * ns + threadIdx.x);
+  }
+  // smp (rows, 3) <- group grp, padded rows zero; then fetch group `ahead`
+  __device__ __forceinline__ void put(float* smp, int rows, int ahead, int groups) {
+    const int e = threadIdx.x;
+    if (e < 3 * rows) smp[e] = e < 3 * ns ? next : 0.0f;
+    if (ahead < groups && e < 3 * ns) next = __ldg(grouped + (size_t)ahead * 3 * ns + e);
+  }
+};
+
+// A group's rows built from SA1's padded ball-query indices (G, ns) int64:
+// thread r < ns holds row r, the point xyz[scene, idx[grp, r]] and the
+// group's centre, one group ahead, and the index two groups ahead, so no
+// load waits on another.  The row is (point - centre) x normalize, rounded
+// as crop_sample rounds it (so the offsets are bitwise those of the plain
+// version's gather).
+struct BallRows {
+  const int64_t* idx;
+  const float* xyz;
+  const float* centers;
+  int n, m, ns;
+  float normalize;
+  float p[3], c[3];
+  int next_idx;
+
+  __device__ __forceinline__ void fetch_point(int grp) {  // p, c <- group grp at next_idx
+    const float* pt = xyz + ((size_t)(grp / m) * n + next_idx) * 3;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      p[k] = __ldg(pt + k);
+      c[k] = __ldg(centers + (size_t)grp * 3 + k);
+    }
+  }
+  __device__ __forceinline__ void start(int grp, int groups) {
+    const int r = threadIdx.x;
+    if (grp >= groups || r >= ns) return;
+    next_idx = (int)__ldg(idx + (size_t)grp * ns + r);
+    fetch_point(grp);
+    const int ahead = grp + gridDim.x;
+    if (ahead < groups) next_idx = (int)__ldg(idx + (size_t)ahead * ns + r);
+  }
+  __device__ __forceinline__ void put(float* smp, int rows, int ahead, int groups) {
+    const int r = threadIdx.x;
+    if (r < rows) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) smp[3 * r + k] = r < ns ? __fmul_rn(__fsub_rn(p[k], c[k]), normalize) : 0.0f;
+    }
+    if (ahead < groups && r < ns) {
+      fetch_point(ahead);
+      const int later = ahead + gridDim.x;
+      if (later < groups) next_idx = (int)__ldg(idx + (size_t)later * ns + r);
+    }
+  }
+};
+
+// Steps 5-6 on the tensor cores: the rows of group g (ns of them) ->
+// out (g, c3) = max over the rows of relu(relu(relu(x W1 + b1) W2 + b2) W3
+// + b3), with MT = ceil(ns / 16) m tiles.  Persistent: block b runs groups
+// b, b + gridDim.x, ...  A warp's share of layer 2 is N2 column tiles over
+// MT / MS2 m tiles, of layer 3 N3 column tiles over all MT (so the max over
+// rows stays in the warp); the launchers pick them so that all 8 warps
+// work at their widths.
+template <int MT, int MS2, int N2, int N3, class Rows>
+__device__ __forceinline__ void tc_mlp(Rows rows_in, int groups, int ns,
+                                       const float* __restrict__ w1, const float* __restrict__ b1,
+                                       const float* __restrict__ w2, const float* __restrict__ b2,
+                                       const float* __restrict__ w3, const float* __restrict__ b3,
+                                       float* __restrict__ out, int c1, int c2, int c3) {
+  static_assert(MT % MS2 == 0, "layer 2's m parts split the m tiles evenly");
   extern __shared__ __align__(16) float tc_smem[];
   constexpr int rows = MT * kTile;
+  constexpr int MP = MT / MS2;  // m tiles of a layer-2 part
   const TcLayout l = tc_layout(c1, c2, c3);
   float* w2t = tc_smem;
   float* w3t = tc_smem + l.w3;
@@ -546,18 +571,15 @@ crop_mlp_tc_kernel(const float* __restrict__ grouped, int groups, int ns,
   float* smp = tc_smem + l.smp;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int nt2 = c2 / 8, nt3 = c3 / 8;
+  const int parts2 = (nt2 + N2 - 1) / N2;
 
   load_transposed(w2, c1, c2, w2t, l.ld1);
   load_transposed(w3, c2, c3, w3t, l.ld2);
-  // the group's 3 ns floats, fetched one group ahead
-  float next = 0.0f;
-  if (blockIdx.x < groups && tid < 3 * ns) next = __ldg(grouped + (size_t)blockIdx.x * 3 * ns + tid);
+  rows_in.start(blockIdx.x, groups);
 
   for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {
     __syncthreads();  // the weights are in; the previous group's layer 1 is done
-    if (tid < 3 * rows) smp[tid] = tid < 3 * ns ? next : 0.0f;  // padded rows: zeros
-    const int ahead = grp + gridDim.x;
-    if (ahead < groups && tid < 3 * ns) next = __ldg(grouped + (size_t)ahead * 3 * ns + tid);
+    rows_in.put(smp, rows, grp + gridDim.x, groups);
     __syncthreads();
 
     // layer 1 (K = 3): the broadcast-sum on the CUDA cores
@@ -569,18 +591,21 @@ crop_mlp_tc_kernel(const float* __restrict__ grouped, int groups, int ns,
     }
     __syncthreads();
 
-    // layer 2: a2 = relu(a1 W2 + b2); warp w owns column tiles kN2 w + 8 kN2 i ..
-    for (int t0 = kN2 * warp; t0 < nt2; t0 += kN2 * kWarps) {
-      float acc[MT][kN2][4] = {};
-      mma_3xtf32<MT, kN2>(a1s, l.ld1, w2t, l.ld1, t0, nt2 - 1, c1, acc);
+    // layer 2: a2 = relu(a1 W2 + b2); item i: column tiles N2 (i % parts2)
+    // on, m tiles MP (i / parts2) on
+    for (int item = warp; item < parts2 * MS2; item += kWarps) {
+      const int part = MS2 == 1 ? 0 : item / parts2;  // no division where the m tiles are not split
+      const int t0 = N2 * (item - part * parts2), mt0 = MP * part;
+      float acc[MP][N2][4] = {};
+      mma_3xtf32<MP, N2>(a1s + kTile * mt0 * l.ld1, l.ld1, w2t, l.ld1, t0, nt2 - 1, c1, acc);
 #pragma unroll
-      for (int j = 0; j < kN2; ++j) {
+      for (int j = 0; j < N2; ++j) {
         if (t0 + j >= nt2) continue;
         const int col = 8 * (t0 + j) + 2 * t;
         const float bb0 = __ldg(b2 + col), bb1 = __ldg(b2 + col + 1);
 #pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const int r = kTile * m + g;
+        for (int m = 0; m < MP; ++m) {
+          const int r = kTile * (mt0 + m) + g;
           *reinterpret_cast<float2*>(a2s + r * l.ld2 + col) =
               make_float2(fmaxf(acc[m][j][0] + bb0, 0.0f), fmaxf(acc[m][j][1] + bb1, 0.0f));
           *reinterpret_cast<float2*>(a2s + (r + 8) * l.ld2 + col) =
@@ -592,11 +617,11 @@ crop_mlp_tc_kernel(const float* __restrict__ grouped, int groups, int ns,
 
     // layer 3 folded into the max over the ns rows: registers, then the 8
     // lanes that share a column (xor 4, 8, 16)
-    for (int t0 = kN3 * warp; t0 < nt3; t0 += kN3 * kWarps) {
-      float acc[MT][kN3][4] = {};
-      mma_3xtf32<MT, kN3>(a2s, l.ld2, w3t, l.ld2, t0, nt3 - 1, c2, acc);
+    for (int t0 = N3 * warp; t0 < nt3; t0 += N3 * kWarps) {
+      float acc[MT][N3][4] = {};
+      mma_3xtf32<MT, N3>(a2s, l.ld2, w3t, l.ld2, t0, nt3 - 1, c2, acc);
 #pragma unroll
-      for (int j = 0; j < kN3; ++j) {
+      for (int j = 0; j < N3; ++j) {
         if (t0 + j >= nt3) continue;  // warp-uniform
         const int col = 8 * (t0 + j) + 2 * t;
         const float bb0 = __ldg(b3 + col), bb1 = __ldg(b3 + col + 1);
@@ -624,6 +649,53 @@ crop_mlp_tc_kernel(const float* __restrict__ grouped, int groups, int ns,
   }
 }
 
+// K5's MLP: grouped (G, ns, 3) offsets; W2 and W3 at K5's widths take one
+// block per SM, and 2 + 4 column tiles a warp keep its 8 warps busy at
+// 128 and 256 columns.
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+crop_mlp_tc_kernel(const float* __restrict__ grouped, int groups, int ns,
+                   const float* __restrict__ w1, const float* __restrict__ b1,
+                   const float* __restrict__ w2, const float* __restrict__ b2,
+                   const float* __restrict__ w3, const float* __restrict__ b3,
+                   float* __restrict__ out, int c1, int c2, int c3) {
+  tc_mlp<MT, 1, 2, 4>(GroupedRows{grouped, ns}, groups, ns, w1, b1, w2, b2, w3, b3, out, c1, c2, c3);
+}
+
+// K3's MLP: rows from the ball scan's padded indices (B, M, ns), groups =
+// B M.  SA1's layout (3 -> 64 -> 64 -> 128) takes 88 KB, so two blocks
+// share an SM (registers capped at 128 a thread); layer 2 (8 column tiles)
+// splits the m tiles in two where MT is even, layer 3 (16) takes 2 column
+// tiles a warp.
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 2)
+sa1_mlp_tc_kernel(BallRows rows, int groups,
+                  const float* __restrict__ w1, const float* __restrict__ b1,
+                  const float* __restrict__ w2, const float* __restrict__ b2,
+                  const float* __restrict__ w3, const float* __restrict__ b3,
+                  float* __restrict__ out, int c1, int c2, int c3) {
+  tc_mlp<MT, MT % 2 == 0 ? 2 : 1, 2, 2>(rows, groups, rows.ns, w1, b1, w2, b2, w3, b3, out, c1, c2, c3);
+}
+
+// The grid of a persistent MLP kernel: as many blocks as fit the card at
+// once (its occupancy at `smem` bytes of dynamic shared memory x the SMs),
+// at most one per group.  Also raises the kernel's dynamic shared memory
+// limit to `smem`.
+template <class Kernel>
+cudaError_t persistent_grid(Kernel kernel, size_t smem, int groups, int* grid) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) != cudaSuccess) {
+    return err;
+  }
+  const int fit = (per_sm > 0 ? per_sm : 1) * sms;
+  *grid = groups < fit ? groups : fit;
+  return cudaSuccess;
+}
+
 // CropArgs of a cylinder-mode scan (crop group and CloudCrop)
 CropArgs cylinder_args(int n, int m, int ns, float r2, float hmin, const float* hmax, int ndepth) {
   CropArgs a = {};
@@ -640,37 +712,6 @@ CropArgs cylinder_args(int n, int m, int ns, float r2, float hmin, const float* 
 }
 
 }  // namespace
-
-// SA1 (K3): crop_fused_kernel in ball mode, offsets x normalize.
-extern "C" int gn_sa1_fused(const float* xyz, const float* centers, const float* w1,
-                            const float* b1, const float* w2, const float* b2,
-                            const float* w3, const float* b3, float* out, int batch,
-                            int n, int m, int ns, float r2, float normalize, int c1,
-                            int c2, int c3, void* stream) {
-  if (ns < 1 || ns > kMaxSamples || c1 % 4 != 0 || c2 % 4 != 0 || c2 > kThreads ||
-      kThreads % c2 != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  CropArgs a = {};
-  a.n = n;
-  a.m = m;
-  a.ndepth = 1;
-  a.ns = ns;
-  a.ball = 1;
-  a.c1 = c1;
-  a.c2 = c2;
-  a.c3 = c3;
-  a.r2 = r2;
-  a.normalize = normalize;
-  const size_t smem = (size_t)kMaxSamples * (c1 + c2 + 3) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      crop_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (batch * m == 0) return (int)cudaSuccess;
-  crop_fused_kernel<<<batch * m, kThreads, smem, (cudaStream_t)stream>>>(
-      xyz, centers, nullptr, w1, b1, w2, b2, w3, b3, out, a);
-  return (int)cudaGetLastError();
-}
 
 // Bytes of dynamic shared memory crop_mlp_tc_kernel takes at these widths,
 // or 0 where it does not take them (widths multiples of 8, the layout
@@ -698,19 +739,44 @@ extern "C" int gn_crop_cylinder(const float* xyz, const float* centers, const fl
               const float*, const float*, float*, int, int, int) =
       ns <= kTile ? crop_mlp_tc_kernel<1> : ns <= 2 * kTile ? crop_mlp_tc_kernel<2>
                   : ns <= 3 * kTile ? crop_mlp_tc_kernel<3> : crop_mlp_tc_kernel<4>;
-  cudaError_t err = cudaFuncSetAttribute(mlp, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int groups = batch * m * ndepth;
+  int grid = 0;
+  const cudaError_t err = persistent_grid(mlp, smem, groups, &grid);
   if (err != cudaSuccess) return (int)err;
-  if (batch * m == 0) return (int)cudaSuccess;
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
-    return (int)err;
-  }
+  if (grid == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   crop_group_kernel<<<batch * m, kThreads, 0, st>>>(xyz, centers, rot, grouped, a);
-  const int groups = batch * m * ndepth;
-  mlp<<<groups < sms ? groups : sms, kThreads, smem, st>>>(grouped, groups, ns, w1, b1, w2, b2, w3,
-                                                            b3, out, c1, c2, c3);
+  mlp<<<grid, kThreads, smem, st>>>(grouped, groups, ns, w1, b1, w2, b2, w3, b3, out, c1, c2, c3);
+  return (int)cudaGetLastError();
+}
+
+// SA1 (K3), after the ball scan (query.cu's gn_ball_query) has written the
+// padded indices idx (B, M, ns): the rows (xyz[idx] - centre) x normalize
+// and the tensor-core MLP + max into out (B, M, c3).  w* 16-byte aligned.
+extern "C" int gn_sa1_mlp(const int64_t* idx, const float* xyz, const float* centers,
+                          const float* w1, const float* b1, const float* w2, const float* b2,
+                          const float* w3, const float* b3, float* out, int batch, int n, int m,
+                          int ns, float normalize, int c1, int c2, int c3, void* stream) {
+  const size_t smem = gn_crop_mlp_tc_smem(c1, c2, c3);
+  if (ns < 1 || ns > kMaxSamples || smem == 0) return (int)cudaErrorInvalidValue;
+  void (*mlp)(BallRows, int, const float*, const float*, const float*, const float*, const float*,
+              const float*, float*, int, int, int) =
+      ns <= kTile ? sa1_mlp_tc_kernel<1> : ns <= 2 * kTile ? sa1_mlp_tc_kernel<2>
+                  : ns <= 3 * kTile ? sa1_mlp_tc_kernel<3> : sa1_mlp_tc_kernel<4>;
+  int grid = 0;
+  const cudaError_t err = persistent_grid(mlp, smem, batch * m, &grid);
+  if (err != cudaSuccess) return (int)err;
+  if (grid == 0) return (int)cudaSuccess;
+  BallRows rows = {};
+  rows.idx = idx;
+  rows.xyz = xyz;
+  rows.centers = centers;
+  rows.n = n;
+  rows.m = m;
+  rows.ns = ns;
+  rows.normalize = normalize;
+  mlp<<<grid, kThreads, smem, (cudaStream_t)stream>>>(rows, batch * m, w1, b1, w2, b2, w3, b3, out, c1,
+                                                      c2, c3);
   return (int)cudaGetLastError();
 }
 

@@ -14,15 +14,37 @@
 // slot takes the first hit of its depth, and a depth with no hits is index
 // 0 everywhere.
 //
-// What bounds them on an H100: the membership tests, a few FLOPs per point
-// tested, and the scan stops once every depth has ns hits.  On the serving
-// path (SA2-4: 2048 -> 1024 centers r 0.1 ns 32, 1024 -> 512 r 0.2 ns 16,
-// 512 -> 256 r 0.3 ns 16) the whole work is well under a microsecond of
-// arithmetic and a few hundred KB of traffic, so launch latency dominates.
-// The cylinder query at 1024 seeds x 4 depths x 20000 points tests a few
-// million point-seed pairs (far seeds scan all N).
+// What bounds them on an H100: the membership tests, 8 FLOPs a point-centre
+// pair in ball mode, and the scan stops once every depth has ns hits.  On
+// the serving path (SA2-4: 2048 -> 1024 centers r 0.1 ns 32, 1024 -> 512 r
+// 0.2 ns 16, 512 -> 256 r 0.3 ns 16) the whole work is well under a
+// microsecond of arithmetic and the clouds are 6-24 KB, so latency bounds
+// it; the training step's SA1 call (2048 centers x 20000 points, r 0.04, ns
+// 64) tests tens of millions of pairs on a 240 KB scene.  The cylinder
+// query at 1024 seeds x 4 depths x 20000 points tests a few million
+// point-seed pairs (far seeds scan all N).
 //
-// Design of K4/K8 (warp_query_kernel): one warp per center scans the points
+// Design of K4 (ball_scan_kernel): a block takes kScanWarps (8)
+// consecutive centers of one scene, one per warp, and streams the scene's
+// points through a ring of kScanStages shared-memory stages of kScanTile
+// points.  Thread 0 keeps the ring full: a 1-D cp.async.bulk (TMA) per
+// stage for its 16-byte-aligned middle and 4-byte cp.async for the ragged
+// head and tail (a scene starts at byte 12 N b, not always 16-aligned), all
+// completing on the stage's mbarrier.  Each warp scans a stage from shared
+// memory, 4 chunks of 32 points a step (the 12 loads go out together): per
+// chunk a ballot/__popc gives each hit its slot and the hit goes straight
+// to out, the first hit stays in a register for the padding.  The block
+// barrier at the end of a stage (__syncthreads_count of the warps that are
+// done) releases the stage for the next load and stops the block once all
+// its centers have ns hits; loads still in flight are waited for before
+// the block exits.  What bounds it: the ~15 instructions a warp runs for its center
+// per 32 points, over as many points as each center needs (a warp stops at
+// its own ns-th hit), with the block's stages held until its slowest
+// center is done.  Two centers a warp, or 16 a block, ran slower on an
+// H100: each warp then scans as far as the slower of its two centers.  At
+// SA2-4 the whole cloud fits the ring and is loaded once per block.
+//
+// Design of K8 (warp_query_kernel): one warp per center scans the points
 // 32 at a time in index order; per depth, __ballot_sync/__popc give each
 // hit its slot, and the warp stops as soon as every depth has ns hits (the
 // hmax list need not be sorted).  The first hit of each depth is tracked in
@@ -31,7 +53,7 @@
 // Design of K10 (seed_query_kernel): one thread per (scene, center) walks
 // the points one by one in index order and appends each hit to its depth's
 // row; the padding reads the row's first entry back.  It shares nothing
-// with the warp scan but the membership test, so holding K4/K8 bit-equal
+// with the scans but the membership test, so holding K4/K8 bit-equal
 // to it checks their slot arithmetic.  It is an oracle, not a fast path.
 //
 // The membership arithmetic uses __fsub_rn/__fmul_rn/__fadd_rn in the JAX
@@ -203,16 +225,166 @@ int launch_warp(const float* xyz, const float* centers, const float* rot,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------ K4: the ball scan --
+
+constexpr int kScanWarps = 8;     // one center each: a block takes 8 consecutive centers
+constexpr int kScanUnroll = 4;    // 32-point chunks a warp loads before it tests them
+constexpr int kScanTile = 1024;   // points a stage holds
+constexpr int kScanStages = 4;
+// a stage's floats: the tile, plus 16 bytes to put the bulk copy's
+// destination on a 16-byte boundary (12 kScanTile bytes keep every tile's
+// start at the scene's alignment)
+constexpr int kStageFloats = 3 * kScanTile + 4;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// Thread 0 loads tile t of a scene into its stage: the 16-byte-aligned
+// middle with one bulk copy, the ragged head and tail (< 4 floats each)
+// with 4-byte cp.async; the stage's barrier completes when all have landed.
+// `head` is the floats before the scene's first 16-byte boundary.
+__device__ __forceinline__ void load_tile(const float* __restrict__ pts, int n, int t, int head,
+                                          float* stage, uint64_t* bar) {
+  const int floats = 3 * min(kScanTile, n - t * kScanTile);
+  const float* src = pts + (size_t)3 * kScanTile * t;
+  const int h = min(head, floats);
+  const int mid = (floats - h) & ~3;
+  for (int j = 0; j < floats; ++j) {
+    if (j == h) j += mid;  // the bulk copy's part
+    if (j < floats) {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(stage + j)), "l"(src + j)
+                   : "memory");
+    }
+  }
+  // the barrier's pending count rises now and falls when those copies land
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];" ::"r"(smem_u32(bar)) : "memory");
+  if (mid == 0) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+  } else {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)), "r"(4 * mid)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+        ::"r"(smem_u32(stage + h)), "l"(src + h), "r"(4 * mid), "r"(smem_u32(bar))
+        : "memory");
+  }
+}
+
+// out (batch, m, ns): a block per kScanWarps consecutive centers of one
+// scene, one per warp; `stages` <= kScanStages shared-memory stages.
+__global__ void __launch_bounds__(kScanWarps * 32)
+ball_scan_kernel(const float* __restrict__ xyz, const float* __restrict__ centers,
+                 int64_t* __restrict__ out, int n, int m, int ns, float r2, int stages) {
+  extern __shared__ __align__(16) float ring[];
+  __shared__ __align__(8) uint64_t full[kScanStages];
+
+  const int per_scene = (m + kScanWarps - 1) / kScanWarps;
+  const int b = blockIdx.x / per_scene;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* pts = xyz + (size_t)b * n * 3;
+  const int tiles = (n + kScanTile - 1) / kScanTile;
+  const int head = (4 - (int)((reinterpret_cast<uintptr_t>(pts) >> 2) & 3)) & 3;
+  const int shift = (4 - head) & 3;  // stage + shift + head is 16-byte aligned
+
+  const int q = (blockIdx.x - b * per_scene) * kScanWarps + warp;
+  const bool valid = q < m;  // a missing center is done from the start and writes nothing
+  const size_t row = (size_t)b * m + (valid ? q : 0);
+  const float cx = centers[3 * row], cy = centers[3 * row + 1], cz = centers[3 * row + 2];
+  int64_t* o = out + row * ns;
+  int count = 0, first = 0;
+  bool done = !valid;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(&full[s])) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int t = 0; t < min(stages, tiles); ++t) load_tile(pts, n, t, head, ring + t * kStageFloats + shift, &full[t]);
+  }
+  __syncthreads();
+
+  for (int t = 0; t < tiles; ++t) {
+    const int s = t % stages;
+    if (!done) mbar_wait(&full[s], (t / stages) & 1);
+    const float* sp = ring + s * kStageFloats + shift;
+    const int cnt = min(kScanTile, n - t * kScanTile);
+    // kScanUnroll chunks a step: their loads go out together, and a chunk
+    // tested after the ns-th hit writes nothing (its slots are >= ns)
+    for (int base = 0; base < cnt && !done; base += 32 * kScanUnroll) {
+      float x[kScanUnroll], y[kScanUnroll], z[kScanUnroll];
+#pragma unroll
+      for (int u = 0; u < kScanUnroll; ++u) {
+        const int p = base + 32 * u + lane;
+        x[u] = p < cnt ? sp[3 * p] : 0.0f;
+        y[u] = p < cnt ? sp[3 * p + 1] : 0.0f;
+        z[u] = p < cnt ? sp[3 * p + 2] : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kScanUnroll; ++u) {
+        const int p = base + 32 * u + lane;
+        const float dx = __fsub_rn(x[u], cx);
+        const float dy = __fsub_rn(y[u], cy);
+        const float dz = __fsub_rn(z[u], cz);
+        const bool hit = p < cnt && add(add(mul(dx, dx), mul(dy, dy)), mul(dz, dz)) < r2;
+        const unsigned bal = __ballot_sync(0xffffffffu, hit);
+        if (bal != 0) {
+          const int index = t * kScanTile + p;
+          if (count == 0) first = index - lane + __ffs(bal) - 1;
+          const int pos = count + __popc(bal & ((1u << lane) - 1u));
+          if (hit && pos < ns) o[pos] = index;
+          count += __popc(bal);
+        }
+      }
+      done = count >= ns;
+    }
+    // every warp is past stage s: it may be refilled, or the block stops
+    const bool stop = __syncthreads_count(done) == (int)blockDim.x;
+    if (stop) {
+      for (int u = t + 1; u < min(t + stages, tiles); ++u) mbar_wait(&full[u % stages], (u / stages) & 1);
+      break;
+    }
+    if (threadIdx.x == 0 && t + stages < tiles) {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      load_tile(pts, n, t + stages, head, ring + s * kStageFloats + shift, &full[s]);
+    }
+  }
+
+  if (valid) {
+    for (int slot = min(count, ns) + lane; slot < ns; slot += 32) o[slot] = first;
+  }
+}
+
 }  // namespace
 
 // K4: out (batch, m, ns).
 extern "C" int gn_ball_query(const float* xyz, const float* centers,
                              int64_t* out, int batch, int n, int m, float r2,
                              int ns, void* stream) {
-  QueryArgs a;
-  int err = make_args(&a, n, m, ns, 0, r2, 0.0f, nullptr, 1);
-  if (err != (int)cudaSuccess) return err;
-  return launch_warp(xyz, centers, nullptr, out, batch, a, stream);
+  if (ns < 1 || n < 0 || m < 0) return (int)cudaErrorInvalidValue;
+  const int tiles = (n + kScanTile - 1) / kScanTile;
+  const int stages = tiles < kScanStages ? (tiles > 0 ? tiles : 1) : kScanStages;
+  const int smem = stages * kStageFloats * (int)sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(ball_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = batch * ((m + kScanWarps - 1) / kScanWarps);
+  if (blocks == 0) return (int)cudaSuccess;
+  ball_scan_kernel<<<blocks, kScanWarps * 32, smem, (cudaStream_t)stream>>>(xyz, centers, out, n, m, ns,
+                                                                             r2, stages);
+  return (int)cudaGetLastError();
 }
 
 // K8: out (batch, m, ndepth, ns); rot (batch, m, 3, 3) row-major.

@@ -3,14 +3,16 @@ crop group (its front half) and the fused SA2-4 stage: the `csrc/crop.cu`
 kernels and their plain versions.
 
 Counterpart of `graspnet_tpu/ops/pallas/crop.py::crop_fused_pallas` (the
-inference CloudCrop), `sa1_fused_pallas` (backbone SA1, the same kernel in
+inference CloudCrop), `sa1_fused_pallas` (backbone SA1, the same function in
 ball mode with offsets scaled by 1/r), `crop_group_pallas` (the training
 crop's query + group + rotate) and `sa_feat_fused_pallas` (an SA stage with
 feature grouping, ball mode with a feature input).  Each wrapper launches
-its kernel for a CUDA tensor (`crop_fused`: the crop group's scan, then the
-tensor-core MLP `crop_mlp_tc_kernel`, one launch count for the pair) and
-runs the plain version (`crop_fused_plain`, `crop_group_plain`,
-`sa_feat_fused_plain`) for a CPU tensor; each keeps its own launch count.
+its kernels for a CUDA tensor and runs the plain version
+(`crop_fused_plain`, `crop_group_plain`, `sa_feat_fused_plain`) for a CPU
+tensor; each keeps its own launch count.  Two wrappers run two kernels
+under one count: `crop_fused` the crop group's scan, then the tensor-core
+MLP `crop_mlp_tc_kernel`; `sa1_fused` K4's ball scan (`query.ball_scan`,
+not counted as a `ball_query` launch), then `sa1_mlp_tc_kernel`.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 
 from graspnet_tpu_torch.nn.layers import folded_mlp
 from graspnet_tpu_torch.ops.cuda import build
-from graspnet_tpu_torch.ops.cuda.query import MAX_DEPTHS, ball_query_plain
+from graspnet_tpu_torch.ops.cuda.query import MAX_DEPTHS, ball_query_plain, ball_scan
 from graspnet_tpu_torch.ops.query import (
     ball_mask,
     chunk_centers,
@@ -123,6 +125,7 @@ def _check_inputs(xyz, new_xyz, rot, w1, nsample, ndepth, ball):
     return (
         xyz.dtype == torch.float32
         and new_xyz.shape == (b, m, 3)
+        and new_xyz.is_cuda
         and (ball or (rot is not None and rot.shape == (b, m, 3, 3)))
         and w1.shape[0] == 3
         and 1 <= nsample <= MAX_SAMPLES
@@ -139,23 +142,27 @@ def cylinder_smem_bytes(c1: int, c2: int, c3: int) -> int:
 
 
 def _launch_ball(xyz, new_xyz, folded, radius, nsample, normalize):
-    """K3: crop_fused_kernel in ball mode -> (B, M, c3)."""
+    """K3: K4's ball scan into a (B, M, ns) index scratch, then the
+    tensor-core MLP over (xyz[idx] - centre) x normalize -> (B, M, c3)."""
     b, n, _ = xyz.shape
     m = new_xyz.shape[1]
     (w1, b1), (w2, b2), (w3, b3) = folded
     c1, c2, c3 = w1.shape[1], w2.shape[1], w3.shape[1]
-    if not _check_inputs(xyz, new_xyz, None, w1, nsample, 1, True) or c1 % 4 or c2 % 4 or 256 % c2:
+    if not _check_inputs(xyz, new_xyz, None, w1, nsample, 1, True) or not cylinder_smem_bytes(c1, c2, c3):
         raise ValueError(
-            "sa1_fused takes float32 (B,N,3)/(B,M,3) inputs, a 3-layer 3->c1->c2->c3 MLP "
-            f"with c1, c2 multiples of 4 and c2 | 256, ns <= {MAX_SAMPLES}"
+            "sa1_fused takes float32 (B,N,3)/(B,M,3) inputs, ns <= "
+            f"{MAX_SAMPLES} and a 3-layer 3->c1->c2->c3 MLP with widths multiples of 8 "
+            "whose W2 and W3 fit in one block's shared memory"
         )
     ts = _operands(xyz, new_xyz, w1, b1, w2, b2, w3, b3)
+    idx = torch.empty((b, m, nsample), dtype=torch.int64, device=xyz.device)
+    ball_scan(ts[0], ts[1], radius, idx)
     out = torch.empty((b, m, c3), dtype=torch.float32, device=xyz.device)
-    fn = _fn("gn_sa1_fused", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-             + [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn = _fn("gn_sa1_mlp", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+             + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     err = fn(
-        *(t.data_ptr() for t in ts), out.data_ptr(), b, n, m, nsample,
-        radius * radius, normalize, c1, c2, c3, torch.cuda.current_stream(xyz.device).cuda_stream,
+        idx.data_ptr(), *(t.data_ptr() for t in ts), out.data_ptr(), b, n, m, nsample,
+        normalize, c1, c2, c3, torch.cuda.current_stream(xyz.device).cuda_stream,
     )
     build.check(err, "sa1_fused")
     return out
@@ -214,7 +221,9 @@ def sa1_fused(
     xyz: torch.Tensor, new_xyz: torch.Tensor, folded: Folded, radius: float, nsample: int
 ) -> torch.Tensor:
     """Fused SA1 stage: ball query + group + /r + folded MLP + max,
-    (B, N, 3), (B, M, 3) -> (B, M, C3)."""
+    (B, N, 3), (B, M, 3) -> (B, M, C3).  CUDA tensor: K4's ball scan, then
+    the tensor-core MLP (one call, two kernels); CPU tensor:
+    `crop_fused_plain(ball=True)`."""
     if not xyz.is_cuda:
         return crop_fused_plain(xyz, new_xyz, None, folded, radius, 0.0, (0.0,), nsample,
                                 1.0 / radius, True)[:, :, 0]

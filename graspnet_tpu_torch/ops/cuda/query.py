@@ -26,6 +26,10 @@ from graspnet_tpu_torch.ops.query import (
 )
 
 MAX_DEPTHS = 8  # kMaxDepths of csrc/query.cu and csrc/crop.cu
+# K4's schedule (csrc/query.cu): consecutive centres a block takes (one a
+# warp), 32-point chunks a warp tests a step, points a shared-memory stage
+# holds, stages in the ring
+BALL_SCAN_CENTERS, BALL_SCAN_UNROLL, BALL_SCAN_TILE, BALL_SCAN_STAGES = 8, 4, 1024, 4
 
 
 def ball_query_plain(
@@ -125,26 +129,34 @@ def _check_inputs(who, xyz, new_xyz, rot, nsample, ndepth):
     return xyz.contiguous(), new_xyz.contiguous(), None if rot is None else rot.contiguous()
 
 
-def ball_query(
-    xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float, nsample: int
-) -> torch.Tensor:
-    """Indices of the first <= nsample points within `radius` of each center.
-
-    (B, N, 3), (B, M, 3) float32 -> (B, M, nsample) int64.  CUDA tensor: the
-    query.cu warp kernel (K4); CPU tensor: `ball_query_plain`.
-    """
-    if not xyz.is_cuda:
-        return ball_query_plain(xyz, new_xyz, radius, nsample)
-    xyz, new_xyz, _ = _check_inputs("ball_query", xyz, new_xyz, None, nsample, 1)
+def ball_scan(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float, out: torch.Tensor) -> None:
+    """Launch K4's scan: out (B, M, nsample) int64 <- the padded first-hit
+    indices, for contiguous float32 CUDA (B, N, 3) and (B, M, 3).  Counts no
+    launch: `ball_query` counts its own, and the fused SA1 stage (K3) runs
+    this scan as the first of its two kernels under its own count."""
     b, n, _ = xyz.shape
-    m = new_xyz.shape[1]
-    out = torch.empty((b, m, nsample), dtype=torch.int64, device=xyz.device)
+    m, nsample = out.shape[1], out.shape[2]
     # r*r rounded to float32 once, as the JAX package compares against it
     err = _fn("gn_ball_query", [_P, _P, _P, _I, _I, _I, _F, _I, _P])(
         xyz.data_ptr(), new_xyz.data_ptr(), out.data_ptr(), b, n, m,
         radius * radius, nsample, _stream(xyz),
     )
     build.check(err, "ball_query")
+
+
+def ball_query(
+    xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float, nsample: int
+) -> torch.Tensor:
+    """Indices of the first <= nsample points within `radius` of each center.
+
+    (B, N, 3), (B, M, 3) float32 -> (B, M, nsample) int64.  CUDA tensor: the
+    query.cu ball scan (K4); CPU tensor: `ball_query_plain`.
+    """
+    if not xyz.is_cuda:
+        return ball_query_plain(xyz, new_xyz, radius, nsample)
+    xyz, new_xyz, _ = _check_inputs("ball_query", xyz, new_xyz, None, nsample, 1)
+    out = torch.empty((*new_xyz.shape[:2], nsample), dtype=torch.int64, device=xyz.device)
+    ball_scan(xyz, new_xyz, radius, out)
     ball_query.launches += 1
     return out
 

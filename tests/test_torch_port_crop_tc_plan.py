@@ -1,5 +1,6 @@
-"""The arithmetic of the CloudCrop's tensor-core MLP (csrc/crop.cu,
-crop_mlp_tc_kernel), emulated in plain torch on the CPU.
+"""The arithmetic of the tensor-core crop MLP (csrc/crop.cu, tc_mlp: the
+CloudCrop's crop_mlp_tc_kernel and SA1's sa1_mlp_tc_kernel), emulated in
+plain torch on the CPU.
 
 The kernel runs layers 2 and 3 as TF32 `mma.sync` products in 3xTF32:
 every f32 operand x splits into hi = tf32(x) (10 mantissa bits, round to
@@ -13,6 +14,12 @@ stays the plain broadcast-sum.  Rows come from `crop_fused_plain`'s own path
 (`crop_group_plain`: the cylinder query, first-hit padding, far seeds that
 pad with point 0, the rotation); weights are the model's folded crop MLP.
 
+SA1's rows are built as sa1_mlp_tc_kernel builds them from the ball
+scan's padded indices: (xyz[idx] - centre) x float32(1/r), each op rounded;
+its weights are the model's folded SA1 MLP (3 -> 64 -> 64 -> 128, tiny 3 ->
+8 -> 8 -> 16), with far centres whose every row is point 0's offset, and at
+one small cloud the emulation also meets the JAX package's eval SA stage.
+
 Readings on this file's inputs (max |emulated - reference| / max(1, scale),
 feature scale 67 at the production widths, 20 at the tiny ones): against
 `crop_fused_plain` (f32) 4.6e-07 and 1.9e-07; against a float64 evaluation
@@ -20,17 +27,29 @@ feature scale 67 at the production widths, 20 at the tiny ones): against
 6.4e-08 off; hi rounded with ties to even reads the same.  The gate on the
 card is FEATURE_TOL = 1e-4; the float64 check here holds the emulation at
 1e-6.  Plain TF32 (hi*hi only) is 3.8e-04 and 4.6e-04 off float64, which is
-why the kernel splits.
+why the kernel splits.  SA1 (scale 897 and 360: the far centres' offsets
+reach ~250 after x 1/r): against plain 2.2e-07 and 1.3e-07, against
+float64 2.4e-07 and 1.3e-07; plain TF32 3.8e-04 and 1.1e-03.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from graspnet_tpu import ops as jops
+from graspnet_tpu.config import GraspNetConfig as JConfig
+from graspnet_tpu.models.backbone import _sa_stage
+
 from graspnet_tpu_torch.config import GraspNetConfig
 from graspnet_tpu_torch.models import GraspNet, geometry, init_weights
 from graspnet_tpu_torch.nn.layers import dense, fold_bn_eval
+from graspnet_tpu_torch.ops import gather_points
 from graspnet_tpu_torch.ops.cuda.crop import crop_fused_plain, crop_group_plain
+from graspnet_tpu_torch.ops.cuda.query import ball_query_plain
+from graspnet_tpu_torch.ops.query import group_points
+
+from tests.test_torch_port_ops import perturbed_mlp
 
 FEATURE_TOL = 1e-4  # chip_smoke.py's gate for K5 against its plain version
 
@@ -113,6 +132,54 @@ def test_3xtf32_crop_meets_the_feature_gate(config, ties):
     assert err_over_scale(got, plain) <= FEATURE_TOL
     assert err_over_scale(got, want64) <= 1e-6
     assert err_over_scale(plain_tf32, want64) > 100 * err_over_scale(got, want64)  # plain TF32 is not
+
+
+def ball_rows(xyz: torch.Tensor, centers: torch.Tensor, radius: float, ns: int) -> torch.Tensor:
+    """(B, N, 3), (B, M, 3) -> (B, M, 1, ns, 3): SA1's rows as the kernel's
+    prologue builds them from the padded ball-query indices."""
+    pts = group_points(xyz, ball_query_plain(xyz, centers, radius, ns))
+    return ((pts - centers[:, :, None]) * torch.tensor(1.0 / radius, dtype=torch.float32))[:, :, None]
+
+
+@pytest.mark.parametrize("config", ["tiny", "production"])
+def test_3xtf32_sa1_meets_the_feature_gate(config):
+    cfg = GraspNetConfig.tiny() if config == "tiny" else GraspNetConfig()
+    sa = cfg.sa1
+    folded = [(w.detach(), b.detach()) for w, b in fold_bn_eval(init_weights(GraspNet(cfg), 1).backbone.sa1.mlp)]
+    rng = np.random.default_rng(2)
+    n = cfg.num_point if config == "tiny" else 20000
+    xyz = torch.from_numpy(rng.uniform(-0.3, 0.3, (2, n, 3)).astype(np.float32))
+    centers = xyz[:, :64].clone()
+    centers[:, -3:] = 10.0  # no hits: every row is point 0's offset
+    with torch.no_grad():
+        rows = ball_rows(xyz, centers, sa.radius, sa.nsample)
+        plain = crop_fused_plain(xyz, centers, None, folded, sa.radius, 0.0, (0.0,), sa.nsample,
+                                 1.0 / sa.radius, True)
+        got = emulated_crop(rows, folded)
+        want64 = reference_crop(rows.double(), [(w.double(), b.double()) for w, b in folded])
+    assert got.shape == plain.shape == (2, 64, 1, sa.mlp[-1])
+    assert (plain[:, -3:] > 0).any()
+    assert err_over_scale(got, plain) <= FEATURE_TOL
+    assert err_over_scale(got, want64) <= 1e-6
+
+
+def test_3xtf32_sa1_meets_the_jax_sa_stage():
+    """At GraspNetConfig.tiny() on one cloud, with BN statistics that make
+    the folding non-trivial: the emulation against the JAX package's eval
+    SA1 stage (its XLA path, which divides by r), at
+    tests/test_torch_port_crop.py's 1e-5."""
+    cfg = GraspNetConfig.tiny()
+    sa = cfg.sa1
+    jlayers, mlp = perturbed_mlp(sa.mlp, 1)
+    xyz = np.random.default_rng(1).uniform(-0.3, 0.3, (2, cfg.num_point, 3)).astype(np.float32)
+    inds = np.asarray(jops.furthest_point_sample(xyz, sa.npoint, use_pallas=False))
+    _, want, *_ = _sa_stage({"mlp": jlayers}, JConfig.tiny().sa1, jnp.asarray(xyz), None,
+                            train=False, eps=cfg.bn_eps, inds=jnp.asarray(inds))
+    with torch.no_grad():
+        cloud = torch.from_numpy(xyz)
+        centers = gather_points(cloud, torch.from_numpy(np.array(inds)))
+        got = emulated_crop(ball_rows(cloud, centers, sa.radius, sa.nsample), fold_bn_eval(mlp))[:, :, 0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("ties", ["away", "even"])

@@ -109,6 +109,47 @@ def test_ball_query_matches_plain(dev, radius, ns):
                        kquery.ball_query_plain(xyz, centers, radius, ns))
 
 
+def scan_inputs(dev, b, n, m, offset, seed):
+    """A tabletop cloud (B, N, 3) whose data starts `offset` floats past a
+    16-byte boundary (so every scene's start is ragged for the bulk copies
+    when offset > 0 or 12 N is not a multiple of 16), and M centres: points
+    of the cloud jittered by 2 mm, the last 3 of each scene far away."""
+    from graspnet_tpu_torch.utils.synthetic import tabletop_cloud
+
+    rng = np.random.default_rng(seed)
+    pts = torch.from_numpy(np.stack([tabletop_cloud(rng, n) for _ in range(b)]))
+    flat = torch.zeros(b * n * 3 + 4, device=dev)
+    xyz = flat[offset: offset + b * n * 3].view(b, n, 3)
+    xyz.copy_(pts.to(dev))
+    pick = torch.from_numpy(rng.integers(0, n, (b, m)))
+    centers = torch.gather(pts, 1, pick[..., None].expand(-1, -1, 3)) + torch.from_numpy(
+        rng.normal(0, 0.002, (b, m, 3)).astype(np.float32))
+    centers[:, -3:] = 9.0
+    return xyz, centers.to(dev)
+
+
+@pytest.mark.parametrize("b,n,m,offset", [(2, 20000, 2048, 0), (2, 20000, 2048, 1), (2, 2050, 1001, 2),
+                                          (3, 4099, 37, 3), (2, 1025, 16, 0), (1, 5, 19, 1)])
+def test_ball_scan_matches_plain_and_oracle(dev, b, n, m, offset):
+    """K4 (the TMA-fed ball scan) at the SA1 training shape (B=2, 2048
+    centres x 20000 points, r 0.04, ns 64) and at ragged N, M and scene
+    starts (offset floats past a 16-byte boundary, 12 N not a multiple of
+    16, N < one stage, M not a multiple of the 16 centres a block takes),
+    with far centres that have no hits: equal to the plain version and to
+    the per-query oracle (K10, rotate=False) index for index, at SA1's
+    radius and at SA2's."""
+    xyz, centers = scan_inputs(dev, b, n, m, offset, n + m + offset)
+    assert (xyz.data_ptr() // 4) % 4 == offset
+    for radius, ns in ((0.04, 64), (0.1, 32)):
+        before = kquery.ball_query.launches
+        got = kquery.ball_query(xyz, centers, radius, ns)
+        assert kquery.ball_query.launches == before + 1
+        assert torch.equal(got, kquery.ball_query_plain(xyz, centers, radius, ns))
+        oracle = kquery.multi_query(xyz, centers, None, radius, 0.0, (0.0,), ns, rotate=False)[:, :, 0]
+        assert torch.equal(got, oracle)
+        assert (got[:, -3:] == 0).all()
+
+
 def test_crop_fused_matches_plain(dev):
     cfg = GraspNetConfig()
     rng = np.random.default_rng(1)
@@ -171,6 +212,42 @@ def test_sa1_fused_matches_plain(dev):
     assert_features_close(got, want)
 
 
+@pytest.mark.parametrize("widths", ["tiny", "production"])
+@pytest.mark.parametrize("ns", [1, 17, 64])
+def test_sa1_fused_tensor_cores_match_plain(dev, widths, ns):
+    """K3 (K4's scan, then the 3xTF32 tensor-core MLP over rows gathered
+    from its indices) at ns in {1, 17, 64}, tiny (3, 8, 8, 16) and
+    production (3, 64, 64, 128) widths, on a tabletop cloud of 20001
+    points (the second scene's start is not 16-byte aligned) with 3 far
+    centres per scene whose every row is point 0: features within 1e-4 x
+    max(1, scale); one sa1_fused launch and no ball_query launch counted."""
+    cfg = GraspNetConfig()
+    dims = GraspNetConfig.tiny().sa1.mlp if widths == "tiny" else cfg.sa1.mlp
+    xyz, centers = scan_inputs(dev, 2, 20001, 301, 0, ns)
+    folded = folded_weights(dims, ns, dev)
+    before = (kcrop.sa1_fused.launches, kquery.ball_query.launches)
+    got = kcrop.sa1_fused(xyz, centers, folded, cfg.sa1.radius, ns)
+    assert (kcrop.sa1_fused.launches, kquery.ball_query.launches) == (before[0] + 1, before[1])
+    assert got.shape == (2, 301, dims[-1])
+    want = kcrop.crop_fused_plain(xyz, centers, None, folded, cfg.sa1.radius, 0.0, (0.0,), ns,
+                                  1.0 / cfg.sa1.radius, True)[:, :, 0]
+    assert_features_close(got, want)
+
+
+def test_sa1_fused_rejects_inputs_outside_its_domain(dev):
+    """K3 takes the tensor-core MLP's domain (widths multiples of 8 whose
+    W2 and W3 fit one block's shared memory, ns <= 64) and raises
+    ValueError before any launch otherwise."""
+    xyz = torch.zeros(1, 100, 3, device=dev)
+    before = (kcrop.sa1_fused.launches, kquery.ball_query.launches)
+    for dims in ((3, 8, 12, 16), (3, 12, 16, 32), (3, 8, 16, 36), (3, 64, 128, 1024)):
+        with pytest.raises(ValueError):
+            kcrop.sa1_fused(xyz, xyz[:, :4], folded_weights(dims, 0, dev), 0.05, 8)
+    with pytest.raises(ValueError):
+        kcrop.sa1_fused(xyz, xyz[:, :4], folded_weights((3, 8, 8, 16), 0, dev), 0.05, 65)
+    assert (kcrop.sa1_fused.launches, kquery.ball_query.launches) == before
+
+
 def test_tiny_pipeline_card_matches_cpu_and_counts_launches(dev):
     from graspnet_tpu_torch.apps import GraspPipeline
 
@@ -198,7 +275,7 @@ def test_wrappers_reject_bad_input(dev):
         kfps.fps_chain(xyz.float(), (200,))  # more samples than points
     with pytest.raises(ValueError):
         kquery.ball_query(xyz, xyz[:, :4], 0.1, 8)
-    folded = folded_weights((3, 8, 12, 16), 0, dev)  # c2=12 does not divide 256
+    folded = folded_weights((3, 8, 12, 16), 0, dev)  # c2=12 is not a multiple of 8
     with pytest.raises(ValueError):
         kcrop.sa1_fused(xyz.float(), xyz[:, :4].float(), folded, 0.1, 8)
 

@@ -16,6 +16,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 from graspnet_tpu_torch.config import GraspNetConfig
 from graspnet_tpu_torch.ops import cuda as kernels
@@ -113,3 +114,13 @@ def test_bench_prints_one_json_line_with_bench_py_keys():
     assert len(bench_py_keys()) == 10 and bench_py_keys() <= set(got)
     assert got["backend"] == "cpu" and got["gpu"] is None and got["vs_baseline"] is None
     assert len(got["observed_spread"]["frames_per_s_runs"]) == 2 and got["value"] > 0
+
+
+def test_ab_ball_kernels_needs_a_card():
+    """The side-by-side K3/K4 timer measures CUDA kernels only: without a
+    card it exits before it starts any run, and prints no timing."""
+    from graspnet_tpu_torch.scripts import ab_ball_kernels
+
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="needs a card"):
+            ab_ball_kernels.main(["--trees", "."])
