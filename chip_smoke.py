@@ -15,8 +15,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
      MLP products at the 3xTF32 tensor-core rate and scans at the f32
      CUDA-core rate; the ball query (K4) at each of a training step's SA1-4
      calls (SA2-4 are a serving forward's), with the points its blocks
-     scan and load against the centres' nth-hit tests; the scan shares of
-     SA1 (K3) and the CloudCrop (K5); FPS (K1) stage
+     scan and load against the centres' nth-hit tests, and the same for the
+     cylinder scan at the CloudCrop's (K5) shapes, B=2 and B=1; the scan
+     shares of SA1 (K3) and K5; FPS (K1) stage
      by stage (the chain cut after 1-4 stages, us per argmax step) and
      stage 0 on clusters of 1, 2, 4, 8 and 16 CTAs per scene;
   3. main path: GraspPipeline(GraspNetConfig(), seed=1) on the card —
@@ -25,12 +26,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
      CloudCrop 1 times, the card's top-50 matches the same pipeline on the
      CPU, and p50 latency / sustained frames/s at B=1;
   4. a torch.profiler window over B=1 frames: device time per kernel (K5's
-     scan and MLP launches apart, K3's MLP beside the ball scans of K3 and
-     K4) and the device's idle share;
+     cylinder scan and MLP launches apart, K3's MLP beside the ball scans of
+     K3 and K4) and the device's idle share;
   5. training kernels: the crop group (K6) and the train MLP forward and
      backward (K7) against their plain versions at the training shape
      (B=2, 1024 label points near the tabletop's objects, random
-     rotations): K7 gradients against a float64 evaluation, as they are and
+     rotations), with what the cylinder scan's blocks scan and load against
+     the centres' nth-hit tests: K7 gradients against a float64 evaluation, as they are and
      with the cotangent zeroed where a pool maximum is ambiguous, and
      against the plain version at the tight bound on one distinct row per
      group; the K7 backward run twice and bitwise equal, and the memory
@@ -42,7 +44,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
      one step's loss and gradients against the same step on the CPU, and
      step times, host label-prep time and peak memory, and a profiled
      step with the K7 forward's (passes 1-3, reductions), backward's
-     (pool sums, passes B and C) and K4's time per kernel;
+     (pool sums, passes B and C), K4's and K6's time per kernel;
   7. query-family and SA kernels: the multi-depth cylinder query (K8), the
      per-query oracle (K10) and the fused SA2-4 stage (K9) against their
      plain versions at production shapes, B=2, on the tabletop clouds —
@@ -127,7 +129,7 @@ def log(**kv) -> None:
 def ptxas_records(source: str, out: str) -> list:
     """nvcc -Xptxas -v output -> one record per kernel: its name (template
     arguments as <...>), registers, spill bytes and static shared memory;
-    for the tensor-core MLPs and the ball scan also the dynamic shared
+    for the tensor-core MLPs and the ring scans also the dynamic shared
     memory they take at GraspNetConfig()'s shapes."""
     from graspnet_tpu_torch.config import GraspNetConfig
     from graspnet_tpu_torch.ops.cuda import crop as kcrop
@@ -145,8 +147,9 @@ def ptxas_records(source: str, out: str) -> list:
             for end, n in lengths:
                 word = mangled[end: end + n]
                 if word.endswith("kernel") and re.fullmatch(r"[A-Za-z_]\w*", word):
-                    args = re.match(r"ILi(\d+)E", mangled[end + n:])
-                    name = word + (f"<{args.group(1)}>" if args else "")
+                    args = re.match(r"I((?:Li\d+E)+)E", mangled[end + n:])
+                    values = re.findall(r"Li(\d+)E", args.group(1)) if args else []
+                    name = word + (f"<{', '.join(values)}>" if values else "")
                     break
             current = {"source": source, "kernel": name}
             records.append(current)
@@ -163,7 +166,8 @@ def ptxas_records(source: str, out: str) -> list:
                     current["dynamic_smem_bytes"] = kcrop.cylinder_smem_bytes(*GraspNetConfig().crop_mlp[1:])
                 elif current["kernel"].startswith("sa1_mlp_tc_kernel"):
                     current["dynamic_smem_bytes"] = kcrop.cylinder_smem_bytes(*GraspNetConfig().sa1.mlp[1:])
-                elif current["kernel"] == "ball_scan_kernel":  # the full ring (N >= 4 stages of points)
+                elif current["kernel"] == "ball_scan_kernel" or current["kernel"].startswith("cylinder_scan_kernel"):
+                    # the full ring (N >= 4 stages of points)
                     current["dynamic_smem_bytes"] = kquery.BALL_SCAN_STAGES * (3 * kquery.BALL_SCAN_TILE + 4) * 4
     return records
 
@@ -190,42 +194,6 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
-
-
-def nth_hit_tests(mask: torch.Tensor, ns: int) -> torch.Tensor:
-    """Points a first-ns scan tests: up to and including the ns-th hit, or
-    all N when there are fewer hits.  mask (..., N) -> (...) int64."""
-    n = mask.shape[-1]
-    rank = torch.cumsum(mask, dim=-1, dtype=torch.int32)
-    target = torch.full((*rank.shape[:-1], 1), ns, dtype=torch.int32, device=mask.device)
-    pos = torch.searchsorted(rank.contiguous(), target)[..., 0]
-    return torch.clamp(pos + 1, max=n)
-
-
-def ball_nth_hits(xyz: torch.Tensor, centers: torch.Tensor, radius: float, ns: int) -> torch.Tensor:
-    """(B, M): the points K4's first-ns scan tests for each centre, 256
-    centres at a time."""
-    from graspnet_tpu_torch.ops.query import ball_mask
-
-    return torch.cat([nth_hit_tests(ball_mask(xyz, centers[:, m0:m0 + 256], radius), ns)
-                      for m0 in range(0, centers.shape[1], 256)], dim=1)
-
-
-def ball_scan_blocks(nth: torch.Tensor, n: int) -> dict:
-    """What K4's blocks scan and load, from the centres' nth-hit tests (B,
-    M): a block of BALL_SCAN_CENTERS consecutive centres scans as far as
-    its slowest centre needs and loads STAGES - 1 tiles past the tile it
-    stops in (tests/test_torch_port_ball_scan_plan.py emulates it)."""
-    from graspnet_tpu_torch.ops.cuda import query as kquery
-
-    tile, stages = kquery.BALL_SCAN_TILE, kquery.BALL_SCAN_STAGES
-    slowest = torch.stack([blk.amax(dim=1) for blk in nth.split(kquery.BALL_SCAN_CENTERS, dim=1)], 1).double()
-    tiles = -(-n // tile)
-    loaded = torch.clamp(tile * torch.clamp(torch.ceil(slowest / tile) - 1 + stages, max=tiles), max=n)
-    mean_nth = nth.double().mean().item()
-    return dict(mean_nth_hit_tests=mean_nth, mean_block_scanned_points=slowest.mean().item(),
-                block_scanned_over_nth_hit_tests=slowest.mean().item() / mean_nth,
-                mean_block_loaded_points=loaded.mean().item())
 
 
 def bound(nbytes: float, flops: float = 0.0, mlp_flops: float = 0.0):
@@ -268,17 +236,13 @@ def approach_rotations(cfg, seeds: torch.Tensor) -> torch.Tensor:
     return geometry.batch_viewpoint_params_to_matrix(-views[pick], torch.zeros(seeds.shape[:2], device=dev))
 
 
-def cylinder_tests(cfg, cloud: torch.Tensor, centers: torch.Tensor, rot: torch.Tensor) -> int:
-    """Point tests of a multi-depth cylinder scan that stops once every
-    depth has crop_nsample hits."""
-    from graspnet_tpu_torch.ops.query import cylinder_masks
+def cylinder_scan_blocks(call: str, nth: torch.Tensor, n: int) -> dict:
+    """scan_blocks for the cylinder scan at one call's shape."""
+    from graspnet_tpu_torch.ops.cuda import query as kquery
+    from graspnet_tpu_torch.utils.scan_stats import scan_blocks
 
-    tests = 0
-    for m0 in range(0, centers.shape[1], 64):
-        masks = cylinder_masks(cloud, centers[:, m0:m0 + 64], rot[:, m0:m0 + 64],
-                               cfg.cylinder_radius, cfg.hmin, cfg.hmax_list)
-        tests += nth_hit_tests(masks, cfg.crop_nsample).amax(dim=2).sum().item()
-    return tests
+    return dict(call=call, b=nth.shape[0], m=nth.shape[1], n=n, centers_per_block=kquery.CYLINDER_SCAN_CENTERS,
+                **scan_blocks(nth, n, kquery.CYLINDER_SCAN_CENTERS))
 
 
 def fps_stage_phase(cloud_b, npoints, want0):
@@ -308,6 +272,7 @@ def kernel_phase(cfg, model, cloud_b):
     from graspnet_tpu_torch.ops.cuda import crop as kcrop
     from graspnet_tpu_torch.ops.cuda import fps as kfps
     from graspnet_tpu_torch.ops.cuda import query as kquery
+    from graspnet_tpu_torch.utils.scan_stats import ball_nth_hits, cylinder_nth_hits, scan_blocks
 
     rows = []
 
@@ -356,7 +321,7 @@ def kernel_phase(cfg, model, cloud_b):
                            radius=args[2], ns=args[3], ms=cuda_ms(lambda a=args: kquery.ball_query(*a), 20),
                            plain_ms=cuda_ms(lambda a=args: kquery.ball_query_plain(*a), 5),
                            bound_ms=t_bound, bound_by=by, bytes=work[0], flops=work[1],
-                           **ball_scan_blocks(nth, args[0].shape[1])))
+                           **scan_blocks(nth, args[0].shape[1], kquery.BALL_SCAN_CENTERS)))
     sa1_nth_flops = shapes[0]["flops"]
 
     def total(sel):
@@ -409,7 +374,10 @@ def kernel_phase(cfg, model, cloud_b):
     g = kcrop.crop_fused(*args)
     w = kcrop.crop_fused_plain(*args)
     err = feature_err(g, w)
-    tests = cylinder_tests(cfg, cloud_b, seeds, rot)
+    nth = cylinder_nth_hits(cfg, cloud_b, seeds, rot)
+    tests = nth.sum().item()
+    log(phase="cylinder_scan_blocks", shapes=[cylinder_scan_blocks("crop_fused_b2", nth, N_POINTS),
+                                              cylinder_scan_blocks("crop_fused_b1", nth[:1], N_POINTS)])
     nrows = seeds.shape[0] * seeds.shape[1] * len(cfg.hmax_list) * cfg.crop_nsample
     t_bound, by = bound((cloud_b.numel() + seeds.numel() + rot.numel() + g.numel()) * 4
                         + weight_bytes(folded), tests * TEST_FLOPS["cylinder"], mlp_flops(folded, nrows))
@@ -421,12 +389,15 @@ def kernel_phase(cfg, model, cloud_b):
         plain_ms=cuda_ms(lambda: kcrop.crop_fused_plain(*args), 3),
         bound_ms=t_bound, bound_by=by, library_ms=None,
     ))
-    # its two launches: the scan (the crop group's kernel, timed alone here)
-    # and the tensor-core MLP
+    # its two launches: the cylinder scan (the crop group's, timed alone
+    # here) and the tensor-core MLP; and both at B=1, a serving frame
     scan_ms = cuda_ms(lambda: kcrop.crop_group(cloud_b, seeds, rot, *args[4:]), 10)
+    b1 = (cloud_b[:1], seeds[:1], rot[:1])
     log(phase="crop_fused_split", ms=rows[-1]["ms"], scan_ms=scan_ms, scan_share=scan_ms / rows[-1]["ms"],
         mlp_gflop=mlp_flops(folded, nrows) / 1e9,
-        mlp_tflop_per_s=mlp_flops(folded, nrows) / (rows[-1]["ms"] - scan_ms) / 1e9)
+        mlp_tflop_per_s=mlp_flops(folded, nrows) / (rows[-1]["ms"] - scan_ms) / 1e9,
+        b1_ms=cuda_ms(lambda: kcrop.crop_fused(*b1, *args[3:]), 10),
+        b1_scan_ms=cuda_ms(lambda: kcrop.crop_group(*b1, *args[4:]), 10))
     for r in rows:
         log(phase="kernel", **r)
     return rows
@@ -440,6 +411,7 @@ def query_sa_kernel_phase(cfg, model, cloud_b):
     from graspnet_tpu_torch.ops.cuda import fps as kfps
     from graspnet_tpu_torch.ops.cuda import query as kquery
     from graspnet_tpu_torch.ops.query import ball_mask
+    from graspnet_tpu_torch.utils.scan_stats import ball_nth_hits, cylinder_nth_hits, nth_hit_tests
 
     bb = model.backbone
     npoints = (cfg.sa1.npoint, cfg.sa2.npoint, cfg.sa3.npoint, cfg.sa4.npoint)
@@ -460,7 +432,7 @@ def query_sa_kernel_phase(cfg, model, cloud_b):
         if not torch.equal(got, want):
             raise AssertionError(f"{name} indices differ at {(got != want).nonzero()[:5].tolist()}")
     t_bound, by = bound((cloud_b.numel() + seeds.numel() + rot.numel()) * 4 + want.numel() * 8,
-                        cylinder_tests(cfg, cloud_b, seeds, rot) * TEST_FLOPS["cylinder"])
+                        cylinder_nth_hits(cfg, cloud_b, seeds, rot).sum().item() * TEST_FLOPS["cylinder"])
     rows.append(dict(
         name="cylinder_query_multi", route="cuda", source="graspnet_tpu_torch/csrc/query.cu",
         replaces="graspnet_tpu/ops/pallas/query.py:554 (cylinder_query_multi_pallas -> "
@@ -687,7 +659,7 @@ def profile_phase(pipe, clouds, frames: int = 5):
     """Where a B=1 serving frame spends device time: a few get_grasps_topk
     calls under torch.profiler."""
     profiled("profile_b1", lambda i=0: pipe.get_grasps_topk(clouds[i % len(clouds)]), frames, "frame",
-             {"k5": ("crop_group_kernel", "crop_mlp_tc_kernel"),
+             {"k5": ("cylinder_scan_kernel", "crop_mlp_tc_kernel"),
               # ball_scan_kernel: K3's scan and K4's 3 calls, 4 launches a frame
               "k3_and_k4": ("ball_scan_kernel", "sa1_mlp_tc_kernel")})
 
@@ -754,6 +726,7 @@ def train_kernel_phase(cfg, mlp, cloud_b):
     rotations, the model's crop MLP."""
     from graspnet_tpu_torch.ops.cuda import crop as kcrop
     from graspnet_tpu_torch.ops.cuda import mlp_train as kmlp
+    from graspnet_tpu_torch.utils.scan_stats import cylinder_nth_hits
 
     rng = np.random.default_rng(TRAIN_SEED)
     b, m = cloud_b.shape[0], cfg.num_seed
@@ -768,11 +741,12 @@ def train_kernel_phase(cfg, mlp, cloud_b):
     err = (grouped - want).abs().max().item()
     if not torch.equal(grouped, want):
         raise AssertionError(f"crop_group offsets differ from the plain version by {err}")
-    tests = cylinder_tests(cfg, cloud_b, centers, rot)
+    nth = cylinder_nth_hits(cfg, cloud_b, centers, rot)
+    log(phase="cylinder_scan_blocks", shapes=[cylinder_scan_blocks("crop_group_train_b2", nth, N_POINTS)])
     t_bound, by = bound((cloud_b.numel() + centers.numel() + rot.numel() + grouped.numel()) * 4,
-                        tests * TEST_FLOPS["cylinder"])
+                        nth.sum().item() * TEST_FLOPS["cylinder"])
     rows.append(dict(
-        name="crop_group", route="cuda", source="graspnet_tpu_torch/csrc/crop.cu",
+        name="crop_group", route="cuda", source="graspnet_tpu_torch/csrc/query.cu",
         replaces="graspnet_tpu/ops/pallas/crop.py:423 (crop_group_pallas)",
         max_abs_err=err, ms=cuda_ms(lambda: kcrop.crop_group(cloud_b, centers, rot, *geom), 10),
         plain_ms=cuda_ms(lambda: kcrop.crop_group_plain(cloud_b, centers, rot, *geom), 3),
@@ -1030,7 +1004,7 @@ def train_phase(cfg, clouds: np.ndarray):
     profiled("profile_train_step", lambda i=0: tr.step(dev_full), 3, "step",
              {"k7_forward": ("mlp_fwd_pass", "chan_reduce"),
               "k7_backward": ("mlp_bwd_pass", "pool_sums_kernel", "finish_layer1", "sum_parts"),
-              "k4": ("ball_scan_kernel",)})
+              "k4": ("ball_scan_kernel",), "k6": ("cylinder_scan_kernel",)})
     return step_launches, timing
 
 

@@ -1,12 +1,12 @@
 // Fused crop: query + first-hits gather + frame transform + BN-folded MLP +
-// max over samples; and the crop group, the same front half writing the
-// offsets instead of running the MLP.
+// max over samples.  The crop group (K6), the same front half writing the
+// offsets instead of running the MLP, is query.cu's cylinder scan.
 //
 // Replaces graspnet_tpu/ops/pallas/crop.py::crop_fused_pallas (K5, the
-// inference CloudCrop; body _crop_kernel over _gather_grouped_core),
+// inference CloudCrop; body _crop_kernel over _gather_grouped_core) and
 // sa1_fused_pallas (K3, which is crop_fused_pallas(ball=True,
-// normalize=1/r)) and crop_group_pallas (K6, the training crop's front half,
-// body _crop_group_kernel over the same _gather_grouped_core).  Per center:
+// normalize=1/r)), each with a scan of query.cu as its first launch; and
+// sa_feat_fused_pallas (K9, below).  Per center:
 //   1. the query masks: cylinder mode y_r^2+z_r^2 < r^2 and
 //      hmin < x_r < hmax_d for every depth d, with the transposed rotation
 //      x_r = dx*R00 + dy*R10 + dz*R20; ball mode dx^2+dy^2+dz^2 < r^2;
@@ -16,7 +16,8 @@
 //   4. centre subtraction, then offset @ R (cylinder) and * normalize;
 //   5. the folded MLP relu(x @ W' + b') three times (3 -> c1 -> c2 -> c3);
 //   6. the max over the ns samples -> out[center, d, :].
-// crop_group_kernel stops after step 4 and writes the (D, ns, 3) offsets.
+// The crop group (K6, crop_group_pallas) stops after step 4 and writes the
+// (D, ns, 3) offsets: query.cu's cylinder_scan_kernel (Out 1).
 //
 // SA1 (K3, ball mode): steps 1-3 are K4's ball scan (query.cu,
 // ball_scan_kernel, launched by the wrapper through gn_ball_query), which
@@ -35,15 +36,17 @@
 // column tiles a warp, so all 8 warps work (K5's 2 + 4 would leave warps
 // 4-7 idle).
 
-// CloudCrop (K5, cylinder mode): steps 1-4 are crop_group_kernel, unchanged
-// (the same offsets bit for bit), into a (B, M, D, ns, 3) scratch, then
-// crop_mlp_tc_kernel runs steps 5-6 on the tensor cores.  Per frame the MLP
-// is 1024 x 4 x 64 rows through 3 -> 64 -> 128 -> 256 (21.6 GFLOP); the scan
-// tests 20.5 M point-center pairs.  The two halves want opposite shapes: the
-// scan is latency-bound (three barriers per 256 points) and needs many
-// resident blocks to hide it, the MLP wants its 160 KB of folded W2/W3
-// resident, which leaves one block per SM.  So they are two launches, and
-// the offsets (6.3 MB at B=2) go through device memory once.
+// CloudCrop (K5, cylinder mode): steps 1-4 are the crop group's scan
+// (query.cu's cylinder_scan_kernel, launched by the wrapper through
+// gn_cylinder_scan: a warp per centre over the TMA-fed ring of K4, the
+// offsets bitwise the plain version's) into a (B, M, D, ns, 3) scratch,
+// then crop_mlp_tc_kernel (gn_crop_mlp) runs steps 5-6 on the tensor cores.
+// Per frame the MLP is 1024 x 4 x 64 rows through 3 -> 64 -> 128 -> 256
+// (21.6 GFLOP); the scan tests 20.5 M point-center pairs.  The two halves
+// want opposite shapes: the scan is bound by its tests and the block's
+// slowest centre and wants a warp per centre, the MLP wants its 160 KB of
+// folded W2/W3 resident, which leaves one block per SM.  So they are two
+// launches, and the offsets (6.3 MB at B=2) go through device memory once.
 //   crop_mlp_tc_kernel (and sa1_mlp_tc_kernel, the same body tc_mlp with
 // other rows and warp tiles): about one block per SM walks the (centre, depth)
 // groups with W2 and W3 resident in shared memory (f32, transposed, loaded
@@ -65,15 +68,11 @@
 // in place of three saved 9 %); bound 3 x 43.2 GFLOP at B=2, 0.26 ms at
 // 495 TFLOP/s.
 //
-// The scan uses 8 warps over 256 consecutive points per round; per depth a
-// ballot gives each hit its slot after the hits of lower warps.  The mask
-// arithmetic uses __fmul_rn/__fadd_rn in the JAX order (crop.py:109-125),
-// so no FMA contraction moves a point across a boundary.
-//
-// The crop group (K6) is bound by its scan: 41 M point tests per training
-// step (B=2, 1024 label points, 20000 points) against 6.3 MB of output.
-// crop_group_kernel is also K5's first launch, and it shares its scan
-// (scan_first_hits) and sample transform (crop_sample) with K9.
+// scan_first_hits now serves K9 only: 8 warps over 256 consecutive points
+// per round; a ballot gives each hit its slot after the hits of lower
+// warps, three barriers a round.  The mask arithmetic uses
+// __fmul_rn/__fadd_rn in the JAX order (crop.py:109-125), so no FMA
+// contraction moves a point across a boundary.
 //
 // sa_feat_kernel replaces crop.py::sa_feat_fused_pallas (K9, body
 // _sa_feat_kernel, crop.py:448-519), the fused SA2-4 eval stage: the same
@@ -101,26 +100,19 @@ constexpr int kMaxDepths = 8;
 constexpr int kRows = 32;  // rows per register tile
 
 struct CropArgs {
-  int n, m, ndepth, ns, ball, c1, c2, c3;
-  float r2, hmin, normalize;
-  float hmax[kMaxDepths];
+  int n, m, ndepth, ns, c1, c2, c3;
+  float r2, normalize;
 };
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 
-// offset @ R for one output axis: dx*R[col] + dy*R[3+col] + dz*R[6+col]
-__device__ __forceinline__ float rot_axis(float dx, float dy, float dz,
-                                          const float* r, int col) {
-  return add(add(mul(dx, r[col]), mul(dy, r[3 + col])), mul(dz, r[6 + col]));
-}
-
-// Steps 1-2 for one center: s_idx[d][0..ns) and s_cnt[d] (the full hit
-// count, which may exceed ns) for every depth, in index order.  Called by
-// all kThreads threads of the block.
+// Steps 1-2 for one center in ball mode: s_idx[d][0..ns) and s_cnt[d]
+// (the full hit count, which may exceed ns) for every depth, in index
+// order.  Called by all kThreads threads of the block.
 __device__ __forceinline__ void scan_first_hits(
     const float* __restrict__ pts, float cx, float cy, float cz,
-    const float* r, const CropArgs& a, int (*s_idx)[kMaxSamples], int* s_cnt,
+    const CropArgs& a, int (*s_idx)[kMaxSamples], int* s_cnt,
     int (*s_wcnt)[kMaxDepths]) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -134,21 +126,8 @@ __device__ __forceinline__ void scan_first_hits(
       const float dx = __fsub_rn(__ldg(pts + 3 * p), cx);
       const float dy = __fsub_rn(__ldg(pts + 3 * p + 1), cy);
       const float dz = __fsub_rn(__ldg(pts + 3 * p + 2), cz);
-      if (a.ball) {
-        const float d2 = add(add(mul(dx, dx), mul(dy, dy)), mul(dz, dz));
-        hits = d2 < a.r2 ? 1u : 0u;
-      } else {
-        const float xr = rot_axis(dx, dy, dz, r, 0);
-        const float yr = rot_axis(dx, dy, dz, r, 1);
-        const float zr = rot_axis(dx, dy, dz, r, 2);
-        const float yz2 = add(mul(yr, yr), mul(zr, zr));
-        if (yz2 < a.r2 && xr > a.hmin) {
-#pragma unroll
-          for (int d = 0; d < kMaxDepths; ++d) {
-            if (d < a.ndepth && xr < a.hmax[d]) hits |= 1u << d;
-          }
-        }
-      }
+      const float d2 = add(add(mul(dx, dx), mul(dy, dy)), mul(dz, dz));
+      hits = d2 < a.r2 ? 1u : 0u;
     }
     unsigned bal[kMaxDepths];
 #pragma unroll
@@ -188,20 +167,14 @@ __device__ __forceinline__ int slot_index(const int* idx_d, int cnt, int slot) {
 }
 
 // Steps 3-4 for one slot of one depth: the padded raw point, centre
-// subtracted, rotated (cylinder) and scaled.
+// subtracted and scaled.
 __device__ __forceinline__ void crop_sample(
-    const float* __restrict__ pts, float cx, float cy, float cz, const float* r,
+    const float* __restrict__ pts, float cx, float cy, float cz,
     const CropArgs& a, const int* idx_d, int cnt, int slot, float* out3) {
   const int idx = slot_index(idx_d, cnt, slot);
-  const float dx = __fsub_rn(pts[3 * idx], cx);
-  const float dy = __fsub_rn(pts[3 * idx + 1], cy);
-  const float dz = __fsub_rn(pts[3 * idx + 2], cz);
-  float sx = dx, sy = dy, sz = dz;
-  if (!a.ball) {
-    sx = rot_axis(dx, dy, dz, r, 0);
-    sy = rot_axis(dx, dy, dz, r, 1);
-    sz = rot_axis(dx, dy, dz, r, 2);
-  }
+  float sx = __fsub_rn(pts[3 * idx], cx);
+  float sy = __fsub_rn(pts[3 * idx + 1], cy);
+  float sz = __fsub_rn(pts[3 * idx + 2], cz);
   if (a.normalize != 1.0f) {
     sx = mul(sx, a.normalize);
     sy = mul(sy, a.normalize);
@@ -291,36 +264,6 @@ __device__ __forceinline__ void dense_relu_max(
   }
 }
 
-// The crop group (K6): steps 1-4 only; out[center, d, slot, 0..3).
-__global__ void __launch_bounds__(kThreads)
-crop_group_kernel(const float* __restrict__ xyz,
-                  const float* __restrict__ centers,
-                  const float* __restrict__ rot,
-                  float* __restrict__ out, CropArgs a) {
-  __shared__ int s_idx[kMaxDepths][kMaxSamples];
-  __shared__ int s_cnt[kMaxDepths];
-  __shared__ int s_wcnt[kWarps][kMaxDepths];
-
-  const int q = blockIdx.x;  // center index over batch * m
-  const int tid = threadIdx.x;
-  const float* pts = xyz + (size_t)(q / a.m) * a.n * 3;
-  const float cx = centers[3 * (size_t)q];
-  const float cy = centers[3 * (size_t)q + 1];
-  const float cz = centers[3 * (size_t)q + 2];
-  float r[9];
-#pragma unroll
-  for (int i = 0; i < 9; ++i) r[i] = a.ball ? 0.0f : rot[9 * (size_t)q + i];
-
-  scan_first_hits(pts, cx, cy, cz, r, a, s_idx, s_cnt, s_wcnt);
-
-  for (int e = tid; e < a.ndepth * a.ns; e += kThreads) {
-    const int d = e / a.ns;
-    const int slot = e - d * a.ns;
-    crop_sample(pts, cx, cy, cz, r, a, s_idx[d], s_cnt[d], slot,
-                out + ((size_t)q * a.ndepth * a.ns + e) * 3);
-  }
-}
-
 // The fused SA2-4 stage (K9): ball-mode steps 1-4 with normalize = 1/r,
 // the slots' feature rows gathered beside the offsets, then the folded
 // (3 + C) -> c1 -> c2 -> c3 MLP and the max.  out[center, 0..c3).
@@ -349,11 +292,10 @@ sa_feat_kernel(const float* __restrict__ xyz,
   const float cx = centers[3 * (size_t)q];
   const float cy = centers[3 * (size_t)q + 1];
   const float cz = centers[3 * (size_t)q + 2];
-  const float r[9] = {};
 
-  scan_first_hits(pts, cx, cy, cz, r, a, s_idx, s_cnt, s_wcnt);
+  scan_first_hits(pts, cx, cy, cz, a, s_idx, s_cnt, s_wcnt);
 
-  if (tid < a.ns) crop_sample(pts, cx, cy, cz, r, a, s_idx[0], s_cnt[0], tid, samples + 3 * tid);
+  if (tid < a.ns) crop_sample(pts, cx, cy, cz, a, s_idx[0], s_cnt[0], tid, samples + 3 * tid);
   for (int e = tid; e < a.ns * c_in; e += kThreads) {
     const int row = e / c_in;
     f[e] = fts[(size_t)slot_index(s_idx[0], s_cnt[0], row) * c_in + (e - row * c_in)];
@@ -696,21 +638,6 @@ cudaError_t persistent_grid(Kernel kernel, size_t smem, int groups, int* grid) {
   return cudaSuccess;
 }
 
-// CropArgs of a cylinder-mode scan (crop group and CloudCrop)
-CropArgs cylinder_args(int n, int m, int ns, float r2, float hmin, const float* hmax, int ndepth) {
-  CropArgs a = {};
-  a.n = n;
-  a.m = m;
-  a.ndepth = ndepth;
-  a.ns = ns;
-  a.ball = 0;
-  a.r2 = r2;
-  a.hmin = hmin;
-  a.normalize = 1.0f;
-  for (int d = 0; d < kMaxDepths; ++d) a.hmax[d] = d < ndepth ? hmax[d] : 0.0f;
-  return a;
-}
-
 }  // namespace
 
 // Bytes of dynamic shared memory crop_mlp_tc_kernel takes at these widths,
@@ -722,31 +649,24 @@ extern "C" size_t gn_crop_mlp_tc_smem(int c1, int c2, int c3) {
   return bytes <= kMaxSmemBytes ? bytes : 0;
 }
 
-// CloudCrop (K5): the crop group's scan into grouped (B, M, D, ns, 3), then
-// the tensor-core MLP + max into out (B, M, D, c3).  w* 16-byte aligned.
-extern "C" int gn_crop_cylinder(const float* xyz, const float* centers, const float* rot,
-                                const float* w1, const float* b1, const float* w2,
-                                const float* b2, const float* w3, const float* b3,
-                                float* out, float* grouped, int batch, int n, int m,
-                                int ns, float r2, float hmin, const float* hmax,
-                                int ndepth, int c1, int c2, int c3, void* stream) {
+// CloudCrop (K5), after the cylinder scan (query.cu's gn_cylinder_scan) has
+// written the offsets grouped (B, M, D, ns, 3): the tensor-core MLP + max
+// into out (B, M, D, c3), groups = B M D.  w* 16-byte aligned.
+extern "C" int gn_crop_mlp(const float* grouped, const float* w1, const float* b1,
+                           const float* w2, const float* b2, const float* w3, const float* b3,
+                           float* out, int groups, int ns, int c1, int c2, int c3, void* stream) {
   const size_t smem = gn_crop_mlp_tc_smem(c1, c2, c3);
-  if (ns < 1 || ns > kMaxSamples || ndepth < 1 || ndepth > kMaxDepths || smem == 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const CropArgs a = cylinder_args(n, m, ns, r2, hmin, hmax, ndepth);
+  if (ns < 1 || ns > kMaxSamples || smem == 0) return (int)cudaErrorInvalidValue;
   void (*mlp)(const float*, int, int, const float*, const float*, const float*, const float*,
               const float*, const float*, float*, int, int, int) =
       ns <= kTile ? crop_mlp_tc_kernel<1> : ns <= 2 * kTile ? crop_mlp_tc_kernel<2>
                   : ns <= 3 * kTile ? crop_mlp_tc_kernel<3> : crop_mlp_tc_kernel<4>;
-  const int groups = batch * m * ndepth;
   int grid = 0;
   const cudaError_t err = persistent_grid(mlp, smem, groups, &grid);
   if (err != cudaSuccess) return (int)err;
   if (grid == 0) return (int)cudaSuccess;
-  cudaStream_t st = (cudaStream_t)stream;
-  crop_group_kernel<<<batch * m, kThreads, 0, st>>>(xyz, centers, rot, grouped, a);
-  mlp<<<grid, kThreads, smem, st>>>(grouped, groups, ns, w1, b1, w2, b2, w3, b3, out, c1, c2, c3);
+  mlp<<<grid, kThreads, smem, (cudaStream_t)stream>>>(grouped, groups, ns, w1, b1, w2, b2, w3, b3, out, c1,
+                                                      c2, c3);
   return (int)cudaGetLastError();
 }
 
@@ -780,20 +700,6 @@ extern "C" int gn_sa1_mlp(const int64_t* idx, const float* xyz, const float* cen
   return (int)cudaGetLastError();
 }
 
-extern "C" int gn_crop_group(const float* xyz, const float* centers,
-                             const float* rot, float* out, int batch, int n,
-                             int m, int ns, float r2, float hmin,
-                             const float* hmax, int ndepth, void* stream) {
-  if (ns < 1 || ns > kMaxSamples || ndepth < 1 || ndepth > kMaxDepths) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const CropArgs a = cylinder_args(n, m, ns, r2, hmin, hmax, ndepth);
-  if (batch * m == 0) return (int)cudaSuccess;
-  crop_group_kernel<<<batch * m, kThreads, 0, (cudaStream_t)stream>>>(
-      xyz, centers, rot, out, a);
-  return (int)cudaGetLastError();
-}
-
 extern "C" int gn_sa_feat(const float* xyz, const float* centers,
                           const float* feat, const float* w1, const float* b1,
                           const float* w2, const float* b2, const float* w3,
@@ -810,7 +716,6 @@ extern "C" int gn_sa_feat(const float* xyz, const float* centers,
   a.m = m;
   a.ndepth = 1;
   a.ns = ns;
-  a.ball = 1;
   a.c1 = c1;
   a.c2 = c2;
   a.c3 = c3;

@@ -9,10 +9,12 @@ crop's query + group + rotate) and `sa_feat_fused_pallas` (an SA stage with
 feature grouping, ball mode with a feature input).  Each wrapper launches
 its kernels for a CUDA tensor and runs the plain version
 (`crop_fused_plain`, `crop_group_plain`, `sa_feat_fused_plain`) for a CPU
-tensor; each keeps its own launch count.  Two wrappers run two kernels
-under one count: `crop_fused` the crop group's scan, then the tensor-core
-MLP `crop_mlp_tc_kernel`; `sa1_fused` K4's ball scan (`query.ball_scan`,
-not counted as a `ball_query` launch), then `sa1_mlp_tc_kernel`.
+tensor; each keeps its own launch count.  The scans are `csrc/query.cu`'s:
+`crop_group` is the cylinder scan writing offsets (`query.cylinder_scan`),
+and two wrappers run two kernels under one count: `crop_fused` that scan,
+then the tensor-core MLP `crop_mlp_tc_kernel`; `sa1_fused` K4's ball scan
+(`query.ball_scan`, not counted as a `ball_query` launch), then
+`sa1_mlp_tc_kernel`.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 
 from graspnet_tpu_torch.nn.layers import folded_mlp
 from graspnet_tpu_torch.ops.cuda import build
-from graspnet_tpu_torch.ops.cuda.query import MAX_DEPTHS, ball_query_plain, ball_scan
+from graspnet_tpu_torch.ops.cuda.query import MAX_DEPTHS, ball_query_plain, ball_scan, cylinder_scan
 from graspnet_tpu_torch.ops.query import (
     ball_mask,
     chunk_centers,
@@ -120,10 +122,11 @@ def _operands(*ts: torch.Tensor):
 
 
 def _check_inputs(xyz, new_xyz, rot, w1, nsample, ndepth, ball):
-    b, _, _ = xyz.shape
+    b, n, _ = xyz.shape
     m = new_xyz.shape[1]
     return (
         xyz.dtype == torch.float32
+        and (ball or n >= 1)
         and new_xyz.shape == (b, m, 3)
         and new_xyz.is_cuda
         and (ball or (rot is not None and rot.shape == (b, m, 3, 3)))
@@ -169,7 +172,8 @@ def _launch_ball(xyz, new_xyz, folded, radius, nsample, normalize):
 
 
 def _launch_cylinder(xyz, new_xyz, rot, folded, radius, hmin, hmax_list, nsample):
-    """K5: the crop group's scan, then the tensor-core MLP -> (B, M, D, c3)."""
+    """K5: the cylinder scan into a (B, M, D, ns, 3) offsets scratch, then
+    the tensor-core MLP -> (B, M, D, c3)."""
     b, n, _ = xyz.shape
     m = new_xyz.shape[1]
     ndepth = len(hmax_list)
@@ -177,20 +181,18 @@ def _launch_cylinder(xyz, new_xyz, rot, folded, radius, hmin, hmax_list, nsample
     c1, c2, c3 = w1.shape[1], w2.shape[1], w3.shape[1]
     if not _check_inputs(xyz, new_xyz, rot, w1, nsample, ndepth, False) or not cylinder_smem_bytes(c1, c2, c3):
         raise ValueError(
-            "crop_fused takes float32 (B,N,3)/(B,M,3)/(B,M,3,3) inputs, <= "
+            "crop_fused takes float32 (B,N>=1,3)/(B,M,3)/(B,M,3,3) inputs, <= "
             f"{MAX_DEPTHS} depths, ns <= {MAX_SAMPLES} and a 3-layer 3->c1->c2->c3 MLP with "
             "widths multiples of 8 whose W2 and W3 fit in one block's shared memory"
         )
     ts = _operands(xyz, new_xyz, rot, w1, b1, w2, b2, w3, b3)
-    hmax = (ctypes.c_float * ndepth)(*hmax_list)
-    out = torch.empty((b, m, ndepth, c3), dtype=torch.float32, device=xyz.device)
     grouped = torch.empty((b, m, ndepth, nsample, 3), dtype=torch.float32, device=xyz.device)
-    fn = _fn("gn_crop_cylinder", [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
-             + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    cylinder_scan(*ts[:3], radius, hmin, hmax_list, grouped)
+    out = torch.empty((b, m, ndepth, c3), dtype=torch.float32, device=xyz.device)
+    fn = _fn("gn_crop_mlp", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     err = fn(
-        *(t.data_ptr() for t in ts), out.data_ptr(), grouped.data_ptr(), b, n, m, nsample,
-        radius * radius, hmin, ctypes.cast(hmax, ctypes.c_void_p), ndepth, c1, c2, c3,
-        torch.cuda.current_stream(xyz.device).cuda_stream,
+        grouped.data_ptr(), *(t.data_ptr() for t in ts[3:]), out.data_ptr(), b * m * ndepth, nsample,
+        c1, c2, c3, torch.cuda.current_stream(xyz.device).cuda_stream,
     )
     build.check(err, "crop_fused")
     return out
@@ -207,8 +209,8 @@ def crop_fused(
     nsample: int,
 ) -> torch.Tensor:
     """Fused CloudCrop: (B, N, 3), (B, M, 3), (B, M, 3, 3) -> (B, M, D, C3).
-    CUDA tensor: the crop group's scan and the tensor-core MLP (one call,
-    two kernels); CPU tensor: `crop_fused_plain`."""
+    CUDA tensor: the cylinder scan and the tensor-core MLP (one call, two
+    kernels); CPU tensor: `crop_fused_plain`."""
     hmax_list = tuple(hmax_list)
     if not xyz.is_cuda:
         return crop_fused_plain(xyz, new_xyz, rot, folded, radius, hmin, hmax_list, nsample)
@@ -243,6 +245,8 @@ def crop_group(
 ) -> torch.Tensor:
     """Cylinder query + group + centre subtraction + gripper-frame rotation,
     (B, N, 3), (B, M, 3), (B, M, 3, 3) -> (B, M, D, nsample, 3) float32.
+    CUDA tensor: the query.cu cylinder scan writing offsets (K6); CPU
+    tensor: `crop_group_plain`.
 
     Not differentiable: the inputs are detached, as `crop_group_pallas`
     stops their gradients (in training they are the cloud, the label grasp
@@ -255,7 +259,8 @@ def crop_group(
     m = new_xyz.shape[1]
     ndepth = len(hmax_list)
     if (
-        xyz.dtype != torch.float32
+        n < 1
+        or xyz.dtype != torch.float32
         or new_xyz.dtype != torch.float32
         or rot.dtype != torch.float32
         or new_xyz.shape != (b, m, 3)
@@ -265,21 +270,11 @@ def crop_group(
         or not 1 <= ndepth <= MAX_DEPTHS
     ):
         raise ValueError(
-            "crop_group takes float32 CUDA (B,N,3)/(B,M,3)/(B,M,3,3) inputs, "
+            "crop_group takes float32 CUDA (B,N>=1,3)/(B,M,3)/(B,M,3,3) inputs, "
             f"ns <= {MAX_SAMPLES}, <= {MAX_DEPTHS} depths"
         )
-    xyz, new_xyz, rot = xyz.contiguous(), new_xyz.contiguous(), rot.contiguous()
-    hmax = (ctypes.c_float * ndepth)(*hmax_list)
     out = torch.empty((b, m, ndepth, nsample, 3), dtype=torch.float32, device=xyz.device)
-    fn = _fn("gn_crop_group", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-             + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
-    err = fn(
-        xyz.data_ptr(), new_xyz.data_ptr(), rot.data_ptr(), out.data_ptr(),
-        b, n, m, nsample, radius * radius, hmin,
-        ctypes.cast(hmax, ctypes.c_void_p), ndepth,
-        torch.cuda.current_stream(xyz.device).cuda_stream,
-    )
-    build.check(err, "crop_group")
+    cylinder_scan(xyz.contiguous(), new_xyz.contiguous(), rot.contiguous(), radius, hmin, hmax_list, out)
     crop_group.launches += 1
     return out
 

@@ -1,6 +1,7 @@
 """First-ns ball query (K4), multi-depth cylinder query (K8) and the
 per-query oracle of both (K10): the `csrc/query.cu` kernels and their plain
-versions.
+versions; and the cylinder scan that K8, the crop group (K6) and the
+CloudCrop (K5) launch.
 
 Counterpart of `graspnet_tpu/ops/pallas/query.py`: `ball_query_pallas` and
 `cylinder_query_multi_pallas` (the two modes of
@@ -8,6 +9,8 @@ Counterpart of `graspnet_tpu/ops/pallas/query.py`: `ball_query_pallas` and
 launches its kernel for a CUDA tensor and runs its plain version
 (`ball_query_plain`, `cylinder_query_multi_plain`, `multi_query_plain`) for
 a CPU tensor; each keeps its own launch count.  Indices are int64.
+`ball_scan` and `cylinder_scan` launch the scans without a count, for the
+wrappers that run them (`ops/cuda/crop.py` too).
 """
 
 from __future__ import annotations
@@ -30,6 +33,9 @@ MAX_DEPTHS = 8  # kMaxDepths of csrc/query.cu and csrc/crop.cu
 # warp), 32-point chunks a warp tests a step, points a shared-memory stage
 # holds, stages in the ring
 BALL_SCAN_CENTERS, BALL_SCAN_UNROLL, BALL_SCAN_TILE, BALL_SCAN_STAGES = 8, 4, 1024, 4
+# The cylinder scan runs on the same ring, a block taking 4 consecutive
+# centres, one a warp, and 4 chunks a step (kCylinderWarps, kCylinderUnroll)
+CYLINDER_SCAN_CENTERS, CYLINDER_SCAN_UNROLL = 4, 4
 
 
 def ball_query_plain(
@@ -108,11 +114,13 @@ def _stream(t: torch.Tensor) -> int:
 
 def _check_inputs(who, xyz, new_xyz, rot, nsample, ndepth):
     """Contiguous float32 CUDA (xyz, new_xyz, rot), or raise; rot=None
-    stands for the ball mode, which has no rotations."""
+    stands for the ball mode, which has no rotations.  The cylinder scan
+    also needs a point (a depth with no hits takes point 0)."""
     b, n, _ = xyz.shape
     m = new_xyz.shape[1]
     ok = (
         xyz.dtype == torch.float32
+        and (rot is None or n >= 1)
         and new_xyz.dtype == torch.float32
         and xyz.shape[-1] == 3
         and new_xyz.shape == (b, m, 3)
@@ -124,7 +132,7 @@ def _check_inputs(who, xyz, new_xyz, rot, nsample, ndepth):
     if not ok:
         raise ValueError(
             f"{who} takes float32 CUDA (B, N, 3), (B, M, 3) and (B, M, 3, 3) tensors, "
-            f"nsample >= 1 and 1-{MAX_DEPTHS} depths"
+            f"N >= 1 with rotations, nsample >= 1 and 1-{MAX_DEPTHS} depths"
         )
     return xyz.contiguous(), new_xyz.contiguous(), None if rot is None else rot.contiguous()
 
@@ -142,6 +150,31 @@ def ball_scan(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float, out: torc
         radius * radius, nsample, _stream(xyz),
     )
     build.check(err, "ball_query")
+
+
+def cylinder_scan(
+    xyz: torch.Tensor,
+    new_xyz: torch.Tensor,
+    rot: torch.Tensor,
+    radius: float,
+    hmin: float,
+    hmax_list: Sequence[float],
+    out: torch.Tensor,
+) -> None:
+    """Launch the cylinder scan for contiguous float32 CUDA (B, N >= 1, 3),
+    (B, M, 3) and (B, M, 3, 3): an int64 out (B, M, D, nsample) <- the
+    padded first-hit indices (K8), a float32 out (B, M, D, nsample, 3) <-
+    the rotated offsets of those points (K6, and K5's first launch).  r*r,
+    hmin and every hmax are rounded to float32 once.  Counts no launch: each
+    caller counts its own."""
+    b, n, _ = xyz.shape
+    m, ndepth, nsample = out.shape[1:4]
+    hmax = (ctypes.c_float * ndepth)(*hmax_list)
+    err = _fn("gn_cylinder_scan", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _I, _P])(
+        xyz.data_ptr(), new_xyz.data_ptr(), rot.data_ptr(), out.data_ptr(), int(out.dim() == 5),
+        b, n, m, nsample, radius * radius, hmin, ctypes.cast(hmax, ctypes.c_void_p), ndepth, _stream(xyz),
+    )
+    build.check(err, "cylinder_scan")
 
 
 def ball_query(
@@ -171,9 +204,9 @@ def cylinder_query_multi(
     nsample: int,
 ) -> torch.Tensor:
     """Multi-depth cylinder query, (B, N, 3), (B, M, 3), (B, M, 3, 3)
-    float32 -> (B, M, D, nsample) int64.  CUDA tensor: the query.cu warp
-    kernel in rotate mode (K8); CPU tensor: `cylinder_query_multi_plain`.
-    r*r, hmin and every hmax are rounded to float32 once."""
+    float32 -> (B, M, D, nsample) int64.  CUDA tensor: the query.cu
+    cylinder scan writing indices (K8); CPU tensor:
+    `cylinder_query_multi_plain`."""
     hmax_list = tuple(hmax_list)
     if not xyz.is_cuda:
         return cylinder_query_multi_plain(xyz, new_xyz, rot, radius, hmin, hmax_list, nsample)
@@ -181,15 +214,8 @@ def cylinder_query_multi(
     if rot is None:
         raise ValueError("cylinder_query_multi needs the rotations")
     xyz, new_xyz, rot = _check_inputs("cylinder_query_multi", xyz, new_xyz, rot, nsample, ndepth)
-    b, n, _ = xyz.shape
-    m = new_xyz.shape[1]
-    hmax = (ctypes.c_float * ndepth)(*hmax_list)
-    out = torch.empty((b, m, ndepth, nsample), dtype=torch.int64, device=xyz.device)
-    err = _fn("gn_cylinder_query", [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _I, _P])(
-        xyz.data_ptr(), new_xyz.data_ptr(), rot.data_ptr(), out.data_ptr(), b, n, m, nsample,
-        radius * radius, hmin, ctypes.cast(hmax, ctypes.c_void_p), ndepth, _stream(xyz),
-    )
-    build.check(err, "cylinder_query_multi")
+    out = torch.empty((*new_xyz.shape[:2], ndepth, nsample), dtype=torch.int64, device=xyz.device)
+    cylinder_scan(xyz, new_xyz, rot, radius, hmin, hmax_list, out)
     cylinder_query_multi.launches += 1
     return out
 

@@ -473,6 +473,71 @@ def test_cylinder_query_multi_and_oracle_match_plain(dev):
         assert (got[:, -4:] == 0).all()
 
 
+@pytest.mark.parametrize("b,n,m,offset", [(2, 20000, 1024, 0), (1, 20000, 1024, 1), (2, 2050, 1001, 2),
+                                          (3, 4099, 37, 3), (2, 1025, 16, 0), (1, 5, 19, 1)])
+def test_cylinder_scan_matches_plain_and_oracle(dev, b, n, m, offset):
+    """The cylinder scan (K4's TMA-fed ring, a warp per centre) as K6 and K8
+    run it: at the training shape (B=2, 1024 centres x 20000 points), at
+    B=1, and at ragged N, M and scene starts (offset floats past a 16-byte
+    boundary, 12 N not a multiple of 16, N < one stage, M not a multiple of
+    the block), with far centres that have no hits, random rotations, the
+    production geometry and an unsorted hmax list at ns 16: K6's offsets
+    bitwise equal to `crop_group_plain`, K8's indices equal to the plain
+    version's and to the per-query oracle's (K10)."""
+    cfg = GraspNetConfig()
+    xyz, centers = scan_inputs(dev, b, n, m, offset, n + m + offset)
+    assert (xyz.data_ptr() // 4) % 4 == offset
+    q, _ = torch.linalg.qr(torch.from_numpy(np.random.default_rng(m).normal(size=(b, m, 3, 3)).astype(np.float32)))
+    rot = q.to(dev).contiguous()
+    for hmax, ns in ((tuple(cfg.hmax_list), cfg.crop_nsample), ((0.04, 0.01, 0.03), 16)):
+        args = (xyz, centers, rot, cfg.cylinder_radius, cfg.hmin, hmax, ns)
+        before = (kcrop.crop_group.launches, kquery.cylinder_query_multi.launches)
+        grouped = kcrop.crop_group(*args)
+        idx = kquery.cylinder_query_multi(*args)
+        assert (kcrop.crop_group.launches, kquery.cylinder_query_multi.launches) == (before[0] + 1, before[1] + 1)
+        assert torch.equal(grouped, kcrop.crop_group_plain(*args))
+        assert torch.equal(idx, kquery.cylinder_query_multi_plain(*args))
+        assert torch.equal(idx, kquery.multi_query(*args))
+        assert (idx[:, -3:] == 0).all()
+
+
+def test_crop_fused_b1_matches_plain(dev):
+    """K5 at the serving shape of one frame (B=1, 1024 seeds x 4 depths x
+    20000 tabletop points, approach rotations, a scene start one float past
+    a 16-byte boundary, 3 far seeds): features within 1e-4 x max(1, scale)."""
+    cfg = GraspNetConfig()
+    xyz, seeds = scan_inputs(dev, 1, 20000, 1024, 1, 11)
+    rot = approach_rotations(cfg, np.random.default_rng(11), 1, 1024, dev)
+    args = (xyz, seeds, rot, folded_weights(cfg.crop_mlp, 3, dev), cfg.cylinder_radius, cfg.hmin,
+            cfg.hmax_list, cfg.crop_nsample)
+    assert_features_close(kcrop.crop_fused(*args), kcrop.crop_fused_plain(*args))
+
+
+def test_cylinder_scan_is_the_kernel_of_k5_k6_k8(dev):
+    """crop_group (K6), crop_fused (K5) and cylinder_query_multi (K8) launch
+    the cylinder scan, and neither the block-per-centre crop group kernel
+    nor the old warp query kernel (both gone) appears in their profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = GraspNetConfig()
+    xyz, seeds = scan_inputs(dev, 1, 4099, 64, 0, 12)
+    rot = approach_rotations(cfg, np.random.default_rng(12), 1, 64, dev)
+    geom = (cfg.cylinder_radius, cfg.hmin, cfg.hmax_list, cfg.crop_nsample)
+    folded = folded_weights(cfg.crop_mlp, 4, dev)
+    calls = {"crop_group": lambda: kcrop.crop_group(xyz, seeds, rot, *geom),
+             "crop_fused": lambda: kcrop.crop_fused(xyz, seeds, rot, folded, *geom),
+             "cylinder_query_multi": lambda: kquery.cylinder_query_multi(xyz, seeds, rot, *geom)}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [ev.key for ev in prof.key_averages() if ev.device_type == torch.autograd.DeviceType.CUDA]
+        assert any("cylinder_scan_kernel" in k for k in names), (name, names)
+        assert not any("crop_group_kernel" in k or "warp_query_kernel" in k for k in names), (name, names)
+
+
 @pytest.mark.parametrize("stage", ["sa2", "sa3", "sa4"])
 def test_multi_query_ball_matches_ball_query(dev, stage):
     """K10 (rotate=False) is bit-equal to K4 at the SA2-4 calls, in every

@@ -124,3 +124,27 @@ def test_ab_ball_kernels_needs_a_card():
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="needs a card"):
             ab_ball_kernels.main(["--trees", "."])
+
+
+def test_ab_crop_scan_needs_a_card_and_reads_ptxas():
+    """The side-by-side K5/K6/K8 scan timer measures CUDA kernels only:
+    without a card it exits before it starts any run.  Its ptxas reader
+    keeps the scan kernels' registers and spills and nothing else."""
+    from graspnet_tpu_torch.scripts import ab_crop_scan
+
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="needs a card"):
+            ab_crop_scan.main(["--trees", "."])
+    out = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120cylinder_scan_kernelILi1ELi8EEEvPKfS2_S2_Pv' for 'sm_90a'",
+        "ptxas info    : Used 56 registers, 32 bytes smem, 420 bytes cmem[0]",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118seed_query_kernelEPKfS1_S1_Pli' for 'sm_90a'",
+        "ptxas info    : Used 40 registers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116ball_scan_kernelEPKfS1_Plii' for 'sm_90a'",
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 40 registers, 32 bytes smem",
+    ])
+    got = ab_crop_scan.ptxas_scan_records(out)
+    assert got == {"_ZN12_GLOBAL__N_120cylinder_scan_kernelILi1ELi8EEEvPKfS2_S2_Pv": {"registers": 56, "spill_bytes": 0},
+                   "_ZN12_GLOBAL__N_116ball_scan_kernelEPKfS1_Plii": {"registers": 40, "spill_bytes": 12}}
