@@ -13,7 +13,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
      synthetic tabletop cloud of 20000 points — indices exactly equal,
      features within FEATURE_TOL; CUDA-event median times; bounds with
      MLP products at the 3xTF32 tensor-core rate and scans at the f32
-     CUDA-core rate; the ball query (K4) at each of a training step's SA1-4
+     CUDA-core rate; K2 (one FPS stage) with its own bound; the ball query
+     (K4) at each of a training step's SA1-4
      calls (SA2-4 are a serving forward's), with the points its blocks
      scan and load against the centres' nth-hit tests, and the same for the
      cylinder scan at the CloudCrop's (K5) shapes, B=2 and B=1; the scan
@@ -46,11 +47,15 @@ Phases (each prints one JSON line; any failure exits non-zero):
      step with the K7 forward's (passes 1-3, reductions), backward's
      (pool sums, passes B and C), K4's and K6's time per kernel;
   7. query-family and SA kernels: the multi-depth cylinder query (K8), the
-     per-query oracle (K10) and the fused SA2-4 stage (K9) against their
-     plain versions at production shapes, B=2, on the tabletop clouds —
-     K8 and K10 indices equal to plain, K10 bit-equal to K8 and (ball mode)
-     to K4 at the SA1-4 calls, K9 within FEATURE_TOL at SA2, SA3 and SA4 on
-     the model's own stage points and features; CUDA-event times;
+     per-query oracle (K10, a warp per query) and the fused SA2-4 stage
+     (K9: K4's ball scan, then the tensor-core MLP) against their plain
+     versions at production shapes, B=2, on the tabletop clouds — K8 and
+     K10 indices equal to plain, K10 bit-equal to K8 and (ball mode) to K4
+     at the SA1-4 calls, K9 within FEATURE_TOL at SA2, SA3 and SA4 on the
+     model's own stage points and features; CUDA-event times; K9's scan/MLP
+     split (phase sa_feat_split) and a torch.profiler window of K9's and
+     K10's kernels by name (phase profile_query_sa), in which K9's three
+     calls launch K4's scan and its MLP three times each and nothing else;
   8. tools: the four timing entry points (graspnet_tpu_torch/scripts/)
      in-process at GraspNetConfig() with short slope windows (2 and 6
      calls, the fastest of 3 each) — every stage
@@ -166,6 +171,12 @@ def ptxas_records(source: str, out: str) -> list:
                     current["dynamic_smem_bytes"] = kcrop.cylinder_smem_bytes(*GraspNetConfig().crop_mlp[1:])
                 elif current["kernel"].startswith("sa1_mlp_tc_kernel"):
                     current["dynamic_smem_bytes"] = kcrop.cylinder_smem_bytes(*GraspNetConfig().sa1.mlp[1:])
+                elif current["kernel"].startswith("sa_feat_tc_kernel"):
+                    # at SA2's widths and at SA3's (SA4's are SA3's)
+                    cfg = GraspNetConfig()
+                    current["dynamic_smem_bytes"] = {
+                        name: kcrop.sa_feat_smem_bytes(sa.mlp[0] - 3, *sa.mlp[1:])
+                        for name, sa in (("sa2", cfg.sa2), ("sa3", cfg.sa3))}
                 elif current["kernel"] == "ball_scan_kernel" or current["kernel"].startswith("cylinder_scan_kernel"):
                     # the full ring (N >= 4 stages of points)
                     current["dynamic_smem_bytes"] = kquery.BALL_SCAN_STAGES * (3 * kquery.BALL_SCAN_TILE + 4) * 4
@@ -260,10 +271,15 @@ def fps_stage_phase(cloud_b, npoints, want0):
         if not torch.equal(kfps.fps_chain(cloud_b, npoints[:1], c)[0], want0):
             raise AssertionError(f"fps_chain stage 0 on {c}-CTA clusters differs from plain")
         sweep[str(c)] = cuda_ms(lambda c=c: kfps.fps_chain(cloud_b, npoints[:1], c), 10)
-    log(phase="fps_stages", b=cloud_b.shape[0], npoints=list(npoints), chain_ms_by_stage_count=chain,
+    # K2 (fps_pallas): one stage, N_POINTS -> npoints[0], as K1's stage 0
+    b = cloud_b.shape[0]
+    stage0_bound, stage0_by = bound(cloud_b.numel() * 4 + b * npoints[0] * 8, b * steps[0] * N_POINTS * 9)
+    log(phase="fps_stages", b=b, npoints=list(npoints), chain_ms_by_stage_count=chain,
         chain_ms_by_stage_count_b1=chain_b1, stage_ms=stage,
         us_per_step=[1e3 * t / max(n, 1) for t, n in zip(stage, steps)],
-        stage0_ms_by_cluster_size=sweep, stage0_equals_plain_for_every_cluster_size=True)
+        stage0_ms_by_cluster_size=sweep, stage0_equals_plain_for_every_cluster_size=True,
+        stage0_plain_ms=cuda_ms(lambda: kfps.fps_chain_plain(cloud_b, npoints[:1]), 2),
+        stage0_bound_ms=stage0_bound, stage0_bound_by=stage0_by)
 
 
 def kernel_phase(cfg, model, cloud_b):
@@ -485,6 +501,27 @@ def query_sa_kernel_phase(cfg, model, cloud_b):
         plain_ms=sum(cuda_ms(lambda a=a: kcrop.sa_feat_fused_plain(*a), 5) for a in sa_calls),
         bound_ms=t_bound, bound_by=by, library_ms=None,
     ))
+    # K9's two launches: K4's scans at the three calls (timed alone), then
+    # the MLP; and the device time of K9's and K10's kernels by name
+    k9 = rows[-1]
+    scan_ms = sum(cuda_ms(lambda a=a: kquery.ball_query(*a[:2], *a[4:]), 20) for a in sa_calls)
+    by_name, window = profiled("profile_query_sa",
+                               lambda i=0: ([kcrop.sa_feat_fused(*a) for a in sa_calls], kquery.multi_query(*args)),
+                               5, "call", {"k9": ("ball_scan_kernel", "sa_feat_tc_kernel"), "k10": ("seed_query_kernel",)})
+    # K9's three calls launch K4's scan and the MLP once each, and nothing else
+    parts = ("ball_scan_kernel", "sa_feat_tc_kernel", "seed_query_kernel")
+    per_call = {p: sum(c for _, k, c in window if p in k) for p in parts}
+    others = [k for _, k, _ in window if not any(p in k for p in parts)]
+    if window and (others or per_call != {"ball_scan_kernel": 3, "sa_feat_tc_kernel": 3, "seed_query_kernel": 1}):
+        raise AssertionError(f"K9 + K10 window: launches per call {per_call}, other kernels {others}")
+    k9_dev = by_name["k9_ms_per_call_by_kernel"]
+    dev_scan = sum(v for k, v in k9_dev.items() if "ball_scan_kernel" in k)
+    dev_mlp = sum(v for k, v in k9_dev.items() if "sa_feat_tc_kernel" in k)
+    log(phase="sa_feat_split", ms=k9["ms"], scan_ms=scan_ms, scan_share=scan_ms / k9["ms"], mlp_ms=k9["ms"] - scan_ms,
+        device_ms=dev_scan + dev_mlp, device_scan_ms=dev_scan, device_mlp_ms=dev_mlp, mlp_gflop=mlp / 1e9,
+        mlp_tflop_per_s=mlp / dev_mlp / 1e9 if dev_mlp else "not measured",
+        k10_device_ms=sum(by_name["k10_ms_per_call_by_kernel"].values()) or "not measured",
+        k9_k10_launches_per_call=per_call if window else "not measured")
     rows.append(oracle)
     log(phase="query_sa_kernels_checked", k8_equals_plain=True, k10_equals_plain_and_k8=True,
         k10_ball_equals_k4_at_sa1_4=True, k4_tests_sa1_4=ball_tests,
@@ -653,6 +690,7 @@ def profiled(name: str, fn, reps: int, unit: str, groups=None):
            "device_idle_share": (1 - busy * reps / wall_ms) if kernels else "not measured",
            "top": [{"kernel": k, "ms": ms, "launches": c} for ms, k, c in kernels[:15]],
            **{k: v for k, v in by_group.items() if v}})
+    return by_group, kernels
 
 
 def profile_phase(pipe, clouds, frames: int = 5):

@@ -68,11 +68,19 @@
 // warps per center, each taking every other step and merged by rank, 10 %
 // faster at B=1 but 30-36 % slower at B=2.
 //
-// Design of K10 (seed_query_kernel): one thread per (scene, center) walks
-// the points one by one in index order and appends each hit to its depth's
-// row; the padding reads the row's first entry back.  It shares nothing
-// with the ring scan but the membership test, so holding K4/K8 bit-equal
-// to it checks their slot arithmetic.  It is an oracle, not a fast path.
+// Design of K10 (seed_query_kernel): a warp per (scene, center), 8 centers
+// of one scene a block.  Lanes read 32 consecutive points straight from
+// device memory (a scene is at most 240 KB, so it stays in L2), kSeedUnroll
+// chunks at a time so their loads go out together; per depth a ballot of
+// hit_bits gives each hit its slot, count + the hits of lower lanes, and a
+// hit is written when its slot is < ns; the warp stops once every depth has
+// ns hits, and the padding reads each depth's first entry back.  It shares
+// nothing with the ring scan but the membership test (hit_bits): no
+// shared-memory ring, no TMA, no block barrier or block stop, so a fault in
+// the ring's stage parity, its head/tail loader or its block stop shows up
+// as K4 != K10 or K8 != K10.  What bounds it: as for K4 and the cylinder,
+// the tests a warp runs for its center (up to the ns-th hit of its slowest
+// depth); it is an oracle, not a fast path.
 //
 // The membership arithmetic uses __fsub_rn/__fmul_rn/__fadd_rn in the JAX
 // operation order, so no FMA contraction moves a point across a radius or
@@ -83,7 +91,8 @@
 
 namespace {
 
-constexpr int kSeedThreads = 128;
+constexpr int kSeedWarps = 8;   // K10: centers a block takes, one a warp
+constexpr int kSeedUnroll = 4;  // K10: 32-point chunks a warp loads before it tests them
 constexpr int kMaxDepths = 8;
 
 struct QueryArgs {
@@ -134,38 +143,58 @@ __device__ __forceinline__ void load_query(const float* __restrict__ centers,
   for (int i = 0; i < 9; ++i) r[i] = a.rotate ? rot[9 * (size_t)q + i] : 0.0f;
 }
 
-__global__ void __launch_bounds__(kSeedThreads)
+// out (batch, m, ndepth, ns): a block per kSeedWarps consecutive centers of
+// one scene, one per warp.
+__global__ void __launch_bounds__(kSeedWarps * 32)
 seed_query_kernel(const float* __restrict__ xyz,
                   const float* __restrict__ centers,
                   const float* __restrict__ rot, int64_t* __restrict__ out,
-                  int batch, QueryArgs a) {
-  const int q = blockIdx.x * kSeedThreads + threadIdx.x;
-  if (q >= batch * a.m) return;
-  const float* pts = xyz + (size_t)(q / a.m) * a.n * 3;
+                  QueryArgs a) {
+  const int per_scene = (a.m + kSeedWarps - 1) / kSeedWarps;
+  const int b = blockIdx.x / per_scene;
+  const int q = (blockIdx.x - b * per_scene) * kSeedWarps + (threadIdx.x >> 5);
+  if (q >= a.m) return;  // the whole warp: nothing below waits for the block
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const size_t row = (size_t)b * a.m + q;
+  const float* pts = xyz + (size_t)b * a.n * 3;
   float c[3], r[9];
-  load_query(centers, rot, q, a, c, r);
-  int64_t* o = out + (size_t)q * a.ndepth * a.ns;
+  load_query(centers, rot, (int)row, a, c, r);
+  int64_t* o = out + row * a.ndepth * a.ns;
 
   int count[kMaxDepths];
 #pragma unroll
   for (int d = 0; d < kMaxDepths; ++d) count[d] = 0;
-  for (int p = 0; p < a.n; ++p) {
-    const unsigned hits = hit_bits(pts + 3 * p, c[0], c[1], c[2], r, a);
-    bool done = true;
+  bool done = false;
+  for (int base = 0; base < a.n && !done; base += 32 * kSeedUnroll) {
+    unsigned hits[kSeedUnroll];
+#pragma unroll
+    for (int u = 0; u < kSeedUnroll; ++u) {
+      const int p = base + 32 * u + lane;
+      hits[u] = p < a.n ? hit_bits(pts + 3 * p, c[0], c[1], c[2], r, a) : 0u;
+    }
+    done = true;
 #pragma unroll
     for (int d = 0; d < kMaxDepths; ++d) {
-      if (d < a.ndepth) {
-        if (((hits >> d) & 1u) && count[d] < a.ns) o[d * a.ns + count[d]++] = p;
-        done = done && count[d] == a.ns;
+      if (d < a.ndepth && count[d] < a.ns) {  // uniform per warp
+#pragma unroll
+        for (int u = 0; u < kSeedUnroll; ++u) {
+          const bool hit = (hits[u] >> d) & 1u;
+          const unsigned bal = __ballot_sync(0xffffffffu, hit);
+          const int pos = count[d] + __popc(bal & below);
+          if (hit && pos < a.ns) o[d * a.ns + pos] = base + 32 * u + lane;
+          count[d] += __popc(bal);
+        }
+        done = done && count[d] >= a.ns;
       }
     }
-    if (done) break;
   }
+  __syncwarp();  // every lane's hits are visible to the warp
 #pragma unroll
   for (int d = 0; d < kMaxDepths; ++d) {
-    if (d < a.ndepth) {
+    if (d < a.ndepth && count[d] < a.ns) {
       const int64_t pad = count[d] == 0 ? 0 : o[d * a.ns];
-      for (int s = count[d]; s < a.ns; ++s) o[d * a.ns + s] = pad;
+      for (int s = count[d] + lane; s < a.ns; s += 32) o[d * a.ns + s] = pad;
     }
   }
 }
@@ -555,9 +584,8 @@ extern "C" int gn_multi_query(const float* xyz, const float* centers,
   int err = make_args(&a, n, m, ns, rotate, r2, hmin, hmax, ndepth);
   if (err != (int)cudaSuccess) return err;
   if (rotate && rot == nullptr) return (int)cudaErrorInvalidValue;
-  const int blocks = (batch * m + kSeedThreads - 1) / kSeedThreads;
+  const int blocks = batch * ((m + kSeedWarps - 1) / kSeedWarps);
   if (blocks == 0) return (int)cudaSuccess;
-  seed_query_kernel<<<blocks, kSeedThreads, 0, (cudaStream_t)stream>>>(
-      xyz, centers, rot, out, batch, a);
+  seed_query_kernel<<<blocks, kSeedWarps * 32, 0, (cudaStream_t)stream>>>(xyz, centers, rot, out, a);
   return (int)cudaGetLastError();
 }

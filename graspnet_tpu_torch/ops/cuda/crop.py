@@ -11,10 +11,10 @@ its kernels for a CUDA tensor and runs the plain version
 (`crop_fused_plain`, `crop_group_plain`, `sa_feat_fused_plain`) for a CPU
 tensor; each keeps its own launch count.  The scans are `csrc/query.cu`'s:
 `crop_group` is the cylinder scan writing offsets (`query.cylinder_scan`),
-and two wrappers run two kernels under one count: `crop_fused` that scan,
-then the tensor-core MLP `crop_mlp_tc_kernel`; `sa1_fused` K4's ball scan
-(`query.ball_scan`, not counted as a `ball_query` launch), then
-`sa1_mlp_tc_kernel`.
+and three wrappers run two kernels under one count: `crop_fused` that scan,
+then the tensor-core MLP `crop_mlp_tc_kernel`; `sa1_fused` and
+`sa_feat_fused` K4's ball scan (`query.ball_scan`, not counted as a
+`ball_query` launch), then `sa1_mlp_tc_kernel` or `sa_feat_tc_kernel`.
 """
 
 from __future__ import annotations
@@ -116,7 +116,7 @@ def _fn(name: str, argtypes, restype=ctypes.c_int):
 
 def _operands(*ts: torch.Tensor):
     """Contiguous float32 tensors whose data are 16-byte aligned (the
-    kernels read weights as float4)."""
+    kernels read weights as float4 or copy rows in 16-byte units)."""
     out = [t.detach().contiguous().float() for t in ts]
     return [t.clone() if t.data_ptr() % 16 else t for t in out]
 
@@ -298,6 +298,16 @@ def sa_feat_fused_plain(
     return torch.amax(folded_mlp(folded, grouped), dim=2)
 
 
+def sa_feat_smem_bytes(c_in: int, c1: int, c2: int, c3: int) -> int:
+    """Dynamic shared memory of the SA2-4 stage's tensor-core MLP kernel at
+    feature width c_in and widths (c1, c2, c3); 0 where it does not take
+    them (widths multiples of 8, c1 and c2 within its 8 warps' column tiles,
+    the row tile's layout with at least 2 weight-ring stages in one block's
+    shared memory)."""
+    fn = _fn("gn_sa_feat_tc_smem", [ctypes.c_int] * 4, ctypes.c_size_t)
+    return int(fn(c_in, c1, c2, c3))
+
+
 def sa_feat_fused(
     xyz: torch.Tensor,
     new_xyz: torch.Tensor,
@@ -308,8 +318,10 @@ def sa_feat_fused(
 ) -> torch.Tensor:
     """Fused SA stage with feature grouping (backbone SA2-4, eval mode):
     (B, N, 3), (B, M, 3), (B, N, C) float32 and the BN-folded MLP
-    (3 + C) -> c1 -> c2 -> c3 -> (B, M, c3).  CUDA tensor: the crop.cu
-    sa_feat kernel (K9); CPU tensor: `sa_feat_fused_plain`."""
+    (3 + C) -> c1 -> c2 -> c3 -> (B, M, c3).  CUDA tensor: K4's ball scan
+    into a (B, M, ns) index scratch, then the tensor-core MLP
+    `sa_feat_tc_kernel` (one call, two kernels: K9); CPU tensor:
+    `sa_feat_fused_plain`."""
     if not xyz.is_cuda:
         return sa_feat_fused_plain(xyz, new_xyz, features, folded, radius, nsample)
     b, n, _ = xyz.shape
@@ -320,25 +332,29 @@ def sa_feat_fused(
     if (
         any(t.dtype != torch.float32 or not t.is_cuda for t in (xyz, new_xyz, features))
         or xyz.shape[-1] != 3
+        or n < 1
         or new_xyz.shape != (b, m, 3)
         or features.shape[:2] != (b, n)
         or w1.shape[0] != 3 + c_in
         or not 1 <= nsample <= MAX_SAMPLES
-        or c_in % 4 or c1 % 4 or c2 % 4 or 256 % c1 or 256 % c2
+        or not sa_feat_smem_bytes(c_in, c1, c2, c3)
     ):
         raise ValueError(
-            "sa_feat_fused takes float32 CUDA (B,N,3)/(B,M,3)/(B,N,C) inputs with C a multiple "
-            f"of 4, a 3-layer (3+C)->c1->c2->c3 MLP with c1, c2 dividing 256, ns <= {MAX_SAMPLES}"
+            "sa_feat_fused takes float32 CUDA (B,N>=1,3)/(B,M,3)/(B,N,C) inputs, "
+            f"ns <= {MAX_SAMPLES} and a 3-layer (3+C)->c1->c2->c3 MLP with C and the widths "
+            "multiples of 8, c1 and c2 <= 256, whose row tile fits one block's shared memory"
         )
-    ts = [t.detach().contiguous().float() for t in (xyz, new_xyz, features, w1, b1, w2, b2, w3, b3)]
+    xyz, new_xyz = xyz.detach().contiguous(), new_xyz.detach().contiguous()
+    ts = _operands(features, w1, b1, w2, b2, w3, b3)
+    idx = torch.empty((b, m, nsample), dtype=torch.int64, device=xyz.device)
+    ball_scan(xyz, new_xyz, radius, idx)
     out = torch.empty((b, m, c3), dtype=torch.float32, device=xyz.device)
-    # r*r and 1/r rounded to float32 once (crop.py:542-543)
-    fn = _fn("gn_sa_feat", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
-             + [ctypes.c_float] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    # 1/r rounded to float32 once, as the plain version scales by it
+    fn = _fn("gn_sa_feat_mlp", [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_float]
+             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     err = fn(
-        *(t.data_ptr() for t in ts), out.data_ptr(), b, n, m, nsample,
-        radius * radius, 1.0 / radius, c_in, c1, c2, c3,
-        torch.cuda.current_stream(xyz.device).cuda_stream,
+        idx.data_ptr(), xyz.data_ptr(), new_xyz.data_ptr(), *(t.data_ptr() for t in ts), out.data_ptr(),
+        b, n, m, nsample, 1.0 / radius, c_in, c1, c2, c3, torch.cuda.current_stream(xyz.device).cuda_stream,
     )
     build.check(err, "sa_feat_fused")
     sa_feat_fused.launches += 1

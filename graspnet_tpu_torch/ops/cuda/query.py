@@ -36,6 +36,10 @@ BALL_SCAN_CENTERS, BALL_SCAN_UNROLL, BALL_SCAN_TILE, BALL_SCAN_STAGES = 8, 4, 10
 # The cylinder scan runs on the same ring, a block taking 4 consecutive
 # centres, one a warp, and 4 chunks a step (kCylinderWarps, kCylinderUnroll)
 CYLINDER_SCAN_CENTERS, CYLINDER_SCAN_UNROLL = 4, 4
+# K10 (seed_query_kernel, a warp per centre): 32-point chunks a warp loads
+# before it tests them (kSeedUnroll); it reads the points from device
+# memory, with no ring
+SEED_SCAN_UNROLL = 4
 
 
 def ball_query_plain(
@@ -232,7 +236,8 @@ def multi_query(
 ) -> torch.Tensor:
     """The per-query oracle of K4/K8: (B, M, D, nsample) int64 with the
     semantics of `multi_query_plain`.  CUDA tensor: the query.cu
-    one-thread-per-query scan (K10); CPU tensor: `multi_query_plain`."""
+    warp-per-query scan (K10), which shares no code with the ring scan but
+    the membership test; CPU tensor: `multi_query_plain`."""
     hmax_list = tuple(hmax_list)
     if not xyz.is_cuda:
         return multi_query_plain(xyz, new_xyz, rot, radius, hmin, hmax_list, nsample, rotate)

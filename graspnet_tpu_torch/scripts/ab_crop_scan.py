@@ -1,7 +1,7 @@
 """Side-by-side timing of the multi-depth cylinder scan in several checkouts
 of the port, on one card: the crop group (K6), the cylinder query (K8) and
-the CloudCrop (K5) with its scan alone; and the fused SA2-4 stage (K9),
-whose kernel shares `csrc/crop.cu` with K5.
+the CloudCrop (K5) with its scan alone; the fused SA2-4 stage (K9), whose
+MLP shares `csrc/crop.cu` with K5; and the per-query oracle (K10).
 
     python3 -m graspnet_tpu_torch.scripts.ab_crop_scan --trees OLD . . OLD [--out FILE]
 
@@ -20,11 +20,13 @@ random weights.  Per run, in ms:
     group at K5's shapes, the kernel K5 launches first in every tree);
   * `sa_feat_b2`: K9's three calls (SA2-4 on the FPS stage points, random
     features of the stages' widths) summed;
+  * `multi_query_b2`: K10 in cylinder mode at K8's shape (B=2, 1024 FPS
+    seeds x 4 depths x 20000 points);
 
 each as one call's CUDA-event median (30 calls) and as `..._device`, the
 kernels' own device time per call under torch.profiler (10 calls).  Every
 run's outputs are held against the first run's: K6's offsets bitwise, K8's
-indices equal, K5 and K9 within 1e-4 x max(1, scale).  Each run also gives the
+and K10's indices equal, K5 and K9 within 1e-4 x max(1, scale).  Each run also gives the
 registers and spill bytes ptxas reports for the scan kernels, when its
 process built them.  The JSON line adds, per shape, the points the scan's
 blocks of 4 and of 8 centres scan and load against the centres' nth-hit
@@ -114,7 +116,8 @@ def measure(tree: str, data: str, out: str) -> None:
     from graspnet_tpu_torch.config import GraspNetConfig
     from graspnet_tpu_torch.models import GraspNet, init_weights
     from graspnet_tpu_torch.nn.layers import fold_bn_eval
-    from graspnet_tpu_torch.ops.cuda import build, crop_fused, crop_group, cylinder_query_multi, sa_feat_fused
+    from graspnet_tpu_torch.ops.cuda import (build, crop_fused, crop_group, cylinder_query_multi, multi_query,
+                                             sa_feat_fused)
     from graspnet_tpu_torch.scripts.ab_ball_kernels import device_ms, event_ms
 
     ptxas = {name: ptxas_scan_records(text) for name, text in build.build_all(("query", "crop")).items()}
@@ -134,9 +137,10 @@ def measure(tree: str, data: str, out: str) -> None:
             "crop_scan_b1": lambda: crop_group(*s["serving_b1"], *geom),
             "crop_scan_b2": lambda: crop_group(*s["serving_b2"], *geom),
             "sa_feat_b2": lambda: [sa_feat_fused(*a) for a in sa_calls],
+            "multi_query_b2": lambda: multi_query(*s["serving_b2"], *geom),
         }
         outs = {k: calls[k]() for k in ("crop_group_train_b2", "cylinder_query_multi_b2", "crop_fused_b1",
-                                         "crop_fused_b2")}
+                                         "crop_fused_b2", "multi_query_b2")}
         outs["sa_feat_b2"] = torch.cat([o.flatten() for o in calls["sa_feat_b2"]()])
         times = {k: event_ms(fn, 30) for k, fn in calls.items()}
         times.update({f"{k}_device": device_ms(fn) for k, fn in calls.items()})
@@ -181,7 +185,7 @@ def main(argv=None) -> dict:
             run = json.loads(proc.stdout.strip().splitlines()[-1])
             got = torch.load(out)
             first = first or got
-            for k in ("crop_group_train_b2", "cylinder_query_multi_b2"):
+            for k in ("crop_group_train_b2", "cylinder_query_multi_b2", "multi_query_b2"):
                 if not torch.equal(got[k], first[k]):
                     raise AssertionError(f"run {i} ({tree}): {k} differs from run 0")
             for k in ("crop_fused_b1", "crop_fused_b2", "sa_feat_b2"):

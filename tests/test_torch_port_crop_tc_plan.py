@@ -30,6 +30,24 @@ card is FEATURE_TOL = 1e-4; the float64 check here holds the emulation at
 why the kernel splits.  SA1 (scale 897 and 360: the far centres' offsets
 reach ~250 after x 1/r): against plain 2.2e-07 and 1.3e-07, against
 float64 2.4e-07 and 1.3e-07; plain TF32 3.8e-04 and 1.1e-03.
+
+The SA2-4 stage (K9, sa_feat_tc_kernel) runs all three layers on the tensor
+cores: layer 1's K = C feature product in 3xTF32, its xyz part (K = 3) and
+the bias added after it in f32 (_sa_feat_kernel's order), then layers 2-3,
+over row tiles made of whole centres (a centre takes 16, 32 or 64 rows: ns
+17 pads to 32), padded rows zero and left out of each centre's max, the
+last tile ragged.  A tile has 128 rows where the kernel's shared-memory
+layout holds them with two weight-ring stages, else 64 (`sa_tile_rows`,
+sa_layout's arithmetic).  Rows come from the padded ball-query indices
+(K4's output): offsets (xyz[idx] - centre) x float32(1/r) beside
+features[idx]; far centres take point 0.  It is held against
+`sa_feat_fused_plain` at 1e-4 x max(1, scale), a float64 evaluation of the
+same rows at 1e-6 and, at GraspNetConfig.tiny(), the JAX package's
+interpret-mode `sa_feat_fused_pallas` at 1e-5 (tests/test_torch_port_sa_feat.py's
+bound for the plain version).  Readings (scale 86-94: the far centres'
+offsets reach ~100 after x 1/r): against plain 2.5e-07 (tiny) and 4.4e-07
+(production SA2), against float64 2.0e-07 and 3.2e-07, where plain f32 is
+2.1e-07 and 4.0e-07 off; plain TF32 6.3e-04 and 4.0e-04.
 """
 
 import jax.numpy as jnp
@@ -40,18 +58,20 @@ import torch
 from graspnet_tpu import ops as jops
 from graspnet_tpu.config import GraspNetConfig as JConfig
 from graspnet_tpu.models.backbone import _sa_stage
+from graspnet_tpu.ops.pallas.crop import sa_feat_fused_pallas
 
 from graspnet_tpu_torch.config import GraspNetConfig
 from graspnet_tpu_torch.models import GraspNet, geometry, init_weights
 from graspnet_tpu_torch.nn.layers import dense, fold_bn_eval
 from graspnet_tpu_torch.ops import gather_points
-from graspnet_tpu_torch.ops.cuda.crop import crop_fused_plain, crop_group_plain
+from graspnet_tpu_torch.ops.cuda.crop import crop_fused_plain, crop_group_plain, sa_feat_fused_plain
 from graspnet_tpu_torch.ops.cuda.query import ball_query_plain
 from graspnet_tpu_torch.ops.query import group_points
 
 from tests.test_torch_port_ops import perturbed_mlp
 
 FEATURE_TOL = 1e-4  # chip_smoke.py's gate for K5 against its plain version
+PALLAS_TOL = 1e-5  # x max(1, scale): tests/test_torch_port_sa_feat.py's bound against interpret-mode Pallas
 
 
 def tf32(x: torch.Tensor, ties: str = "away") -> torch.Tensor:
@@ -194,3 +214,150 @@ def test_split_is_f32_accurate(ties):
     rel = ((hi.double() + lo.double()) - x.double()).abs() / x.double().abs()
     assert rel.max().item() <= 2.0 ** -21
     assert ((hi.double() - x.double()).abs() / x.double().abs()).max().item() <= 2.0 ** -11
+
+
+def bank_ld(k, mod):
+    """Smallest ld >= k with ld = mod (mod 32) floats (bank_ld, bank8_ld)."""
+    return k + ((mod - k) % 32 + 32) % 32
+
+
+def sa_tile_rows(c_in, c1, c2, c3, smem_bytes=232448 - 1024, slice_k=32):
+    """The rows of sa_feat_tc_kernel's row tile (sa_tile_m): 128 where the
+    layout (the rows' features then a1, a2, points and centres, then at
+    least 2 weight-ring stages of slice_k rows) fits the block's shared
+    memory and c1, c2 fit its 8 warps' items, else 64."""
+    for rows in (128, 64):
+        col_parts = 8 // (rows // 64)
+        cols3 = min(c3, 32 * col_parts)
+        if max(c1, c2) > 32 * col_parts:  # 4 column tiles an item at most
+            continue
+        fixed = rows * (bank_ld(max(c_in, c1), 4) + bank_ld(c2, 4) + 6)
+        stage = slice_k * bank_ld(max(c1, c2, cols3), 8)
+        if (smem_bytes // 4 - fixed) // stage >= 2:
+            return rows
+    return 0
+
+
+def sa_feat_plan(xyz, centers, features, folded, radius, ns, ties="away", tile_rows=None):
+    """(B, N, 3), (B, M, 3), (B, N, C) -> (B, M, c3) as sa_feat_tc_kernel
+    forms it: whole centres a row tile (rows per centre 16, 32 or 64, padded
+    slots zero), layer 1's feature product in 3xTF32 then + the xyz part +
+    b1, layers 2-3 in 3xTF32, the max over each centre's first ns rows."""
+    (w1, b1), (w2, b2), (w3, b3) = folded
+    tile_rows = tile_rows or sa_tile_rows(w1.shape[0] - 3, w1.shape[1], w2.shape[1], w3.shape[1])
+    b, m = centers.shape[:2]
+    idx = ball_query_plain(xyz, centers, radius, ns)  # K4's padded indices
+    rpc = 16 * (1 if ns <= 16 else 2 if ns <= 32 else 4)
+    per_tile, groups = tile_rows // rpc, b * m
+    tiles = -(-groups // per_tile)
+
+    def rows(x):  # (B, M, ns, k) -> (tiles, tile_rows, k), padding zero
+        out = x.new_zeros((tiles * per_tile, rpc, x.shape[-1]))
+        out[:groups, :ns] = x.reshape(groups, ns, -1)
+        return out.reshape(tiles, tile_rows, -1)
+
+    pts = rows(group_points(xyz, idx))
+    cen = rows(centers[:, :, None].expand(-1, -1, ns, -1))
+    feats = rows(group_points(features, idx))
+    off = (pts - cen) * torch.tensor(1.0 / radius, dtype=torch.float32)
+    part = off[..., 0:1] * w1[0] + off[..., 1:2] * w1[1] + off[..., 2:3] * w1[2]
+    a1 = torch.relu(part + mm_3xtf32(feats, w1[3:], ties) + b1)
+    a2 = torch.relu(mm_3xtf32(a1, w2, ties) + b2)
+    h3 = torch.relu(mm_3xtf32(a2, w3, ties) + b3).reshape(tiles * per_tile, rpc, -1)
+    keep = torch.arange(rpc) < ns
+    pooled = torch.where(keep[None, :, None], h3, torch.zeros(())).amax(dim=1)
+    return pooled[:groups].reshape(b, m, -1)
+
+
+def sa_feat_reference(xyz, centers, features, folded, radius, ns, rounding=None):
+    """The same rows through the MLP with plain products, each operand
+    passed through `rounding` first; in float64 when the weights are."""
+    r = rounding or (lambda x: x)
+    idx = ball_query_plain(xyz, centers, radius, ns)
+    off = (group_points(xyz, idx) - centers[:, :, None]) * torch.tensor(1.0 / radius, dtype=torch.float32)
+    h = torch.cat([off, group_points(features, idx)], dim=-1).to(folded[0][0].dtype)
+    for w, b in folded:
+        h = torch.relu(r(h) @ r(w) + b)
+    return h.amax(dim=2)
+
+
+def sa_scene(n, c_in, seed, b=3, m=13):
+    """B scenes of n points in a 0.6 m cube, C-channel features, M centres
+    near the first points of each scene, the last 2 of each 10 m away (no
+    hits: every slot is point 0).  B M = 39 centres leave the last row tile
+    ragged at 16 and 32 rows a centre."""
+    rng = np.random.default_rng(seed)
+    xyz = torch.from_numpy(rng.uniform(-0.3, 0.3, (b, n, 3)).astype(np.float32))
+    feats = torch.from_numpy(rng.normal(0, 1, (b, n, c_in)).astype(np.float32))
+    centers = (xyz[:, :m] + torch.from_numpy(rng.normal(0, 0.01, (b, m, 3)).astype(np.float32))).contiguous()
+    centers[:, -2:] = 10.0
+    return xyz, centers, feats
+
+
+@pytest.mark.parametrize("config", ["tiny", "production"])
+@pytest.mark.parametrize("ns", ["stage", 17])
+def test_3xtf32_sa_feat_meets_the_feature_gate(config, ns):
+    cfg = GraspNetConfig.tiny() if config == "tiny" else GraspNetConfig()
+    sa = cfg.sa2
+    ns = sa.nsample if ns == "stage" else ns
+    folded = [(w.detach(), b.detach()) for w, b in fold_bn_eval(init_weights(GraspNet(cfg), 1).backbone.sa2.mlp)]
+    xyz, centers, feats = sa_scene(cfg.sa1.npoint, cfg.sa1.mlp[-1], ns)
+    with torch.no_grad():
+        got = sa_feat_plan(xyz, centers, feats, folded, sa.radius, ns)
+        plain = sa_feat_fused_plain(xyz, centers, feats, folded, sa.radius, ns)
+        want64 = sa_feat_reference(xyz, centers, feats, [(w.double(), b.double()) for w, b in folded], sa.radius, ns)
+        plain_tf32 = sa_feat_reference(xyz, centers, feats, folded, sa.radius, ns, tf32)
+    assert got.shape == plain.shape == (3, 13, sa.mlp[-1])
+    assert (plain[:, -2:] > 0).any()  # the far centres' point-0 rows reach the output
+    assert err_over_scale(got, plain) <= FEATURE_TOL
+    assert err_over_scale(got, want64) <= 1e-6
+    assert err_over_scale(plain_tf32, want64) > 100 * err_over_scale(got, want64)  # plain TF32 is not
+
+
+def test_sa_feat_tile_rows_at_the_shipped_widths():
+    """128-row tiles at SA2's widths, tiny and production, and at the tiny
+    SA3-4; 64 at the production SA3-4, whose 256-float feature rows leave
+    no room for two ring stages beside 128 rows; none past the domain."""
+    for cfg in (GraspNetConfig.tiny(), GraspNetConfig()):
+        for sa in (cfg.sa2, cfg.sa3, cfg.sa4):
+            want = 64 if sa.mlp[0] - 3 == 256 else 128
+            assert sa_tile_rows(sa.mlp[0] - 3, *sa.mlp[1:]) == want
+    assert sa_tile_rows(128, 256, 128, 256) == 64  # c1 of 256 needs 8 column parts
+    assert sa_tile_rows(2048, 16, 16, 32) == 0
+
+
+@pytest.mark.parametrize("tile_rows", [64, 128])
+def test_sa_feat_plan_is_the_same_at_either_tile_size(tile_rows):
+    """Row tiles of 64 or 128 rows group the same rows: each centre's rows
+    are computed alike and pooled alone."""
+    cfg = GraspNetConfig.tiny()
+    sa = cfg.sa3
+    folded = [(w.detach(), b.detach()) for w, b in fold_bn_eval(init_weights(GraspNet(cfg), 2).backbone.sa3.mlp)]
+    xyz, centers, feats = sa_scene(cfg.sa2.npoint, cfg.sa2.mlp[-1], 5)
+    with torch.no_grad():
+        got = sa_feat_plan(xyz, centers, feats, folded, sa.radius, sa.nsample, tile_rows=tile_rows)
+        base = sa_feat_plan(xyz, centers, feats, folded, sa.radius, sa.nsample, tile_rows=16)
+    torch.testing.assert_close(got, base, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("far", [0, 4])
+def test_3xtf32_sa_feat_meets_the_jax_pallas_kernel(far):
+    """At GraspNetConfig.tiny() SA2, with BN statistics that make the
+    folding non-trivial: the emulation against the JAX package's
+    interpret-mode `sa_feat_fused_pallas` on 16 centres, `far` of them 10 m
+    away."""
+    cfg = GraspNetConfig.tiny()
+    sa = cfg.sa2
+    jlayers, mlp = perturbed_mlp(sa.mlp, 4)
+    rng = np.random.default_rng(6)
+    xyz = rng.uniform(-0.3, 0.3, (2, cfg.sa1.npoint, 3)).astype(np.float32)
+    feats = rng.normal(0, 1, (2, cfg.sa1.npoint, cfg.sa1.mlp[-1])).astype(np.float32)
+    centers = xyz[:, :16].copy()
+    centers[:, 16 - far:] = 10.0
+    want = np.asarray(sa_feat_fused_pallas(jnp.asarray(xyz), jnp.asarray(centers), jnp.asarray(feats), jlayers,
+                                           sa.radius, sa.nsample, cfg.bn_eps))
+    with torch.no_grad():
+        got = sa_feat_plan(torch.from_numpy(xyz), torch.from_numpy(centers), torch.from_numpy(feats),
+                           fold_bn_eval(mlp), sa.radius, sa.nsample).numpy()
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= PALLAS_TOL * max(1.0, np.abs(want).max())

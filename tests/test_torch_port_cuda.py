@@ -584,3 +584,84 @@ def test_new_wrappers_reject_bad_input(dev):
     feats = torch.zeros(1, 100, 6, device=dev)  # C = 6 is not a multiple of 4
     with pytest.raises(ValueError):
         kcrop.sa_feat_fused(xyz, xyz[:, :4], feats, folded_weights((9, 8, 8, 16), 0, dev), 0.1, 8)
+
+
+def sa_feat_inputs(dev, b, n, m, c_in, seed, feat_offset=0):
+    """A tabletop cloud of n points per scene, features (B, N, C) starting
+    `feat_offset` floats past a 16-byte boundary, and M centres near the
+    cloud's points with the last 3 of each scene 10 m away (point 0's
+    offset and features in every slot)."""
+    xyz, centers = scan_inputs(dev, b, n, m, 0, seed)
+    rng = np.random.default_rng(seed)
+    flat = torch.zeros(b * n * c_in + 4, device=dev)
+    feats = flat[feat_offset: feat_offset + b * n * c_in].view(b, n, c_in)
+    feats.copy_(torch.from_numpy(rng.normal(size=(b, n, c_in)).astype(np.float32)).to(dev))
+    centers[:, -3:] = 10.0
+    return xyz, centers.contiguous(), feats
+
+
+@pytest.mark.parametrize("dims", [(19, 16, 16, 32), (131, 128, 128, 256), (259, 128, 128, 256)])
+@pytest.mark.parametrize("ns", [1, 16, 17, 32, 64])
+@pytest.mark.parametrize("b", [1, 2])
+def test_sa_feat_fused_tensor_cores_match_plain(dev, dims, ns, b):
+    """K9 (K4's scan, then the 3xTF32 tensor-core MLP over 64-row tiles of
+    whole centres) at C 16/128/256 (tiny SA2, production SA2 and SA3
+    widths), ns 1/16/17/32/64 (one m16 tile a centre, a padded one, two,
+    four), B 1 and 2, 301 centres a scene (the last row tile is ragged at
+    every ns), 3 far centres per scene, and at B=1 feature rows whose base
+    is one float past a 16-byte boundary: features within 1e-4 x max(1,
+    scale); one sa_feat_fused launch and no ball_query launch counted."""
+    c_in = dims[0] - 3
+    xyz, centers, feats = sa_feat_inputs(dev, b, 2048, 301, c_in, ns + c_in, feat_offset=1 if b == 1 else 0)
+    assert (feats.data_ptr() // 4) % 4 == (1 if b == 1 else 0)
+    folded = folded_weights(dims, ns, dev)
+    before = (kcrop.sa_feat_fused.launches, kquery.ball_query.launches)
+    got = kcrop.sa_feat_fused(xyz, centers, feats, folded, 0.1, ns)
+    assert (kcrop.sa_feat_fused.launches, kquery.ball_query.launches) == (before[0] + 1, before[1])
+    assert got.shape == (b, 301, dims[-1])
+    assert_features_close(got, kcrop.sa_feat_fused_plain(xyz, centers, feats, folded, 0.1, ns))
+
+
+def test_sa_feat_fused_rejects_inputs_outside_its_domain(dev):
+    """K9 takes C and widths that are multiples of 8, c1 and c2 <= 256 (its
+    8 warps' column tiles), ns <= 64 and a row tile that fits one block's
+    shared memory, N >= 1; it raises ValueError before any launch otherwise."""
+    xyz = torch.zeros(1, 100, 3, device=dev)
+    before = (kcrop.sa_feat_fused.launches, kquery.ball_query.launches)
+    for c_in, dims in ((12, (15, 16, 16, 32)), (16, (19, 12, 16, 32)), (16, (19, 16, 20, 32)),
+                       (16, (19, 16, 16, 36)), (16, (19, 264, 16, 32)), (2048, (2051, 16, 16, 32))):
+        with pytest.raises(ValueError):
+            kcrop.sa_feat_fused(xyz, xyz[:, :4], torch.zeros(1, 100, c_in, device=dev),
+                                folded_weights(dims, 0, dev), 0.1, 8)
+    feats = torch.zeros(1, 100, 16, device=dev)
+    with pytest.raises(ValueError):
+        kcrop.sa_feat_fused(xyz, xyz[:, :4], feats, folded_weights((19, 16, 16, 32), 0, dev), 0.1, 65)
+    with pytest.raises(ValueError):
+        kcrop.sa_feat_fused(xyz[:, :0], xyz[:, :4], feats[:, :0], folded_weights((19, 16, 16, 32), 0, dev), 0.1, 8)
+    assert (kcrop.sa_feat_fused.launches, kquery.ball_query.launches) == before
+
+
+@pytest.mark.parametrize("b,n,m,offset", [(2, 20000, 1024, 0), (1, 20000, 1024, 1), (2, 2050, 1001, 2),
+                                          (3, 4099, 37, 3), (2, 1025, 16, 0), (1, 5, 19, 1)])
+@pytest.mark.parametrize("depths", [1, 4, 8])
+def test_multi_query_matches_plain_and_the_ring_scans(dev, b, n, m, offset, depths):
+    """K10 (a warp per query) in both modes at the training and serving
+    shapes and at ragged N, M and scene starts (offset floats past a 16-byte
+    boundary), with far centres and an unsorted hmax list of 1, 4 or 8
+    depths: equal to its plain version, and to K8 (cylinder) and K4 (ball)."""
+    cfg = GraspNetConfig()
+    xyz, centers = scan_inputs(dev, b, n, m, offset, n + m + depths)
+    assert (xyz.data_ptr() // 4) % 4 == offset
+    q, _ = torch.linalg.qr(torch.from_numpy(np.random.default_rng(m + depths).normal(size=(b, m, 3, 3))
+                                            .astype(np.float32)))
+    rot = q.to(dev).contiguous()
+    hmax = tuple(np.random.default_rng(depths).permutation(np.linspace(0.01, 0.04, depths)).tolist())
+    ns = cfg.crop_nsample
+    args = (xyz, centers, rot, cfg.cylinder_radius, cfg.hmin, hmax, ns)
+    got = kquery.multi_query(*args)
+    assert torch.equal(got, kquery.multi_query_plain(*args))
+    assert torch.equal(got, kquery.cylinder_query_multi(*args))
+    assert (got[:, -3:] == 0).all()
+    ball = kquery.multi_query(xyz, centers, None, 0.04, 0.0, hmax, ns, rotate=False)
+    assert torch.equal(ball, kquery.multi_query_plain(xyz, centers, None, 0.04, 0.0, hmax, ns, rotate=False))
+    assert torch.equal(ball, kquery.ball_query(xyz, centers, 0.04, ns)[:, :, None].expand(-1, -1, depths, -1))

@@ -148,3 +148,27 @@ def test_ab_crop_scan_needs_a_card_and_reads_ptxas():
     got = ab_crop_scan.ptxas_scan_records(out)
     assert got == {"_ZN12_GLOBAL__N_120cylinder_scan_kernelILi1ELi8EEEvPKfS2_S2_Pv": {"registers": 56, "spill_bytes": 0},
                    "_ZN12_GLOBAL__N_116ball_scan_kernelEPKfS1_Plii": {"registers": 40, "spill_bytes": 12}}
+
+
+def test_ab_sa_feat_needs_a_card_and_reads_ptxas():
+    """The side-by-side K9/K10 timer measures CUDA kernels only: without a
+    card it exits before it starts any run.  Its ptxas reader keeps the
+    registers and spills of K9's MLP and K10 and nothing else."""
+    from graspnet_tpu_torch.scripts import ab_sa_feat
+
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="needs a card"):
+            ab_sa_feat.main(["--trees", "."])
+    out = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117sa_feat_tc_kernelILi2EEEvNS_6SaArgsE' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 167 registers, used 2 barriers, 64 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116ball_scan_kernelEPKfS1_Plii' for 'sm_90a'",
+        "ptxas info    : Used 40 registers, 32 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117seed_query_kernelEPKfS1_S1_PlNS_9QueryArgsE' for 'sm_90a'",
+        "    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 50 registers, used 0 barriers",
+    ])
+    assert ab_sa_feat.ptxas_records(out) == {
+        "_ZN12_GLOBAL__N_117sa_feat_tc_kernelILi2EEEvNS_6SaArgsE": {"registers": 167, "spill_bytes": 0},
+        "_ZN12_GLOBAL__N_117seed_query_kernelEPKfS1_S1_PlNS_9QueryArgsE": {"registers": 50, "spill_bytes": 8}}
