@@ -56,27 +56,52 @@ Phases (each prints one JSON line; any failure exits non-zero):
      split (phase sa_feat_split) and a torch.profiler window of K9's and
      K10's kernels by name (phase profile_query_sa), in which K9's three
      calls launch K4's scan and its MLP three times each and nothing else;
-  8. tools: the four timing entry points (graspnet_tpu_torch/scripts/)
+  8. train_cli: the training entry point.  The build seconds of the host
+     label library (csrc/host.cpp, g++) and the scatter kernel
+     (csrc/scatter.cu); the FPS seed chain of two 20000-point scenes on the
+     host library and on fps_numpy, indices equal, ms/scene each; five
+     Trainer.step calls from one seed twice, losses, parameters and Adam
+     state bitwise equal; in a child process with a fixed cuBLAS workspace
+     (CUBLAS_WORKSPACE_CONFIG, which only that process sets), five steps
+     with the default algorithms and five under
+     torch.use_deterministic_algorithms(True), which raises at any op that
+     is still non-deterministic, bitwise equal; the scatter-add kernel at each of a step's
+     five calls (captured from a step) against its plain version, bitwise
+     against the CPU's sequential sum, within 1e-6 x max(1, scale) of a
+     float64 sum, and bitwise repeatable; then
+     scripts/bench_train_pipeline.py's run in-process: one epoch of the
+     CLI's loop (apps/train.py::train) with 4 loader worker threads over a
+     SyntheticGraspNetDataset at its production shape, the eval pass and the
+     checkpoint, with the launches of every kernel along it checked, a
+     resume of the checkpoint into a fresh Trainer bitwise equal in
+     parameters and Adam state, the sustained ms/step beside the device
+     step, stage 1, host prep and finalize times, and the device's busy time
+     and idle share over 3 of the loop's steps under torch.profiler, after
+     its warm-up, with the loader threads running;
+  9. tools: the four timing entry points (graspnet_tpu_torch/scripts/)
      in-process at GraspNetConfig() with short slope windows (2 and 6
      calls, the fastest of 3 each) — every stage
      time finite and > 0, K8 launched by profile_stages and
      crop_train_breakdown, K9 three times per bench_crop_kernels call of
      its stages, K10 by profile_stages — and bench's JSON line;
-  9. the kernels line (launches per serving forward, per training step and
+ 10. the kernels line (launches per serving forward, per training step and
      per tool run), the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 
-Without CUDA it exits with code 2 before printing any result.
+Without CUDA it exits with code 2 before printing any result.  The
+deterministic-mode child runs this file with `--deterministic-steps FILE`.
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -125,6 +150,12 @@ POOL_MARGIN = 1e-4
 GRAD_TOL, GRAD_REL_L2_TOL, LEAF_REL_L2_TOL, LEAF_NORM_FLOOR = 3e-2, 2e-2, 2e-2, 1e-5
 STEP_LOSS_RTOL = 1e-5  # card vs CPU loss: batch-stat BN sums in another order
 TRAIN_SEED = 0
+# train_cli: the scatter-add kernel against a float64 sum, x max(1, scale)
+SCATTER_F64_TOL = 1e-6
+# train_cli: the CLI loop's timed steps, the steps before them, loader threads
+CLI_STEPS, CLI_WARMUP, CLI_WORKERS = 10, 2, 4
+# train_cli: the deterministic-mode child, its cuBLAS workspace and time limit
+DETERMINISTIC_ENV, DETERMINISTIC_TIMEOUT_S = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}, 600
 
 
 def log(**kv) -> None:
@@ -601,7 +632,8 @@ def main_path_phase(cfg, pipe, clouds):
 
     expected = {"fps_chain": 1, "ball_query": 3, "sa1_fused": 1, "crop_fused": 1,
                 "crop_group": 0, "crop_mlp_train": 0, "crop_mlp_train_backward": 0,
-                "cylinder_query_multi": 0, "sa_feat_fused": 0, "multi_query": 0}
+                "cylinder_query_multi": 0, "sa_feat_fused": 0, "multi_query": 0,
+                "scatter_add_rows": 0}
 
     def drive(fn):
         """Run one batched forward; every kernel must launch once for it."""
@@ -959,7 +991,9 @@ def train_batches(cfg, clouds: np.ndarray):
 
 
 def train_phase(cfg, clouds: np.ndarray):
-    """Phase 6: the port's Trainer through its entry points on the card."""
+    """Phase 6: the port's Trainer through its entry points on the card.
+    Returns the launches of a step, the timings, and the full and compact
+    host batches."""
     from graspnet_tpu_torch.ops import cuda as kernels
     from graspnet_tpu_torch.train.trainer import TrainConfig, Trainer
 
@@ -975,7 +1009,9 @@ def train_phase(cfg, clouds: np.ndarray):
             raise AssertionError(f"launch counts {got}, expected {expected}")
         return out, got
 
-    step_counts = {"ball_query": 4, "crop_group": 1, "crop_mlp_train": 1, "crop_mlp_train_backward": 1}
+    # scatter_add_rows: the backward of SA2-4's feature grouping and FP1-2's interpolation
+    step_counts = {"ball_query": 4, "crop_group": 1, "crop_mlp_train": 1, "crop_mlp_train_backward": 1,
+                   "scatter_add_rows": 5}
     tr = Trainer(cfg, TrainConfig(), seed=TRAIN_SEED)
     tr.set_epoch(0)
     dev_full = tr.put(full)
@@ -1043,7 +1079,241 @@ def train_phase(cfg, clouds: np.ndarray):
              {"k7_forward": ("mlp_fwd_pass", "chan_reduce"),
               "k7_backward": ("mlp_bwd_pass", "pool_sums_kernel", "finish_layer1", "sum_parts"),
               "k4": ("ball_scan_kernel",), "k6": ("cylinder_scan_kernel",)})
-    return step_launches, timing
+    return step_launches, timing, full, compact
+
+def seed_chain_phase(cfg, clouds: np.ndarray) -> dict:
+    """The FPS seed chain of each scene on the host library and on
+    fps_numpy: indices and seed points equal; wall ms per scene of each."""
+    from graspnet_tpu_torch import native
+    from graspnet_tpu_torch.train import label_pipeline as lp
+
+    native.fps(clouds[0][:64], 8)  # loads the library
+    lib_ms, numpy_ms = [], []
+    for cloud in clouds:
+        t0 = time.perf_counter()
+        inds, seeds = lp.seed_chain(cloud, cfg)
+        lib_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        want, want_seeds = lp.seed_chain(cloud, cfg, fps=lp.fps_numpy)
+        numpy_ms.append((time.perf_counter() - t0) * 1e3)
+        for k in want:
+            if not np.array_equal(inds[k], want[k]):
+                bad = np.nonzero(inds[k] != want[k])[0]
+                raise AssertionError(f"seed chain {k}: host library != fps_numpy from index {bad[0]}")
+        if not np.array_equal(seeds, want_seeds):
+            raise AssertionError("seed chain: seed points differ")
+    return {"scenes": len(clouds), "points": int(clouds.shape[1]), "indices_equal": True,
+            "host_library_ms_per_scene": lib_ms, "fps_numpy_ms_per_scene": numpy_ms}
+
+
+def five_steps(cfg, full):
+    """Five Trainer.step calls on one full batch from TRAIN_SEED: the losses,
+    and the model and Adam state after them."""
+    from graspnet_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    tr = Trainer(cfg, TrainConfig(), seed=TRAIN_SEED)
+    tr.set_epoch(0)
+    dev_full = tr.put(full)
+    losses = [tr.step(dev_full)[0] for _ in range(5)]
+    torch.cuda.synchronize()
+    return [float(x) for x in losses], copy.deepcopy(tr.state_dict())
+
+
+def states_equal(a, b) -> bool:
+    """Nested dicts / lists of tensors and numbers, bitwise equal."""
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(states_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(states_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.shape == b.shape and torch.equal(a.cpu(), b.cpu())
+    return a == b
+
+
+def deterministic_steps(path: str) -> int:
+    """The child of repeatability_phase, under DETERMINISTIC_ENV: five steps
+    on the batch saved at `path` with the default algorithms, then five
+    under torch.use_deterministic_algorithms(True), where any op without a
+    deterministic CUDA version raises.  Prints the losses and whether the
+    two runs are bitwise equal as its last line."""
+    from graspnet_tpu_torch.config import GraspNetConfig
+
+    full = {}
+    with np.load(path) as f:
+        for key in f.files:  # "sa_inds/sa1" -> full["sa_inds"]["sa1"]
+            head, _, sub = key.partition("/")
+            if sub:
+                full.setdefault(head, {})[sub] = f[key]
+            else:
+                full[key] = f[key]
+    cfg = GraspNetConfig()
+    run1, state1 = five_steps(cfg, full)
+    torch.use_deterministic_algorithms(True)
+    try:
+        run2, state2 = five_steps(cfg, full)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(json.dumps({"losses": run1, "deterministic_losses": run2,
+                      "equal": run1 == run2 and states_equal(state1, state2)}), flush=True)
+    return 0
+
+
+def repeatability_phase(cfg, full) -> dict:
+    """Five steps twice in this process, bitwise equal; then the
+    deterministic-mode check in a child process (deterministic_steps), whose
+    fixed cuBLAS workspace stays out of this process and every other phase."""
+    run1, state1 = five_steps(cfg, full)
+    run2, state2 = five_steps(cfg, full)
+    if run1 != run2 or not states_equal(state1, state2):
+        raise AssertionError(f"five steps are not repeatable: losses {run1} vs {run2}, "
+                             f"states equal: {states_equal(state1, state2)}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_deterministic_") as tmp:
+        path = os.path.join(tmp, "batch.npz")
+        flat = {f"{k}/{sub}" if isinstance(v, dict) else k: a
+                for k, v in full.items() for sub, a in (v.items() if isinstance(v, dict) else [(None, v)])}
+        np.savez(path, **flat)
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, os.path.abspath(__file__), "--deterministic-steps", path],
+                               env={**os.environ, **DETERMINISTIC_ENV}, capture_output=True, text=True,
+                               timeout=DETERMINISTIC_TIMEOUT_S)
+        child_s = time.perf_counter() - t0
+    if child.returncode != 0:
+        raise AssertionError(f"the deterministic-mode child exited {child.returncode}:\n{child.stderr[-4000:]}")
+    got = json.loads(child.stdout.strip().splitlines()[-1])
+    if not got["equal"]:
+        raise AssertionError(f"deterministic mode changed the step: losses {got['losses']} vs "
+                             f"{got['deterministic_losses']}, or the states differ")
+    return {"losses": run1, "runs_bitwise_equal": True, "deterministic_mode_equal": True,
+            "deterministic_env": DETERMINISTIC_ENV, "deterministic_losses": got["deterministic_losses"],
+            "child_losses_equal_default_workspace": got["losses"] == run1, "child_s": child_s}
+
+
+def capture_scatter_calls(cfg, full):
+    """The scatter-add calls of one Trainer.step as its backward makes them:
+    (g, idx, n, plan), copied."""
+    from graspnet_tpu_torch.ops import scatter as gathers
+    from graspnet_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    tr = Trainer(cfg, TrainConfig(), seed=TRAIN_SEED)
+    dev_full = tr.put(full)
+    calls, real = [], gathers.scatter_add_rows
+
+    def record(g, idx, n, plan=None):
+        calls.append((g.clone(), idx.clone(), n, tuple(p.clone() for p in plan)))
+        return real(g, idx, n, plan)
+
+    # the wrapper counts its launches under its module-level name, which is
+    # `record` during the capture: this step's launches stay out of the counts
+    record.launches = real.launches
+    gathers.scatter_add_rows = record
+    try:
+        tr.step(dev_full)
+        torch.cuda.synchronize()
+    finally:
+        gathers.scatter_add_rows = real
+    return calls
+
+
+def scatter_kernel_row(cfg, full) -> dict:
+    """The scatter-add kernel at each call of a step: bitwise the CPU's
+    sequential sum (the same adds in the same order), within
+    SCATTER_F64_TOL x max(1, scale) of a float64 sum, bitwise repeatable;
+    times of the step's calls together."""
+    from graspnet_tpu_torch.ops import scatter as ksc
+
+    calls = capture_scatter_calls(cfg, full)
+    if len(calls) != 5:
+        raise AssertionError(f"a step made {len(calls)} scatter-add calls, expected 5")
+    shapes, err_plain, nbytes, adds = [], 0.0, 0, 0
+    for g, idx, n, plan in calls:
+        got = ksc.scatter_add_rows(g, idx, n, plan)
+        again = ksc.scatter_add_rows(g, idx, n, plan)
+        plain = ksc.scatter_add_rows_plain(g, idx, n)
+        cpu = ksc.scatter_add_rows_plain(g.cpu(), idx.cpu(), n)
+        f64 = ksc.scatter_add_rows_plain(g.cpu().double(), idx.cpu(), n)
+        torch.cuda.synchronize()
+        scale = max(1.0, f64.abs().max().item())
+        err64 = (got.cpu().double() - f64).abs().max().item()
+        if not torch.equal(got, again) or not torch.equal(got.cpu(), cpu) or err64 > SCATTER_F64_TOL * scale:
+            raise AssertionError(f"scatter_add_rows at {tuple(g.shape)} -> {n}: repeatable "
+                                 f"{torch.equal(got, again)}, equal to the CPU's sum {torch.equal(got.cpu(), cpu)}, "
+                                 f"{err64} from float64 at scale {scale}")
+        err_plain = max(err_plain, (got - plain).abs().max().item())
+        b, k, c = g.shape
+        nbytes += g.numel() * 4 + idx.numel() * 8 + b * n * c * 4
+        adds += g.numel()
+        segs = plan[1][1:] - plan[1][:-1]
+        shapes.append({"g": [b, k, c], "n": n, "err_f64": err64, "scale": scale,
+                       "longest_segment": int(segs.max()), "empty_rows": int((segs == 0).sum())})
+    flat = [(g.reshape(-1, g.shape[2]), (idx + n * torch.arange(g.shape[0], device=idx.device)[:, None]).reshape(-1),
+             torch.zeros(g.shape[0] * n, g.shape[2], device=g.device)) for g, idx, n, _ in calls]
+    t_bound, by = bound(nbytes, adds)
+    row = dict(
+        name="scatter_add_rows", route="cuda", source="graspnet_tpu_torch/csrc/scatter.cu",
+        replaces="no TPU kernel: graspnet_tpu/ops/scatter.py:28 (scatter_add_rows) is XLA",
+        max_abs_err=err_plain,
+        ms=cuda_ms(lambda: [ksc.scatter_add_rows(g, i, n, p) for g, i, n, p in calls], 20),
+        plain_ms=cuda_ms(lambda: [ksc.scatter_add_rows_plain(g, i, n) for g, i, n, _ in calls], 20),
+        bound_ms=t_bound, bound_by=by,
+        library_ms=cuda_ms(lambda: [torch.index_add(z, 0, r, g2) for g2, r, z in flat], 20),
+    )
+    plan_ms = cuda_ms(lambda: [ksc.scatter_plan(i, n) for _, i, n, _ in calls], 20)
+    log(phase="scatter_kernel", calls=shapes, plan_ms_per_step=plan_ms, bitwise_cpu_sum=True,
+        repeatable=True, f64_tol=SCATTER_F64_TOL, **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
+    return row
+
+
+def train_cli_phase(cfg, clouds: np.ndarray, full):
+    """Phase 8: the training entry point on the card.  Returns the scatter
+    kernel's row and the phase's timings."""
+    from graspnet_tpu_torch.apps import train as cli_train
+    from graspnet_tpu_torch.ops import cuda as kernels
+    from graspnet_tpu_torch.ops.cuda import build
+    from graspnet_tpu_torch.scripts import bench_train_pipeline
+    from graspnet_tpu_torch.train.trainer import TrainConfig, Trainer
+    from graspnet_tpu_torch.utils import timing as slope
+    from graspnet_tpu_torch.utils.logging import MetricLogger
+
+    log(phase="train_cli_build", build_s={k: build.BUILD_SECONDS.get(k) for k in (build.HOST, "scatter")})
+    chain = seed_chain_phase(cfg, clouds)
+    log(phase="train_cli_seed_chain", **chain)
+    rep = repeatability_phase(cfg, full)
+    log(phase="train_cli_repeatable", **rep)
+    row = scatter_kernel_row(cfg, full)
+
+    slope.reset(TOOL_K_LO, TOOL_K_HI)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_cli_") as log_dir:
+        result, trainer, ckpt = bench_train_pipeline.run(
+            cfg, torch.device("cuda"), log_dir, steps=CLI_STEPS, warmup=CLI_WARMUP, workers=CLI_WORKERS,
+            batch=B_KERNELS)
+        s, e = result["train_steps"], 1  # train steps (run() checks them), eval batches
+        expected = {**{k: 0 for k in kernels.launches()}, "ball_query": 4 * s + 6 * e, "crop_group": s,
+                    "crop_mlp_train": s, "crop_mlp_train_backward": s, "scatter_add_rows": 5 * s,
+                    "sa1_fused": 2 * e, "crop_fused": e}
+        if result["launches"] != expected:
+            raise AssertionError(f"CLI loop launches {result['launches']}, expected {expected}")
+        fresh = Trainer(cfg, TrainConfig(batch_size=B_KERNELS, max_epoch=1), seed=TRAIN_SEED + 1)
+        logger = MetricLogger(log_dir, filename="resume.txt")
+        try:
+            start = cli_train.resume(fresh, ckpt, logger)
+        finally:
+            logger.close()
+        saved = trainer.state_dict()
+        if start != 1 or not states_equal(fresh.state_dict(), saved):
+            raise AssertionError(f"resume: start epoch {start}, state equal {states_equal(fresh.state_dict(), saved)}")
+    log(phase="train_cli_loop", resumed_bitwise=True, launches_per_loop=result["launches"],
+        eval_batches=e, **{k: v for k, v in result.items() if k != "launches"})
+    timing = dict(cli_sustained_ms_per_step=result["value"], cli_device_step_ms=result["device_step_ms"],
+                  cli_stage1_ms=result["stage1_ms"], cli_host_prep_ms_per_scene=result["host_prep_ms_per_scene"],
+                  cli_finalize_ms_per_batch=result["finalize_ms_per_batch"],
+                  cli_device_busy_ms_per_step=result["device_busy_ms_per_step"],
+                  cli_profiled_wall_ms_per_step=result["profiled_wall_ms_per_step"],
+                  cli_loop_idle_share=result["device_idle_share"],
+                  cli_loop_idle_share_sustained=result["device_idle_share_sustained"],
+                  seed_chain_ms_per_scene_library=statistics.mean(chain["host_library_ms_per_scene"]),
+                  seed_chain_ms_per_scene_numpy=statistics.mean(chain["fps_numpy_ms_per_scene"]))
+    log(phase="train_cli_timing", **timing)
+    return row, timing
 
 
 def main() -> int:
@@ -1080,7 +1350,11 @@ def main() -> int:
 
     crop_mlp = init_weights(GraspNet(cfg), TRAIN_SEED).crop.mlp.to(dev)
     rows += train_kernel_phase(cfg, crop_mlp, cloud_b)
-    train_launches, train_timing = train_phase(cfg, clouds[:B_KERNELS])
+    train_launches, train_timing, full, compact = train_phase(cfg, clouds[:B_KERNELS])
+    scatter_row, cli_timing = train_cli_phase(cfg, clouds[:B_KERNELS], full)
+    rows.append(scatter_row)
+    train_timing.update(cli_timing)
+    del full, compact
     tool_launches, tool_records = tools_phase()
     for r in rows:  # the counts read after one serving forward, one training step and one tool run
         r["launches_per_forward"] = launches[r["name"]]
@@ -1099,4 +1373,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--deterministic-steps"]:
+        sys.exit(deterministic_steps(sys.argv[2]))
     sys.exit(main())

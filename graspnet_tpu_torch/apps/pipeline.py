@@ -17,6 +17,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from graspnet_tpu_torch import checkpoint
 from graspnet_tpu_torch.config import GraspNetConfig
 from graspnet_tpu_torch.device import resolve_device
 from graspnet_tpu_torch.models import GraspNet, init_weights, pred_decode
@@ -38,11 +39,22 @@ class GraspPipeline:
         cfg: GraspNetConfig = GraspNetConfig(),
         seed: int = 0,
         device: str | torch.device = "cuda",
+        checkpoint_path: Optional[str] = None,
     ):
         """`params`: a GraspNet state dict (e.g. from
-        `checkpoint.params_from_jax`); None draws seeded random weights."""
+        `checkpoint.params_from_jax`); else `checkpoint_path`: a reference
+        `.tar` checkpoint, or a file of `checkpoint.save` holding a bare
+        state dict or the training CLI's state (whose 'model' it takes),
+        as the JAX pipeline reads either (`graspnet_tpu/apps/pipeline.py:60-78`);
+        neither draws seeded random weights."""
         self.cfg = cfg
         self.device = resolve_device(device, "GraspPipeline")
+        if params is None and checkpoint_path is not None:
+            if checkpoint_path.endswith(".tar"):
+                params = checkpoint.load_torch_checkpoint(checkpoint_path, cfg)
+            else:
+                params = checkpoint.restore(checkpoint_path)
+                params = params.get("model", params)
         model = GraspNet(cfg)
         if params is None:
             init_weights(model, seed)

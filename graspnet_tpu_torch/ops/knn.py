@@ -11,6 +11,10 @@ from typing import Tuple
 
 import torch
 
+# the weighted sum of three neighbour rows, with the deterministic
+# scatter-add as its backward (`graspnet_tpu/ops/knn.py:98-138`)
+from graspnet_tpu_torch.ops.scatter import three_interpolate
+
 
 def _pairwise_d2(query: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """(B, nq, 3), (B, nr, 3) -> (B, nq, nr) squared distances."""
@@ -35,14 +39,3 @@ def three_nn(unknown: torch.Tensor, known: torch.Tensor) -> Tuple[torch.Tensor, 
         idxs.append(i)
         d2 = d2.scatter(-1, i, float("inf"))
     return torch.sqrt(torch.cat(dists, dim=-1)), torch.cat(idxs, dim=-1)
-
-
-def three_interpolate(features: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """(B, m, C), (B, n, 3), (B, n, 3) -> (B, n, C) weighted sum of the
-    three neighbour rows, summed in neighbour order."""
-    b, n, _ = idx.shape
-    c = features.shape[-1]
-    g = torch.gather(features, 1, idx.reshape(b, n * 3, 1).expand(-1, -1, c))
-    g = g.reshape(b, n, 3, c)
-    w = weight[..., None]
-    return g[:, :, 0] * w[:, :, 0] + g[:, :, 1] * w[:, :, 1] + g[:, :, 2] * w[:, :, 2]

@@ -16,6 +16,8 @@ from typing import Sequence
 
 import torch
 
+from graspnet_tpu_torch.ops.scatter import gather_rows
+
 # (rows x points) elements per chunk of a plain query: bounds the mask and
 # running-count buffers (int32) to ~64 MB at any cloud size
 CHUNK_ELEMS = 1 << 24
@@ -115,9 +117,8 @@ def cylinder_query(
 
 
 def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(B, N, C), (B, M, S) -> (B, M, S, C): out[b,m,s] = points[b, idx[b,m,s]]."""
+    """(B, N, C), (B, M, S) -> (B, M, S, C): out[b,m,s] = points[b, idx[b,m,s]];
+    the backward is the deterministic scatter-add (`ops/scatter.py`), as
+    the JAX `custom_vjp` (`graspnet_tpu/ops/query.py:196-229`)."""
     b, m, s = idx.shape
-    flat = torch.gather(
-        points, 1, idx.reshape(b, m * s, 1).expand(-1, -1, points.shape[-1])
-    )
-    return flat.reshape(b, m, s, points.shape[-1])
+    return gather_rows(points, idx.reshape(b, m * s)).reshape(b, m, s, points.shape[-1])

@@ -9,10 +9,13 @@ per-seed (Ns, V, A, D) label slabs (`build_scene_labels`, the full path);
 or, for the compact two-phase path, the per-object (point, view) stats
 (`prepare_scene_labels`) and, once the pre-pass has picked the top views,
 the matched (Ns, A, D) slabs (`static_scene_labels`,
-`matched_scene_labels`).  Line-for-line copies of the JAX package's host
-functions, so host labels are bitwise the same; `fps`, `nearest` and
-`label_view_stats` copy the numpy versions of `graspnet_tpu/native` (whose
-C++ twins have identical semantics, `native/__init__.py:1-8`).
+`matched_scene_labels`); the dataset's indexed form of it keeps row indices
+into the full per-object label arrays instead of per-frame copies
+(`prepare_scene_labels_indexed`).  Line-for-line copies of the JAX
+package's host functions, so host labels are bitwise the same.  The FPS
+chain, the nearest-point assignment and the per-view statistics run in the
+C++ host library (`native.py`), as the JAX package's do; `fps_numpy`,
+`nearest` and `label_view_stats` below are their numpy plain versions.
 
 DEVICE (torch, inside the step): the log rescale with the batch-global max
 and the per-view reduction (`process_grasp_labels`,
@@ -27,6 +30,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from graspnet_tpu_torch import native
 from graspnet_tpu_torch.config import GraspNetConfig
 from graspnet_tpu_torch.models import geometry
 
@@ -99,7 +103,8 @@ def process_matched_labels(labels: Dict[str, torch.Tensor], cfg: GraspNetConfig)
 
 
 def fps_numpy(xyz: np.ndarray, npoint: int) -> np.ndarray:
-    """Host FPS with the device semantics (`label_pipeline.py:107-122`)."""
+    """Host FPS with the device semantics (`label_pipeline.py:107-122`): the
+    plain version of `native.fps`."""
     n = xyz.shape[0]
     mag = np.sum(xyz.astype(np.float32) ** 2, axis=1)
     valid = mag > 1e-3
@@ -119,7 +124,8 @@ def fps_numpy(xyz: np.ndarray, npoint: int) -> np.ndarray:
 def nearest(query: np.ndarray, ref: np.ndarray) -> np.ndarray:
     """(Nq, 3), (Nr, 3) -> (Nq,) int32 nearest-ref index per query: the
     difference-form squared distance, blocked over ref, strictly-less
-    updates (first-occurrence argmin), `native/__init__.py:121-143`."""
+    updates (first-occurrence argmin), `native/__init__.py:121-143`; the
+    plain version of `native.nearest`."""
     query = np.ascontiguousarray(query, dtype=np.float32)
     ref = np.ascontiguousarray(ref, dtype=np.float32)
     out = np.zeros(len(query), dtype=np.int32)
@@ -138,7 +144,8 @@ def nearest(query: np.ndarray, ref: np.ndarray) -> np.ndarray:
 def label_view_stats(scores: np.ndarray, widths: np.ndarray, max_width: float):
     """(Np, V, A, D) scores/widths -> lmin (Np, V) f32 (the masked minimum
     score, mask = score > 0 and width <= max_width), has (Np, V) bool, vmax
-    (Np, V) f32 (the raw maximum), `native/__init__.py:149-167`."""
+    (Np, V) f32 (the raw maximum), `native/__init__.py:149-167`; the plain
+    version of `native.label_view_stats`."""
     scores = np.ascontiguousarray(scores, dtype=np.float32)
     widths = np.ascontiguousarray(widths, dtype=np.float32)
     npo, v = scores.shape[0], scores.shape[1]
@@ -150,17 +157,19 @@ def label_view_stats(scores: np.ndarray, widths: np.ndarray, max_width: float):
     return lmin.astype(np.float32), has, vmax.astype(np.float32)
 
 
-def seed_chain(cloud: np.ndarray, cfg: GraspNetConfig):
-    """The backbone's FPS chain on the host: per-stage int32 indices, each
-    into the previous stage's points, and the sa2-level seed coordinates."""
+def seed_chain(cloud: np.ndarray, cfg: GraspNetConfig, fps=native.fps):
+    """The backbone's FPS chain on the host (`label_pipeline.py:125-142`):
+    per-stage int32 indices, each into the previous stage's points, and the
+    sa2-level seed coordinates.  `fps` is the host library's; the tests
+    pass `fps_numpy`."""
     cloud = np.ascontiguousarray(cloud, dtype=np.float32)
-    sa1 = fps_numpy(cloud, cfg.sa1.npoint)
+    sa1 = fps(cloud, cfg.sa1.npoint)
     xyz1 = np.ascontiguousarray(cloud[sa1])
-    sa2 = fps_numpy(xyz1, cfg.sa2.npoint)
+    sa2 = fps(xyz1, cfg.sa2.npoint)
     xyz2 = np.ascontiguousarray(xyz1[sa2])
-    sa3 = fps_numpy(xyz2, cfg.sa3.npoint)
+    sa3 = fps(xyz2, cfg.sa3.npoint)
     xyz3 = np.ascontiguousarray(xyz2[sa3])
-    sa4 = fps_numpy(xyz3, cfg.sa4.npoint)
+    sa4 = fps(xyz3, cfg.sa4.npoint)
     return {"sa1": sa1, "sa2": sa2, "sa3": sa3, "sa4": sa4}, xyz2
 
 
@@ -170,7 +179,7 @@ def assign_views(pose_rot: np.ndarray, num_view: int) -> Tuple[np.ndarray, np.nd
     nearest, and the pose-rotated template rotations so re-indexed."""
     views = geometry.generate_grasp_views_np(num_view)  # (V, 3)
     views_trans = views @ pose_rot.T
-    view_inds = nearest(views.astype(np.float32), views_trans.astype(np.float32)).astype(np.int32)
+    view_inds = native.nearest(views.astype(np.float32), views_trans.astype(np.float32)).astype(np.int32)
     rots = geometry.canonical_view_rotations_np(num_view)  # (V, 3, 3)
     rot_trans = np.einsum("ij,vjk->vik", pose_rot, rots)  # pose @ rot
     return view_inds, rot_trans[view_inds]
@@ -218,7 +227,7 @@ def build_scene_labels(
     points_merged, point_obj, point_local, view_inds_per_obj, obj_view_rot = _merge_objects(
         object_poses, grasp_points_list, v, max_objects)
 
-    nn = nearest(seed_xyz.astype(np.float32), points_merged)  # (Ns,)
+    nn = native.nearest(seed_xyz.astype(np.float32), points_merged)  # (Ns,)
     seed_obj = point_obj[nn]
     seed_local = point_local[nn]
 
@@ -289,7 +298,7 @@ def prepare_scene_labels(
     points_merged, point_obj, point_local, view_inds_per_obj, obj_view_rot = _merge_objects(
         object_poses, grasp_points_list, v, max_objects)
 
-    nn = nearest(seed_xyz.astype(np.float32), points_merged)  # (Ns,)
+    nn = native.nearest(seed_xyz.astype(np.float32), points_merged)  # (Ns,)
     seed_obj = point_obj[nn]
     seed_local = point_local[nn]
 
@@ -298,7 +307,7 @@ def prepare_scene_labels(
     for o in range(n_obj):
         s = grasp_scores_list[o].astype(np.float32, copy=False)
         w = grasp_widths_list[o].astype(np.float32, copy=False)
-        lmin, has, vmax = label_view_stats(s, w, cfg.grasp_max_width)
+        lmin, has, vmax = native.label_view_stats(s, w, cfg.grasp_max_width)
         lmin_per_obj.append(lmin)
         has_per_obj.append(has)
         sel = np.unique(seed_local[seed_obj == o])
@@ -322,19 +331,25 @@ def prepare_scene_labels(
     )
 
 
-def static_scene_labels(ctx: SceneLabelContext, cfg: GraspNetConfig) -> Dict[str, np.ndarray]:
+def static_scene_labels(
+    ctx: "SceneLabelContext | IndexedSceneLabelContext", cfg: GraspNetConfig
+) -> Dict[str, np.ndarray]:
     """The top-view-independent half of phase B (`label_pipeline.py:359-389`):
-    grasp points and the per-(seed, view) masked minima."""
+    grasp points and the per-(seed, view) masked minima, from either kind
+    of context."""
     ns, v = ctx.ns, cfg.num_view
     view_lmin = np.zeros((ns, v), np.float32)
     view_has = np.zeros((ns, v), np.bool_)
-    for o in range(len(ctx.lmin_per_obj)):
+    indexed = isinstance(ctx, IndexedSceneLabelContext)
+    lmins = ctx.lmin_rows if indexed else ctx.lmin_per_obj
+    hass = ctx.has_rows if indexed else ctx.has_per_obj
+    for o in range(len(lmins)):
         sel = np.nonzero(ctx.seed_obj == o)[0]
         if len(sel) == 0:
             continue
         ix = np.ix_(ctx.seed_local[sel], ctx.view_inds_per_obj[o])
-        view_lmin[sel] = ctx.lmin_per_obj[o][ix]
-        view_has[sel] = ctx.has_per_obj[o][ix]
+        view_lmin[sel] = lmins[o][ix]
+        view_has[sel] = hass[o][ix]
     return {
         "batch_grasp_point": ctx.grasp_points,
         "view_lmin": np.where(view_has, view_lmin, 1.0).astype(np.float32),
@@ -343,10 +358,12 @@ def static_scene_labels(ctx: SceneLabelContext, cfg: GraspNetConfig) -> Dict[str
 
 
 def matched_scene_labels(
-    ctx: SceneLabelContext, top_view: np.ndarray, cfg: GraspNetConfig
+    ctx: "SceneLabelContext | IndexedSceneLabelContext", top_view: np.ndarray, cfg: GraspNetConfig
 ) -> Dict[str, np.ndarray]:
     """The top-view-dependent half of phase B (`label_pipeline.py:392-423`):
     raw (un-rescaled) slabs and rotations at each seed's predicted view."""
+    if isinstance(ctx, IndexedSceneLabelContext):
+        return _matched_indexed(ctx, top_view, cfg)
     ns, a, d = ctx.ns, cfg.num_angle, cfg.num_depth
     top_view = np.asarray(top_view, np.int64)
     label = np.zeros((ns, a, d), np.float32)
@@ -377,3 +394,114 @@ def finalize_scene_labels(
     out = static_scene_labels(ctx, cfg)
     out.update(matched_scene_labels(ctx, top_view, cfg))
     return out
+
+
+# ------------------------------------------- indexed compact path --
+#
+# The dataset's form of the compact path (`label_pipeline.py:426-589`): the
+# per-frame state is the subsampled row indices into each object's FULL
+# label arrays (shared across frames and epochs), and the per-(point, view)
+# stats of the collision-zeroed full arrays come from a per-(scene,
+# object) cache (`GraspNetDataset._object_stats`).  Phase B gathers the
+# matched slabs straight from the full arrays and zeroes collisions as it
+# gathers: every element is the float32 the copy path would produce, so
+# the step is bitwise the same.
+
+
+class IndexedSceneLabelContext:
+    """Compact-path per-scene state: row indices and full-array references."""
+
+    __slots__ = (
+        "grasp_points", "seed_obj", "seed_local", "obj_view_rot",
+        "view_inds_per_obj", "rows_per_obj", "scores_full", "widths_full",
+        "tol_full", "coll_full", "lmin_rows", "has_rows", "scene_umax", "ns",
+    )
+
+    def __init__(self, **kw):
+        for k, v in kw.items():
+            setattr(self, k, v)
+
+
+def prepare_scene_labels_indexed(
+    seed_xyz: np.ndarray,
+    object_poses: Sequence[np.ndarray],
+    objects: Sequence[Dict[str, np.ndarray]],
+    cfg: GraspNetConfig,
+    max_objects: int = 16,
+) -> IndexedSceneLabelContext:
+    """Phase A of the indexed path (`label_pipeline.py:465-549`).
+
+    `objects[o]` holds 'rows' (subsampled row indices into the full label
+    arrays, visibility applied), the full arrays 'points' / 'scores' /
+    'widths' (may be the strided offsets[..., 2] view) / 'tol' / 'coll',
+    and the cached collision-zeroed stats 'lmin' / 'has' / 'vmax' over the
+    full rows ((Np, V) each, object-frame views)."""
+    v = cfg.num_view
+    n_obj = len(objects)
+    assert 1 <= n_obj <= max_objects, "a scene holds 1..max_objects labelled objects"
+    points_merged, point_obj, point_local, view_inds_per_obj, obj_view_rot = _merge_objects(
+        object_poses, [ob["points"][ob["rows"]] for ob in objects], v, max_objects)
+
+    nn = native.nearest(seed_xyz.astype(np.float32), points_merged)  # (Ns,)
+    seed_obj = point_obj[nn]
+    seed_local = point_local[nn]
+
+    lmin_rows, has_rows = [], []
+    scene_umax = np.float32(-np.inf)
+    for o, ob in enumerate(objects):
+        rows = ob["rows"]
+        # row gather only; the canonical-view re-index happens in phase B
+        lmin_rows.append(np.take(ob["lmin"], rows, axis=0))  # (k, V) object-frame views
+        has_rows.append(np.take(ob["has"], rows, axis=0))
+        sel = np.unique(seed_local[seed_obj == o])
+        if len(sel):
+            vm = ob["vmax"][rows[sel]][:, view_inds_per_obj[o]]
+            scene_umax = max(scene_umax, vm.max())
+
+    return IndexedSceneLabelContext(
+        grasp_points=points_merged[nn].astype(np.float32),
+        seed_obj=seed_obj.astype(np.int32),
+        seed_local=seed_local.astype(np.int32),
+        obj_view_rot=obj_view_rot,
+        view_inds_per_obj=view_inds_per_obj,
+        rows_per_obj=[np.asarray(ob["rows"], np.int64) for ob in objects],
+        scores_full=[ob["scores"] for ob in objects],
+        widths_full=[ob["widths"] for ob in objects],
+        tol_full=[ob["tol"] for ob in objects],
+        coll_full=[ob["coll"] for ob in objects],
+        lmin_rows=lmin_rows,
+        has_rows=has_rows,
+        scene_umax=np.float32(scene_umax),
+        ns=seed_xyz.shape[0],
+    )
+
+
+def _matched_indexed(
+    ctx: IndexedSceneLabelContext, top_view: np.ndarray, cfg: GraspNetConfig
+) -> Dict[str, np.ndarray]:
+    """Matched half of the indexed path (`label_pipeline.py:552-589`):
+    slabs gathered from the full arrays, scores and tolerances zeroed where
+    the collision label is set (reference graspnet_dataset.py:227-232;
+    widths are not zeroed, as in the reference)."""
+    ns, a, d = ctx.ns, cfg.num_angle, cfg.num_depth
+    top_view = np.asarray(top_view, np.int64)
+    label = np.zeros((ns, a, d), np.float32)
+    width = np.zeros((ns, a, d), np.float32)
+    tol = np.zeros((ns, a, d), np.float32)
+    for o in range(len(ctx.rows_per_obj)):
+        sel = np.nonzero(ctx.seed_obj == o)[0]
+        if len(sel) == 0:
+            continue
+        r = ctx.rows_per_obj[o][ctx.seed_local[sel]]
+        ov = ctx.view_inds_per_obj[o][top_view[sel]]
+        c = ctx.coll_full[o][r, ov]  # (nsel, A, D) bool
+        label[sel] = np.where(c, 0.0, ctx.scores_full[o][r, ov])
+        width[sel] = ctx.widths_full[o][r, ov]
+        tol[sel] = np.where(c, 0.0, ctx.tol_full[o][r, ov])
+    rot = ctx.obj_view_rot[ctx.seed_obj, top_view]
+    return {
+        "batch_grasp_view_rot": rot.astype(np.float32),
+        "matched_label_raw": label,
+        "batch_grasp_width": width,
+        "batch_grasp_tolerance": tol,
+    }

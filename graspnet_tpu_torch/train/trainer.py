@@ -12,11 +12,14 @@ them by name).  They get the torch-style momentum update from the step's
 batch stats after the optimizer step, in place.
 
 Runs on the card unless the caller asks for the CPU.  The data- and
-candidate-parallel branches of the JAX trainer are not ported here.
+candidate-parallel branches of the JAX trainer are not ported here.  The
+step is bitwise repeatable on the card: the differentiable gathers' backward
+is the deterministic scatter-add (`ops/scatter.py`), not torch's atomic one.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
@@ -110,6 +113,21 @@ class Trainer:
         self.epoch = epoch
         for group in self.opt.param_groups:
             group["lr"] = lr_at_epoch(self.tc, epoch)
+
+    # -- checkpoint state ---------------------------------------------------
+    def state_dict(self) -> Dict[str, Any]:
+        """The training state a resume needs: the model (parameters and BN
+        running stats), Adam's moments and step counts, and the epoch."""
+        return {"model": self.model.state_dict(), "optimizer": self.opt.state_dict(), "epoch": self.epoch}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Restore `state_dict()`'s output (tensors on any device); the
+        parameters and Adam state come back bitwise.  Adam's state is
+        copied: torch's optimizer would keep a same-device tensor it is
+        given, and this trainer's steps would then change the caller's."""
+        self.model.load_state_dict(state["model"], strict=True)
+        self.opt.load_state_dict(copy.deepcopy(state["optimizer"]))
+        self.set_epoch(int(state["epoch"]))
 
     # -- host -> device feed ------------------------------------------------
     def _tensor(self, key: str, a) -> torch.Tensor:

@@ -23,7 +23,7 @@ import argparse
 import json
 import subprocess
 import time
-from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
@@ -132,9 +132,16 @@ def dump_records(path: str, source: str) -> None:
     print(f"wrote {path} ({len(RECORDS)} stages)")
 
 
-def cli(description: str, argv: Optional[Sequence[str]]) -> Tuple[argparse.Namespace, GraspNetConfig, torch.device]:
-    """The timing entry points' shared arguments; resets the records."""
+def cli(
+    description: str,
+    argv: Optional[Sequence[str]],
+    add_arguments: Optional[Callable[[argparse.ArgumentParser], None]] = None,
+) -> Tuple[argparse.Namespace, GraspNetConfig, torch.device]:
+    """The timing entry points' shared arguments, and an entry point's own
+    (`add_arguments`); resets the records."""
     ap = argparse.ArgumentParser(description=description)
+    if add_arguments is not None:
+        add_arguments(ap)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--tiny", action="store_true", help="GraspNetConfig.tiny() instead of GraspNetConfig()")
     ap.add_argument("--k-lo", type=int, default=10, help="calls in the short window")

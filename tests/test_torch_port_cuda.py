@@ -259,7 +259,8 @@ def test_tiny_pipeline_card_matches_cpu_and_counts_launches(dev):
     got = card.get_grasps_topk_batch(clouds)
     assert kernels.launches() == {"fps_chain": 1, "ball_query": 3, "sa1_fused": 1, "crop_fused": 1,
                                   "crop_group": 0, "crop_mlp_train": 0, "crop_mlp_train_backward": 0,
-                                  "cylinder_query_multi": 0, "sa_feat_fused": 0, "multi_query": 0}
+                                  "cylinder_query_multi": 0, "sa_feat_fused": 0, "multi_query": 0,
+                                  "scatter_add_rows": 0}
     for g, w in zip(got, cpu.get_grasps_topk_batch(clouds)):
         g, w = g.grasp_group_array, w.grasp_group_array
         assert g.shape == w.shape
@@ -665,3 +666,86 @@ def test_multi_query_matches_plain_and_the_ring_scans(dev, b, n, m, offset, dept
     ball = kquery.multi_query(xyz, centers, None, 0.04, 0.0, hmax, ns, rotate=False)
     assert torch.equal(ball, kquery.multi_query_plain(xyz, centers, None, 0.04, 0.0, hmax, ns, rotate=False))
     assert torch.equal(ball, kquery.ball_query(xyz, centers, 0.04, ns)[:, :, None].expand(-1, -1, depths, -1))
+
+
+# -------------------------------------------- the deterministic scatter-add --
+
+
+@pytest.mark.parametrize("b,k,n,c", [(2, 32768, 2048, 128), (2, 3072, 512, 256), (1, 7, 3, 1),
+                                     (3, 1000, 64, 33), (2, 4096, 4096, 300), (1, 0, 5, 8)])
+def test_scatter_add_rows_is_bitwise_the_cpu_sum(dev, b, k, n, c):
+    """At SA2's and FP2's training shapes and ragged ones (C beyond one
+    pass of 256 lanes-values, empty segments, K = 0): the kernel's sums are
+    bitwise the plain version's sequential sums on the CPU and repeat.  The
+    bitwise comparison is the gate: the kernel adds the same terms in the
+    same order as `index_add_` on the CPU.  Against a float64 sum it is
+    held to the worst-case bound of a float32 sum of s terms,
+    s * 2^-24 * sum |g|: the padded half makes segments of up to 16k terms,
+    whose sequential float32 rounding (the plain version's too) exceeds
+    1e-6 x max(1, scale).  (chip_smoke.py holds the kernel to 1e-6 x max(1, scale) of
+    float64 at a training step's own calls.)"""
+    from graspnet_tpu_torch.ops import scatter as ksc
+
+    rng = np.random.default_rng(k + c)
+    g = torch.from_numpy(rng.standard_normal((b, k, c)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, max(1, n // 4), (b, k)))
+    idx[:, k // 2:] = idx[:, :1]  # first-hit padding: long runs of one index
+    gd, idd = g.to(dev), idx.to(dev)
+    before = ksc.scatter_add_rows.launches
+    got = ksc.scatter_add_rows(gd, idd, n)
+    assert ksc.scatter_add_rows.launches == before + 1
+    assert torch.equal(got.cpu(), ksc.scatter_add_rows_plain(g, idx, n))
+    assert torch.equal(got, ksc.scatter_add_rows(gd, idd, n, ksc.scatter_plan(idd, n)))
+    # the recursive-summation bound of a float32 sum of s terms: s * 2^-24 * sum |g|
+    f64 = ksc.scatter_add_rows_plain(g.double(), idx, n)
+    abs_sum = ksc.scatter_add_rows_plain(g.double().abs(), idx, n)
+    terms = ksc.scatter_add_rows_plain(torch.ones(b, k, 1, dtype=torch.float64), idx, n)
+    assert ((got.cpu().double() - f64).abs() <= terms * 2.0 ** -24 * abs_sum).all()
+
+
+def test_scatter_add_rows_rejects_what_it_does_not_take(dev):
+    from graspnet_tpu_torch.ops import scatter as ksc
+
+    g = torch.zeros(1, 4, 8, device=dev)
+    with pytest.raises(ValueError):
+        ksc.scatter_add_rows(g.double(), torch.zeros(1, 4, dtype=torch.int64, device=dev), 2)
+    with pytest.raises(ValueError):
+        ksc.scatter_add_rows(g, torch.zeros(1, 4, dtype=torch.int32, device=dev), 2)
+
+
+def test_gather_gradients_repeat_bitwise_on_the_card(dev):
+    """group_points and three_interpolate backward on colliding indices:
+    two backward passes give bitwise equal gradients."""
+    from graspnet_tpu_torch import ops
+
+    rng = np.random.default_rng(0)
+    feats = torch.from_numpy(rng.standard_normal((2, 2048, 128)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, 64, (2, 1024, 32))).to(dev)
+    nidx = torch.from_numpy(rng.integers(0, 16, (2, 1024, 3))).to(dev)
+    w = torch.rand(2, 1024, 3, device=dev)
+    grads = []
+    for _ in range(2):
+        f = feats.clone().requires_grad_(True)
+        (ops.group_points(f, idx).square().sum() + ops.three_interpolate(f, nidx, w).sum()).backward()
+        grads.append(f.grad)
+    assert torch.equal(*grads)
+
+
+def test_tiny_train_steps_repeat_bitwise(dev):
+    """Five Trainer steps from one seed, twice: equal losses and parameters."""
+    from graspnet_tpu_torch.data.dataset import collate
+    from graspnet_tpu_torch.data.synthetic import SyntheticGraspNetDataset
+    from graspnet_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = GraspNetConfig.tiny()
+    ds = SyntheticGraspNetDataset(n_frames=2, n_objects=3, label_points=40, cloud_points=1500,
+                                  num_points=cfg.num_point, cfg=cfg, label_mode="full")
+    batch = collate([ds.get_data_label(0), ds.get_data_label(1)])
+    runs = []
+    for _ in range(2):
+        tr = Trainer(cfg, TrainConfig(), seed=0)
+        losses = [float(tr.step(batch)[0]) for _ in range(5)]
+        runs.append((losses, {k: v.clone() for k, v in tr.model.state_dict().items()}))
+    assert runs[0][0] == runs[1][0]
+    for k, v in runs[0][1].items():
+        assert torch.equal(v, runs[1][1][k]), k

@@ -1,8 +1,10 @@
 """Import hygiene of the port: `graspnet_tpu_torch` and `chip_smoke.py`
 import neither JAX nor anything of the JAX package (`graspnet_tpu.native`
-included), and build no kernel when imported; with JAX blocked, a tiny
-serving call, a tiny training step and the timing entry points run on the
-CPU."""
+included), build nothing from a path inside `graspnet_tpu/`, and build no
+kernel when imported; with JAX blocked, a tiny serving call, a tiny
+training step, the training CLI's loop over a synthetic dataset and the
+timing entry points run on the CPU, loading no library but the host label
+library."""
 
 import os
 import re
@@ -32,7 +34,12 @@ for name in walked:
     importlib.import_module(name)
 new = {"graspnet_tpu_torch.utils.timing", "graspnet_tpu_torch.scripts.bench",
        "graspnet_tpu_torch.scripts.bench_crop_kernels", "graspnet_tpu_torch.scripts.profile_stages",
-       "graspnet_tpu_torch.scripts.crop_train_breakdown"}
+       "graspnet_tpu_torch.scripts.crop_train_breakdown", "graspnet_tpu_torch.native",
+       "graspnet_tpu_torch.ops.scatter",
+       "graspnet_tpu_torch.data", "graspnet_tpu_torch.data.camera", "graspnet_tpu_torch.data.dataset",
+       "graspnet_tpu_torch.data.synthetic", "graspnet_tpu_torch.utils.logging",
+       "graspnet_tpu_torch.apps.train", "graspnet_tpu_torch.scripts.bench_train",
+       "graspnet_tpu_torch.scripts.bench_train_pipeline"}
 assert new <= set(walked), new - set(walked)
 import chip_smoke
 from graspnet_tpu_torch.apps import GraspPipeline
@@ -64,7 +71,18 @@ assert np.isfinite(float(loss))
 from graspnet_tpu_torch.scripts import bench_crop_kernels, crop_train_breakdown, profile_stages
 for tool in (bench_crop_kernels, crop_train_breakdown, profile_stages):
     tool.main(["--device", "cpu", "--tiny", "--k-lo", "1", "--k-hi", "2"])
-assert not build._LIBS, "a kernel library was loaded on the CPU path"
+import tempfile
+from graspnet_tpu_torch.apps import train as cli
+from graspnet_tpu_torch.data.synthetic import SyntheticGraspNetDataset
+from graspnet_tpu_torch.train.trainer import TrainConfig
+from graspnet_tpu_torch.utils.logging import MetricLogger
+ds = SyntheticGraspNetDataset(n_frames=2, n_objects=2, label_points=40, cloud_points=1200, num_points=cfg.num_point, cfg=cfg)
+with tempfile.TemporaryDirectory() as log_dir:
+    logger = MetricLogger(log_dir)
+    run = cli.train(Trainer(cfg, TrainConfig(max_epoch=1), device="cpu"), ds, ds, logger, log_dir, num_workers=2)
+    logger.close()
+assert run["epochs_done"] == 1 and len(run["step_end_s"]) == 1
+assert set(build._LIBS) <= {build.HOST}, f"a kernel library was loaded on the CPU path: {set(build._LIBS)}"
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "graspnet_tpu") and sys.modules[m] is not None]
 assert not bad, bad
 print("ok", len(gg))
@@ -85,6 +103,18 @@ def test_no_jax_import_in_source(path):
     assert not hits, f"{path.name} imports {hits}"
 
 
+def test_every_native_source_lies_in_the_port():
+    """The port builds its libraries from its own csrc/, never by path from
+    the JAX package (the host library is a copy of its C++ source)."""
+    from graspnet_tpu_torch.ops.cuda import build
+
+    port_csrc = ROOT / "graspnet_tpu_torch" / "csrc"
+    assert build.CSRC == port_csrc and build.BUILD_DIR == ROOT / "graspnet_tpu_torch" / "_build"
+    for name in build.SOURCES:
+        assert build._source(name).parent == port_csrc and build._source(name).exists(), name
+    assert build.HOST in build.SOURCES and build._source(build.HOST).name == "host.cpp"
+
+
 def test_banned_pattern_catches_imports():
     for line in ("import jax", "from jax import numpy", "import jax.numpy as jnp",
                  "from graspnet_tpu.ops import x", "from graspnet_tpu import ops",
@@ -92,3 +122,26 @@ def test_banned_pattern_catches_imports():
         assert BANNED.search(line), line
     for line in ("import graspnet_tpu_torch", "from graspnet_tpu_torch.ops import x", "import jaxtyping"):
         assert not BANNED.search(line), line
+
+
+@pytest.mark.parametrize("first", ["graspnet_tpu_torch.ops.query", "graspnet_tpu_torch.ops.scatter",
+                                   "graspnet_tpu_torch.ops.knn", "graspnet_tpu_torch.ops.cuda",
+                                   "graspnet_tpu_torch.ops.cuda.crop"])
+def test_gathers_and_kernel_package_import_in_any_order(first):
+    """The plain ops import the gathers at module level and the kernel
+    package imports the plain ops: whichever module a process imports
+    first, the import completes, the plain ops hold `ops/scatter.py`'s
+    gathers and the kernel package counts its scatter-add wrapper."""
+    code = f"""
+import importlib
+importlib.import_module({first!r})
+from graspnet_tpu_torch.ops import cuda, knn, query, sampling, scatter
+assert query.gather_rows is sampling.gather_rows is scatter.gather_rows
+assert knn.three_interpolate is scatter.three_interpolate
+assert cuda.scatter_add_rows is scatter.scatter_add_rows and scatter.scatter_add_rows in cuda.WRAPPERS
+print("ok")
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip() == "ok"

@@ -250,4 +250,5 @@ def test_cpu_wrappers_do_not_count_launches():
     kquery.multi_query(pts, pts[:, :8], None, 0.1, 0.0, (0.0,), 4, rotate=False)
     assert kernels.launches() == {"fps_chain": 0, "ball_query": 0, "sa1_fused": 0, "crop_fused": 0,
                                   "crop_group": 0, "crop_mlp_train": 0, "crop_mlp_train_backward": 0,
-                                  "cylinder_query_multi": 0, "sa_feat_fused": 0, "multi_query": 0}
+                                  "cylinder_query_multi": 0, "sa_feat_fused": 0, "multi_query": 0,
+                                  "scatter_add_rows": 0}

@@ -172,3 +172,40 @@ def test_ab_sa_feat_needs_a_card_and_reads_ptxas():
     assert ab_sa_feat.ptxas_records(out) == {
         "_ZN12_GLOBAL__N_117sa_feat_tc_kernelILi2EEEvNS_6SaArgsE": {"registers": 167, "spill_bytes": 0},
         "_ZN12_GLOBAL__N_117seed_query_kernelEPKfS1_S1_PlNS_9QueryArgsE": {"registers": 50, "spill_bytes": 8}}
+
+
+def jax_json_keys(script: str):
+    """The keys of the dict a JAX training timing script prints: the literal
+    in its json.dumps call, or the dict it assigns to `out`."""
+    tree = ast.parse((ROOT / "scripts" / script).read_text())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "dumps"
+                and node.args and isinstance(node.args[0], ast.Dict)):
+            return {k.value for k in node.args[0].keys}
+        if isinstance(node, ast.Assign) and getattr(node.targets[0], "id", None) == "out" \
+                and isinstance(node.value, ast.Dict):
+            return {k.value for k in node.value.keys}
+    raise AssertionError(f"no printed dict in {script}")
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("bench_train", []),
+    ("bench_train_pipeline", ["--steps", "2", "--warmup", "1", "--workers", "2"]),
+])
+def test_training_timing_scripts_print_jax_keys(name, argv, capsys):
+    """`bench_train` and `bench_train_pipeline` at `--device cpu --tiny`:
+    the last line is one JSON object holding every key the JAX script
+    prints but the pipeline script's prose `note`, with finite times."""
+    import importlib
+
+    module = importlib.import_module(f"graspnet_tpu_torch.scripts.{name}")
+    kernels.reset_launches()
+    result = module.main(["--device", "cpu", "--tiny", "--k-lo", "1", "--k-hi", "2", *argv])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == json.loads(json.dumps(result))
+    expected = jax_json_keys(f"{name}.py") - {"note"}
+    assert len(expected) >= 7 and expected <= set(line), expected - set(line)
+    assert line["backend"] == "cpu" and line["gpu"] is None
+    for key in ("value", "device_step_ms"):
+        assert math.isfinite(line[key]) and line[key] > 0
+    assert set(kernels.launches().values()) == {0}
