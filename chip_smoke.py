@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving path and training step on one NVIDIA
-GPU and check them.
+"""Drive the PyTorch port's serving path, training step and eval path on
+one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -84,8 +84,25 @@ Phases (each prints one JSON line; any failure exits non-zero):
      time finite and > 0, K8 launched by profile_stages and
      crop_train_breakdown, K9 three times per bench_crop_kernels call of
      its stages, K10 by profile_stages — and bench's JSON line;
- 10. the kernels line (launches per serving forward, per training step and
-     per tool run), the nvidia-smi line, and last
+ 10. collision: the collision filter (postproc/collision.py, plain torch)
+     after one GraspNetConfig() forward at B=2 on tabletop frames sampled
+     from 250k-point raw clouds: detect_batch on the card against the same
+     call on the CPU with the same rows and downsampled points, masks and
+     IoUs equal, and its ms per frame;
+ 11. test_app: the eval loop (apps/test.py::inference) through
+     scripts/bench_test_app.py's run at GraspNetConfig(), batch 1 and 4,
+     over 200 synthetic frames of 250k-point raw clouds with the collision
+     filter and the dump: ms/frame and stage means, launches per batch (K1
+     1, K3 1, K4 3, K5 1), the device's busy time and idle share over 3
+     profiled batches, and the card's dump of two frames against a CPU
+     pipeline's dump with the same weights (selection fields equal, floats
+     within TOPK_ATOL);
+ 12. learnability: scripts/learnability_gate.py's run on the card (600
+     steps, seed 0): the tiny model trained from scratch, dumped through
+     apps/test.py and scored by eval/ap.py; AP(trained) >= 6 > AP(random)
+     asserted, the kernels' launches along it counted;
+ 13. the kernels line (launches per serving forward, per training step,
+     per tool run and per eval batch), the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 
 Without CUDA it exits with code 2 before printing any result.  The
@@ -156,6 +173,11 @@ SCATTER_F64_TOL = 1e-6
 CLI_STEPS, CLI_WARMUP, CLI_WORKERS = 10, 2, 4
 # train_cli: the deterministic-mode child, its cuBLAS workspace and time limit
 DETERMINISTIC_ENV, DETERMINISTIC_TIMEOUT_S = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}, 600
+# collision / test_app: raw cloud size, and apps/test.py's filter settings
+RAW_CLOUD_POINTS = 250_000
+COLLISION_VOXEL, COLLISION_APPROACH, COLLISION_THRESH = 0.01, 0.05, 0.01
+TEST_APP_FRAMES = 200  # frames of the eval loop a batch size, as scripts/bench_test_app.py
+GATE_STEPS, GATE_BAR = 600, 6.0  # the learnability gate, as tests/test_learnability.py runs it
 
 
 def log(**kv) -> None:
@@ -1316,6 +1338,121 @@ def train_cli_phase(cfg, clouds: np.ndarray, full):
     return row, timing
 
 
+def collision_phase(pipe) -> dict:
+    """Phase 10: the collision filter (`postproc/collision.py`, plain torch)
+    on the card against the same call on the CPU: one GraspNetConfig()
+    forward at B=2 on tabletop frames sampled from 250k-point raw clouds,
+    the raw clouds voxel-downsampled once on the host library, then
+    detect_batch with the same rows and points on both devices.  Masks
+    and IoUs must be equal."""
+    from graspnet_tpu_torch import native
+    from graspnet_tpu_torch.postproc.collision import FINGER_WIDTH, _collision_counts_rows_batch, _pack, detect_batch
+    from graspnet_tpu_torch.utils.synthetic import tabletop_cloud
+
+    rng = np.random.default_rng(DATA_SEED + 1)
+    raw = [tabletop_cloud(rng, RAW_CLOUD_POINTS) for _ in range(B_KERNELS)]
+    ggs = pipe.get_grasps_batch(np.stack([pipe.sample_cloud(c, rng) for c in raw]))
+    t0 = time.perf_counter()
+    ds = [native.voxel_downsample(c, COLLISION_VOXEL) for c in raw]
+    downsample_ms = (time.perf_counter() - t0) * 1e3 / len(raw)
+    kw = dict(voxel_size=COLLISION_VOXEL, approach_dist=COLLISION_APPROACH, collision_thresh=COLLISION_THRESH,
+              pre_downsampled=True)
+    card = detect_batch(ds, ggs, device="cuda", **kw)
+    t0 = time.perf_counter()
+    cpu = detect_batch(ds, ggs, device="cpu", **kw)
+    cpu_ms = (time.perf_counter() - t0) * 1e3 / len(raw)
+    differing = int(sum((a != b).sum() for a, b in zip(card, cpu)))
+    ious = []
+    for dev in ("cuda", "cpu"):
+        pts, rows = _pack(ds, [g.grasp_group_array for g in ggs], torch.device(dev))
+        ious.append(_collision_counts_rows_batch(pts, rows, approach_dist=max(COLLISION_APPROACH, FINGER_WIDTH),
+                                                 voxel_size=COLLISION_VOXEL)[0].cpu().numpy())
+    iou_equal = bool(np.array_equal(ious[0], ious[1], equal_nan=True))
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        detect_batch(ds, ggs, device="cuda", **kw)
+        times.append((time.perf_counter() - t0) * 1e3 / len(raw))
+    out = dict(b=len(raw), raw_points=RAW_CLOUD_POINTS, voxel=COLLISION_VOXEL, voxels=[len(d) for d in ds],
+               grasps=[len(g) for g in ggs], colliding=[int(m.sum()) for m in card], differing_grasps=differing,
+               iou_bitwise_equal=iou_equal, ms_per_frame=statistics.median(times), cpu_ms_per_frame=cpu_ms,
+               downsample_ms_per_frame=downsample_ms)
+    log(phase="collision", **out)
+    if differing or not iou_equal or not sum(len(g) for g in ggs):
+        raise AssertionError(f"collision masks: {differing} grasps differ card vs CPU, IoUs equal {iou_equal}")
+    return out
+
+
+def test_app_phase(cfg) -> dict:
+    """Phase 11: the eval loop (`apps/test.py::inference`) through
+    `scripts/bench_test_app.run` at GraspNetConfig(), batch 1 and 4, over
+    TEST_APP_FRAMES synthetic frames of 250k-point raw clouds: ms/frame,
+    stage means, launches per batch (K1 1, K3 1, K4 3, K5 1), the device's
+    busy time and idle share over 3 profiled batches of the loop; then the
+    card's dump of two frames against a CPU pipeline's dump of the same
+    frames with the same weights."""
+    from graspnet_tpu_torch.apps import test as test_app
+    from graspnet_tpu_torch.ops import cuda as kernels
+    from graspnet_tpu_torch.scripts import bench_test_app
+
+    per_batch = {**{k: 0 for k in kernels.launches()}, "fps_chain": 1, "ball_query": 3, "sa1_fused": 1,
+                 "crop_fused": 1}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_test_app_") as work:
+        result = bench_test_app.run(cfg, torch.device("cuda"), work, frames=TEST_APP_FRAMES, batch_sizes=(1, 4))
+        for row in result["per_batch_size"]:
+            if row["launches_per_batch"] != per_batch:
+                raise AssertionError(f"eval loop B={row['batch_size']}: launches per batch "
+                                     f"{row['launches_per_batch']}, expected {per_batch}")
+        ds = bench_test_app.make_dataset(cfg, TEST_APP_FRAMES)
+        cpu_dump = os.path.join(work, "dump_cpu")
+        t0 = time.perf_counter()
+        test_app.inference(bench_test_app.loop_args(cpu_dump, result["checkpoint_path"], cfg, 1, 2, COLLISION_THRESH,
+                                                    torch.device("cpu")), cfg, dataset=ds)
+        cpu_s = time.perf_counter() - t0
+        compared = []
+        for i in range(2):
+            scene, frame = ds.frames[i]
+            rel = os.path.join(scene, "kinect", f"{frame:04d}.npy")
+            card = np.load(os.path.join(work, "dump_b1", rel))
+            compared.append({"frame": i, **compare_topk(card, np.load(os.path.join(cpu_dump, rel)))})
+    keys = ("batch_size", "ms_per_frame", "warmup_s", "stages_ms", "device_busy_ms_per_batch",
+            "profiled_wall_ms_per_batch", "device_idle_share", "device_idle_share_sustained")
+    rows = [{k: r[k] for k in keys} for r in result["per_batch_size"]]
+    log(phase="test_app", frames=TEST_APP_FRAMES, datagen_s=result["datagen_s"], per_batch_size=rows,
+        launches_per_batch=per_batch, dump_card_vs_cpu=compared, cpu_dump_s=cpu_s)
+    return {"launches_per_batch": per_batch,
+            **{f"eval_ms_per_frame_b{r['batch_size']}": r["ms_per_frame"] for r in rows},
+            **{f"eval_idle_share_sustained_b{r['batch_size']}": r["device_idle_share_sustained"] for r in rows}}
+
+
+def learnability_phase() -> dict:
+    """Phase 12: the learnability gate on the card (`scripts/
+    learnability_gate.run`, 600 steps, seed 0): train the tiny model from
+    scratch, dump the test split through apps/test.py with its collision
+    filter, score it with eval/ap.py; AP(trained) >= 6 > AP(random),
+    asserted, and the kernels' launches along the gate counted."""
+    from graspnet_tpu_torch.ops import cuda as kernels
+    from graspnet_tpu_torch.scripts import learnability_gate
+
+    kernels.reset_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gate_") as work:
+        result = learnability_gate.run(work, steps=GATE_STEPS, bar=GATE_BAR, seed=0, device="cuda")
+    launches = kernels.launches()
+    steps, forwards = result["steps"], 6  # 2 dumps x (warm-up + 2 test frames)
+    expected = {**{k: 0 for k in launches}, "ball_query": 4 * steps + 3 * forwards, "crop_group": steps,
+                "crop_mlp_train": steps, "crop_mlp_train_backward": steps, "scatter_add_rows": 5 * steps,
+                "fps_chain": forwards, "sa1_fused": forwards, "crop_fused": forwards}
+    log(phase="learnability", launches=launches, **{k: v for k, v in result.items() if k != "trajectory"},
+        trajectory_tail=result["trajectory"][-5:])
+    if launches != expected:
+        raise AssertionError(f"gate launches {launches}, expected {expected}")
+    if not (result["ap_trained"] >= GATE_BAR and result["ap_random"] < GATE_BAR):
+        raise AssertionError(f"learnability gate: AP(trained) {result['ap_trained']} AP(random) "
+                             f"{result['ap_random']}, bar {GATE_BAR}")
+    return {k: result[k] for k in ("ap_trained", "ap_trained_08", "ap_trained_04", "ap_random", "train_s",
+                                   "dataset_gen_s", "final_loss")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on a GPU", file=sys.stderr)
@@ -1356,16 +1493,26 @@ def main() -> int:
     train_timing.update(cli_timing)
     del full, compact
     tool_launches, tool_records = tools_phase()
-    for r in rows:  # the counts read after one serving forward, one training step and one tool run
+    eval_pipe = GraspPipeline(cfg=cfg, seed=WEIGHT_SEED)
+    collision = collision_phase(eval_pipe)
+    del eval_pipe
+    eval_timing = test_app_phase(cfg)
+    eval_launches = eval_timing.pop("launches_per_batch")
+    gate = learnability_phase()
+    for r in rows:  # the counts read after one serving forward, one training step, one tool run and one eval batch
         r["launches_per_forward"] = launches[r["name"]]
         r["launches_per_train_step"] = train_launches[r["name"]]
         r["launches_per_tool_run"] = tool_launches[r["name"]]
-        r["launches"] = r["launches_per_forward"] + r["launches_per_train_step"] + r["launches_per_tool_run"]
+        r["launches_per_eval_batch"] = eval_launches[r["name"]]
+        r["launches"] = (r["launches_per_forward"] + r["launches_per_train_step"] + r["launches_per_tool_run"]
+                         + r["launches_per_eval_batch"])
     keys = ("name", "route", "source", "replaces", "launches", "launches_per_forward",
-            "launches_per_train_step", "launches_per_tool_run", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+            "launches_per_train_step", "launches_per_tool_run", "launches_per_eval_batch", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}), flush=True)
-    log(phase="summary", gpu=smi, **timing, **train_timing, bench=tool_records["bench"])
+    log(phase="summary", gpu=smi, **timing, **train_timing, bench=tool_records["bench"],
+        collision_ms_per_frame=collision["ms_per_frame"], **eval_timing,
+        **{f"gate_{k}": v for k, v in gate.items()})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}), flush=True)

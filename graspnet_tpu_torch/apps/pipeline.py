@@ -1,11 +1,12 @@
 """Single-frame and batched grasp inference: cloud -> network -> decode ->
-NMS/top-K.
+(optional) collision filter -> NMS/top-K.
 
 Counterpart of `graspnet_tpu/apps/pipeline.py`.  Runs on the card unless
 the caller asks for the CPU (`device="cpu"`, as the tests do); asking for
 CUDA on a host without it raises instead of running on the CPU.  Matmuls
 stay in full float32 (TF32 off), like the XLA f32 path the port is held
-against.  The collision filter is not ported yet (ROADMAP item 16).
+against.  The collision filter counts on the pipeline's device
+(`postproc/collision.py`).
 """
 
 from __future__ import annotations
@@ -21,13 +22,14 @@ from graspnet_tpu_torch import checkpoint
 from graspnet_tpu_torch.config import GraspNetConfig
 from graspnet_tpu_torch.device import resolve_device
 from graspnet_tpu_torch.models import GraspNet, init_weights, pred_decode
-from graspnet_tpu_torch.postproc import GraspGroup
+from graspnet_tpu_torch.postproc import GraspGroup, ModelFreeCollisionDetector, detect_batch
 from graspnet_tpu_torch.postproc.nms import nms_top_k
 
 
 @dataclasses.dataclass
 class PipelineTimings:
     infer_s: float = 0.0
+    collision_s: float = 0.0
 
 
 class GraspPipeline:
@@ -83,12 +85,26 @@ class GraspPipeline:
         return nms_top_k(grasps, valid, k=top_k)
 
     # ---- public API ----
-    def warmup(self, top_k: int = 50, batch_size: int = 1) -> float:
-        """One forward on a zero cloud (builds the kernels on first CUDA
-        use); returns its wall time."""
+    def warmup(
+        self,
+        topk: Optional[bool] = None,
+        collision_thresh: float = -1.0,
+        nms: bool = True,
+        top_k: int = 50,
+        batch_size: int = 1,
+    ) -> float:
+        """One forward on a zero cloud through the program the later calls
+        take (builds the kernels on first CUDA use); returns its wall time.
+        With collision_thresh <= 0, nms and top_k, `run` takes the fused
+        decode + NMS + top-K program, else the raw decode one; `topk`
+        forces the choice (the JAX pipeline's keywords)."""
+        fused = topk if topk is not None else (collision_thresh <= 0 and nms and bool(top_k))
         dummy = torch.zeros((batch_size, self.cfg.num_point, 3), device=self.device)
         t0 = time.perf_counter()
-        rows, _ = self._infer_topk(dummy, top_k=top_k)
+        if fused:
+            rows, _ = self._infer_topk(dummy, top_k=top_k or 50)
+        else:
+            rows, _ = self._infer(dummy)
         rows.cpu()
         return time.perf_counter() - t0
 
@@ -125,6 +141,39 @@ class GraspPipeline:
         self.timings.infer_s = time.perf_counter() - t0
         return [GraspGroup(g[v]) for g, v in zip(grasps, valid)]
 
+    def collision_filter(
+        self,
+        gg: GraspGroup,
+        scene_cloud: np.ndarray,
+        collision_thresh: float = 0.01,
+        voxel_size: float = 0.01,
+        approach_dist: float = 0.05,
+    ) -> GraspGroup:
+        """The grasps of gg that do not collide with the (raw) scene cloud."""
+        t0 = time.perf_counter()
+        detector = ModelFreeCollisionDetector(scene_cloud, voxel_size=voxel_size, device=self.device)
+        mask = detector.detect(gg, approach_dist=approach_dist, collision_thresh=collision_thresh)
+        self.timings.collision_s = time.perf_counter() - t0
+        return gg[~mask]
+
+    def collision_filter_batch(
+        self,
+        ggs,
+        scene_clouds,
+        collision_thresh: float = 0.01,
+        voxel_size: float = 0.01,
+        approach_dist: float = 0.05,
+        pre_downsampled: bool = False,
+    ):
+        """`collision_filter` for a batch of frames in one device round
+        trip (`detect_batch`), mask-identical frame by frame."""
+        t0 = time.perf_counter()
+        masks = detect_batch(scene_clouds, ggs, voxel_size=voxel_size, approach_dist=approach_dist,
+                             collision_thresh=collision_thresh, pre_downsampled=pre_downsampled,
+                             device=self.device)
+        self.timings.collision_s = time.perf_counter() - t0
+        return [gg[~m] for gg, m in zip(ggs, masks)]
+
     def get_grasps_topk(self, cloud_sampled: np.ndarray, top_k: int = 50) -> GraspGroup:
         """Serving path: NMS + top-K on the device; ships (K, 17) rows."""
         return self.get_grasps_topk_batch(np.asarray(cloud_sampled)[None], top_k)[0]
@@ -140,19 +189,22 @@ class GraspPipeline:
     def run(
         self,
         cloud_sampled: np.ndarray,
+        scene_cloud: Optional[np.ndarray] = None,
         collision_thresh: float = -1.0,
         nms: bool = True,
         top_k: int = 50,
+        voxel_size: float = 0.01,
     ) -> GraspGroup:
         """Full frame pipeline; collision_thresh <= 0 skips the filter
-        (-1 disables it, the reference convention)."""
-        if collision_thresh > 0:
-            raise NotImplementedError(
-                "the collision filter is not ported yet (ROADMAP queue 1, item 16)"
-            )
-        if nms and top_k:
+        (-1 disables it, the reference convention), which then tests the
+        decoded grasps against `scene_cloud` (the raw cloud)."""
+        if collision_thresh <= 0 and nms and top_k:
+            # nothing between decode and NMS: the fused program ships (K, 17) rows
             return self.get_grasps_topk(cloud_sampled, top_k=top_k)
-        gg = self.get_grasps(cloud_sampled).sort_by_score()
+        gg = self.get_grasps(cloud_sampled)
+        if collision_thresh > 0 and scene_cloud is not None:
+            gg = self.collision_filter(gg, scene_cloud, collision_thresh, voxel_size)
+        gg = gg.sort_by_score()
         if nms:
             gg = gg.nms()
         if top_k:

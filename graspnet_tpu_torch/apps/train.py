@@ -18,7 +18,8 @@ datasets (`scripts/bench_train_pipeline.py`, `chip_smoke.py`).
 
 Runs on CUDA unless `--device cpu` is passed.  One card only: `--n_devices`
 and `--candidate_devices` take 1 and raise otherwise, and there is no
-multi-host branch; `--profile_dir` is not ported; `--debug_nans` turns on
+multi-host branch; `--profile_dir` writes a torch.profiler trace of five
+steps of the first epoch (`utils/tracing.py`); `--debug_nans` turns on
 `torch.autograd.set_detect_anomaly`.
 """
 
@@ -38,8 +39,10 @@ from graspnet_tpu_torch.config import GraspNetConfig
 from graspnet_tpu_torch.data.dataset import DataLoader, GraspNetDataset, load_grasp_labels
 from graspnet_tpu_torch.train.trainer import TrainConfig, Trainer
 from graspnet_tpu_torch.utils.logging import MetricLogger
+from graspnet_tpu_torch.utils.tracing import device_trace
 
 CHECKPOINT = "checkpoint.pt"  # in log_dir
+PROFILE_FIRST_STEP, PROFILE_STEPS = 10, 5  # --profile_dir's window: past the first steps' allocations
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -62,7 +65,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--n_devices", type=int, default=None, help="data-parallel width: 1 (one card)")
     p.add_argument("--candidate_devices", type=int, default=1, help="candidate-sharded width: 1 (one card)")
     p.add_argument("--log_every", type=int, default=10)
-    p.add_argument("--profile_dir", default=None, help="not ported: raises when given")
+    p.add_argument("--profile_dir", default=None, help="write a torch.profiler trace of 5 steps of the first epoch here")
     p.add_argument("--tiny", action="store_true", help="GraspNetConfig.tiny() (tests)")
     p.add_argument("--num_objects", type=int, default=88, help="object label count (partial/mini datasets)")
     p.add_argument("--label_dtype", default="float32", choices=["float32", "bfloat16"],
@@ -77,8 +80,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     for flag in ("n_devices", "candidate_devices"):
         if getattr(args, flag) not in (None, 1):
             p.error(f"--{flag} {getattr(args, flag)}: the port trains on one card (parallel training is not ported)")
-    if args.profile_dir:
-        p.error("--profile_dir is not ported yet")
     return args
 
 
@@ -137,11 +138,14 @@ def train(
     log_every: int = 10,
     start_epoch: int = 0,
     stop: Callable[[], bool] = lambda: False,
+    profile_dir: Optional[str] = None,
 ) -> Dict[str, object]:
     """The epoch loop of `graspnet_tpu/apps/train.py:256-334` on one card.
 
-    Returns `step_end_s`, the host clock after each train step's metrics
-    were read (the step is done then), and `epochs_done`."""
+    `profile_dir`: trace PROFILE_STEPS steps of the first epoch, from step
+    PROFILE_FIRST_STEP (earlier in a shorter epoch), into it.  Returns
+    `step_end_s`, the host clock after each train step's metrics were read
+    (the step is done then), and `epochs_done`."""
     tc = trainer.tc
     compact = label_mode == "compact"
     feed = trainer.prepare if compact else trainer.put
@@ -149,42 +153,53 @@ def train(
     test_loader = DataLoader(test_ds, tc.batch_size, shuffle=False, num_workers=num_workers)
     step_end_s: List[float] = []
     epochs_done = 0
-    for epoch in range(start_epoch, tc.max_epoch):
-        trainer.set_epoch(epoch)
-        train_ds.set_epoch(epoch)  # fresh per-frame sampling and augmentation
-        train_loader.set_epoch(epoch)  # the shuffle pinned to the epoch, across restarts
-        logger.log(f"**** EPOCH {epoch:03d} ****  lr={trainer.opt.param_groups[0]['lr']}")
-        t0 = time.time()
-        # double buffering: enqueue the step, then prepare the NEXT batch
-        # (its loader wait, pre-pass and static labels) while the card runs it
-        it = iter(train_loader)
-        pending = feed(next(it))
-        step = 0
-        while pending is not None:
-            _, metrics = trainer.step_prepared(pending) if compact else trainer.step(pending)
-            try:
-                pending = feed(next(it))
-            except StopIteration:
-                pending = None
-            logger.accumulate(metrics)  # reads this step's results
-            step_end_s.append(time.perf_counter())
-            step += 1
-            if step % log_every == 0:
+    with contextlib.ExitStack() as profile:  # an exception ends a trace too
+        for epoch in range(start_epoch, tc.max_epoch):
+            trainer.set_epoch(epoch)
+            train_ds.set_epoch(epoch)  # fresh per-frame sampling and augmentation
+            train_loader.set_epoch(epoch)  # the shuffle pinned to the epoch, across restarts
+            logger.log(f"**** EPOCH {epoch:03d} ****  lr={trainer.opt.param_groups[0]['lr']}")
+            t0 = time.time()
+            # double buffering: enqueue the step, then prepare the NEXT batch
+            # (its loader wait, pre-pass and static labels) while the card runs it
+            it = iter(train_loader)
+            pending = feed(next(it))
+            step = 0
+            first = min(PROFILE_FIRST_STEP, max(0, len(train_loader) - PROFILE_STEPS))
+            traced = profile_dir is not None and epoch == start_epoch
+            while pending is not None:
+                if traced and step == first:
+                    profile.enter_context(device_trace(profile_dir))
+                elif traced and step == first + PROFILE_STEPS:
+                    profile.close()
+                    logger.log(f"trace of steps {first}-{step - 1} saved to {profile_dir}")
+                _, metrics = trainer.step_prepared(pending) if compact else trainer.step(pending)
+                try:
+                    pending = feed(next(it))
+                except StopIteration:
+                    pending = None
+                logger.accumulate(metrics)  # reads this step's results
+                step_end_s.append(time.perf_counter())
+                step += 1
+                if step % log_every == 0:
+                    logger.flush("train", epoch * len(train_loader) + step)
+                if stop():
+                    save_state(trainer, log_dir, epoch - 1, logger)
+                    logger.log("preemption checkpoint written; exiting")
+                    return {"step_end_s": step_end_s, "epochs_done": epochs_done}
+            if traced and step < first + PROFILE_STEPS:  # the epoch ended inside the window
+                profile.close()
+                logger.log(f"trace of steps {first}-{step - 1} saved to {profile_dir}")
+            if step % log_every != 0:  # the epoch's last window stays out of the eval record
                 logger.flush("train", epoch * len(train_loader) + step)
-            if stop():
-                save_state(trainer, log_dir, epoch - 1, logger)
-                logger.log("preemption checkpoint written; exiting")
-                return {"step_end_s": step_end_s, "epochs_done": epochs_done}
-        if step % log_every != 0:  # the epoch's last window stays out of the eval record
-            logger.flush("train", epoch * len(train_loader) + step)
-        logger.log(f"epoch train time: {time.time() - t0:.1f}s")
+            logger.log(f"epoch train time: {time.time() - t0:.1f}s")
 
-        for batch in test_loader:
-            _, metrics = trainer.eval_step_compact(batch) if compact else trainer.eval_step(batch)
-            logger.accumulate(metrics)
-        logger.flush("eval", (epoch + 1) * len(train_loader))
-        save_state(trainer, log_dir, epoch, logger)
-        epochs_done += 1
+            for batch in test_loader:
+                _, metrics = trainer.eval_step_compact(batch) if compact else trainer.eval_step(batch)
+                logger.accumulate(metrics)
+            logger.flush("eval", (epoch + 1) * len(train_loader))
+            save_state(trainer, log_dir, epoch, logger)
+            epochs_done += 1
     return {"step_end_s": step_end_s, "epochs_done": epochs_done}
 
 
@@ -222,7 +237,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         with preemption_flag() as stop:
             train(trainer, train_ds, test_ds, logger, args.log_dir, num_workers=args.num_workers,
                   label_mode=args.label_mode, log_every=args.log_every, start_epoch=start_epoch,
-                  stop=stop)
+                  stop=stop, profile_dir=args.profile_dir)
     finally:
         if args.debug_nans:
             torch.autograd.set_detect_anomaly(False)

@@ -1,4 +1,5 @@
-"""Grasp pose NMS: host greedy `grasp_nms` and the device `nms_top_k`.
+"""Grasp pose NMS: the host greedy `grasp_nms` (on the host library, with
+`grasp_nms_plain` its numpy version) and the device `nms_top_k`.
 
 Counterpart of `graspnet_tpu/postproc/nms.py`.  Grasps are visited in
 descending score order; one is suppressed when both its translation
@@ -13,6 +14,8 @@ import math
 import numpy as np
 import torch
 
+from graspnet_tpu_torch import native
+
 ROTATION_THRESH = 30.0 / 180.0 * np.pi
 
 
@@ -23,9 +26,26 @@ def grasp_nms(
 ) -> np.ndarray:
     """Indices (into grasp_array) of the kept grasps, descending by score.
 
-    The pairwise predicate as two small matmuls and a numpy greedy pass, in
-    the manner of `graspnet_tpu/native/__init__.py:261-280`.
+    The host library's fused pass (`native.grasp_nms_fused`), which tests
+    the pair predicate only against kept rows, as
+    `graspnet_tpu/postproc/nms.py:44-54` does.  `grasp_nms_plain` is its
+    plain version.
     """
+    if len(grasp_array) == 0:
+        return np.zeros((0,), dtype=np.int64)
+    order = np.argsort(-grasp_array[:, 0], kind="stable")
+    return native.grasp_nms_fused(grasp_array[:, 13:16], grasp_array[:, 4:13], order,
+                                  translation_thresh * translation_thresh, np.cos(rotation_thresh))
+
+
+def grasp_nms_plain(
+    grasp_array: np.ndarray,
+    translation_thresh: float = 0.03,
+    rotation_thresh: float = ROTATION_THRESH,
+) -> np.ndarray:
+    """`grasp_nms` in numpy: the pairwise predicate as two small matmuls
+    and a greedy pass, in the manner of
+    `graspnet_tpu/postproc/nms.py:56-64`."""
     m = len(grasp_array)
     if m == 0:
         return np.zeros((0,), dtype=np.int64)

@@ -1,1 +1,2 @@
-"""Host utilities: the slope-method stage timer of the timing entry points."""
+"""Host utilities: the slope-method stage timer, the metric logger, device
+traces and the stage timer, synthetic scenes, scan statistics."""

@@ -107,8 +107,11 @@ def timeit(name: str, fn, *args, width: int = 50) -> float:
         leaf.detach().float().sum()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    t_lo = min(_window(fn, args, K_LO, device) for _ in range(REPS))
-    t_hi = min(_window(fn, args, K_HI, device) for _ in range(REPS))
+    lo, hi = [], []
+    for _ in range(REPS):  # in turns, so that a slow stretch of the host reaches both lengths
+        lo.append(_window(fn, args, K_LO, device))
+        hi.append(_window(fn, args, K_HI, device))
+    t_lo, t_hi = min(lo), min(hi)
     per = (t_hi - t_lo) / (K_HI - K_LO)
     print(f"{name:{width}s} {per:9.4f} ms", flush=True)
     RECORDS[name] = per

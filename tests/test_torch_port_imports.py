@@ -3,8 +3,8 @@ import neither JAX nor anything of the JAX package (`graspnet_tpu.native`
 included), build nothing from a path inside `graspnet_tpu/`, and build no
 kernel when imported; with JAX blocked, a tiny serving call, a tiny
 training step, the training CLI's loop over a synthetic dataset and the
-timing entry points run on the CPU, loading no library but the host label
-library."""
+timing entry points and the eval dump loop (`apps/test.py`, dump and AP)
+run on the CPU, loading no library but the host label library."""
 
 import os
 import re
@@ -39,7 +39,13 @@ new = {"graspnet_tpu_torch.utils.timing", "graspnet_tpu_torch.scripts.bench",
        "graspnet_tpu_torch.data", "graspnet_tpu_torch.data.camera", "graspnet_tpu_torch.data.dataset",
        "graspnet_tpu_torch.data.synthetic", "graspnet_tpu_torch.utils.logging",
        "graspnet_tpu_torch.apps.train", "graspnet_tpu_torch.scripts.bench_train",
-       "graspnet_tpu_torch.scripts.bench_train_pipeline"}
+       "graspnet_tpu_torch.scripts.bench_train_pipeline",
+       "graspnet_tpu_torch.postproc.voxel", "graspnet_tpu_torch.postproc.collision",
+       "graspnet_tpu_torch.utils.tracing", "graspnet_tpu_torch.eval", "graspnet_tpu_torch.eval.ap",
+       "graspnet_tpu_torch.eval.force_closure", "graspnet_tpu_torch.data.learnable",
+       "graspnet_tpu_torch.apps.test", "graspnet_tpu_torch.scripts.learnability_gate",
+       "graspnet_tpu_torch.scripts.bench_test_app", "graspnet_tpu_torch.scripts.overfit_gate",
+       "graspnet_tpu_torch.scripts.bench_eval_frame", "graspnet_tpu_torch.scripts.train_stage_times"}
 assert new <= set(walked), new - set(walked)
 import chip_smoke
 from graspnet_tpu_torch.apps import GraspPipeline
@@ -71,7 +77,7 @@ assert np.isfinite(float(loss))
 from graspnet_tpu_torch.scripts import bench_crop_kernels, crop_train_breakdown, profile_stages
 for tool in (bench_crop_kernels, crop_train_breakdown, profile_stages):
     tool.main(["--device", "cpu", "--tiny", "--k-lo", "1", "--k-hi", "2"])
-import tempfile
+import os, tempfile
 from graspnet_tpu_torch.apps import train as cli
 from graspnet_tpu_torch.data.synthetic import SyntheticGraspNetDataset
 from graspnet_tpu_torch.train.trainer import TrainConfig
@@ -82,6 +88,15 @@ with tempfile.TemporaryDirectory() as log_dir:
     run = cli.train(Trainer(cfg, TrainConfig(max_epoch=1), device="cpu"), ds, ds, logger, log_dir, num_workers=2)
     logger.close()
 assert run["epochs_done"] == 1 and len(run["step_end_s"]) == 1
+from graspnet_tpu_torch.apps import test as test_app
+from tests.mini_dataset import make_mini_dataset
+with tempfile.TemporaryDirectory() as tmp:
+    root = make_mini_dataset(os.path.join(tmp, "mini"), num_view=60)
+    dump = os.path.join(tmp, "dump")
+    assert test_app.main(["--dataset_root", root, "--camera", "realsense", "--dump_dir", dump, "--tiny",
+                          "--device", "cpu", "--batch_size", "2", "--num_workers", "1"]) == 0
+    assert os.path.exists(os.path.join(dump, "ap_realsense.npy"))
+    assert len(os.listdir(os.path.join(dump, "scene_0100", "realsense"))) == 2
 assert set(build._LIBS) <= {build.HOST}, f"a kernel library was loaded on the CPU path: {set(build._LIBS)}"
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "graspnet_tpu") and sys.modules[m] is not None]
 assert not bad, bad
@@ -90,7 +105,8 @@ print("ok", len(gg))
 
 
 def test_port_runs_with_jax_blocked():
-    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    # one intra-op thread: the suite runs in several processes on shared cores
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"}
     r = subprocess.run([sys.executable, "-c", BLOCKED_RUN], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]

@@ -112,9 +112,17 @@ def test_run_matches_and_host_path(tiny):
 
 
 def test_run_collision_filter_not_ported(tiny):
-    *_, ours, _, clouds = tiny
-    with pytest.raises(NotImplementedError, match="item 16"):
-        ours.run(clouds[0], collision_thresh=0.01)
+    """The collision filter is ported now: run(collision_thresh > 0) against
+    the raw scene cloud keeps the JAX run's rows (the name predates the
+    port of the filter)."""
+    *_, ours, ref, clouds = tiny
+    scene = np.concatenate([clouds[0], clouds[0] + np.float32(0.004)])
+    got = ours.run(clouds[0], scene, collision_thresh=0.01)
+    want = ref.run(clouds[0], scene, collision_thresh=0.01)
+    assert ours.timings.collision_s > 0
+    _rows_match(got.grasp_group_array, want.grasp_group_array)
+    unfiltered = ours.run(clouds[0], nms=True, top_k=0)
+    assert len(ours.run(clouds[0], scene, collision_thresh=0.01, top_k=0)) < len(unfiltered)
 
 
 def test_sample_cloud_matches(tiny):

@@ -128,10 +128,23 @@ def test_sigterm_writes_the_preemption_checkpoint_and_returns(root, tmp_path, mo
     assert not any(r["prefix"] == "eval" for r in map(json.loads, open(tmp_path / "metrics.jsonl")))
 
 
-@pytest.mark.parametrize("flags", [["--n_devices", "2"], ["--candidate_devices", "4"], ["--profile_dir", "p"]])
+@pytest.mark.parametrize("flags", [["--n_devices", "2"], ["--candidate_devices", "4"], ["--n_devices", "4"]])
 def test_multi_card_and_profile_flags_raise(root, tmp_path, flags):
+    """Flags of more than one card are argparse errors.  (--profile_dir was
+    one until the CLI traced steps with it: test_profile_dir_writes_a_trace.)"""
     with pytest.raises(SystemExit):
         cli.main(argv(root, tmp_path, *flags))
+
+
+def test_profile_dir_writes_a_trace(root, tmp_path):
+    """--profile_dir traces the first epoch's steps (both of the mini
+    dataset's two) into a Chrome trace that names the training step's ops."""
+    prof = tmp_path / "prof"
+    assert cli.main(argv(root, tmp_path / "log", "--max_epoch", "1", "--profile_dir", str(prof))) == 0
+    trace = json.loads((prof / "trace.json").read_text())
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert any("Optimizer.step" in n for n in names), sorted(names)[:20]
+    assert "trace of steps 0-1 saved" in (tmp_path / "log" / "log_train.txt").read_text()
 
 
 def test_cuda_default_raises_without_a_card(root, tmp_path):
