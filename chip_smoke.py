@@ -101,8 +101,26 @@ Phases (each prints one JSON line; any failure exits non-zero):
      steps, seed 0): the tiny model trained from scratch, dumped through
      apps/test.py and scored by eval/ap.py; AP(trained) >= 6 > AP(random)
      asserted, the kernels' launches along it counted;
- 13. the kernels line (launches per serving forward, per training step,
-     per tool run and per eval batch), the nvidia-smi line, and last
+ 13. feature_input (run after phase 4): the SA1 routes away from K3 at
+     GraspNetConfig() widths, extra input channels (input_feature_dim=3)
+     and sa1.normalize_xyz=False: launches K1 1, K3 0, K4 4, K5 1 a
+     forward, and the forward equal to the CPU's;
+ 14. service (after phase 11): apps/service.py's GraspService with seed-1
+     weights, card against CPU on two 250k-point requests with the
+     collision filter off and on, a TCP round trip equal to the in-process
+     reply, and scripts/bench_service.py's run at max_batch 1 and 8 (16
+     clients, collision on): requests/s and each dispatch's launches (K1 1,
+     K3 1, K4 3, K5 1);
+ 15. service_success (inside phase 12's directory): the same at the gate's
+     tiny config with its trained checkpoint and learnable-scene requests,
+     ok > 0 asserted in each mode;
+ 16. demos (after phase 14): image_demo, demo_pointcloud,
+     segmentation_demo, stereo_demo, grasp_tf --once and grasp_base through
+     their main(argv) on a synthetic RGB-D frame, image_demo's dump equal
+     to a CPU run's, its PLY readable, grasp_tf's pose the service's best;
+ 17. the kernels line (launches per serving forward, per training step,
+     per tool run, per eval batch, per feature-input forward and per
+     service dispatch), the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 
 Without CUDA it exits with code 2 before printing any result.  The
@@ -178,6 +196,9 @@ RAW_CLOUD_POINTS = 250_000
 COLLISION_VOXEL, COLLISION_APPROACH, COLLISION_THRESH = 0.01, 0.05, 0.01
 TEST_APP_FRAMES = 200  # frames of the eval loop a batch size, as scripts/bench_test_app.py
 GATE_STEPS, GATE_BAR = 600, 6.0  # the learnability gate, as tests/test_learnability.py runs it
+# service / service_success: requests a mode and concurrent clients (scripts/bench_service.py's 16)
+SERVICE_REQUESTS, SERVICE_CLIENTS = 96, 16
+DEMO_FRAME = (240, 320)  # the demos' synthetic RGB-D frame, pixels (height, width)
 
 
 def log(**kv) -> None:
@@ -1430,19 +1451,23 @@ def learnability_phase() -> dict:
     learnability_gate.run`, 600 steps, seed 0): train the tiny model from
     scratch, dump the test split through apps/test.py with its collision
     filter, score it with eval/ap.py; AP(trained) >= 6 > AP(random),
-    asserted, and the kernels' launches along the gate counted."""
+    asserted, and the kernels' launches along the gate counted.  Then, in
+    the gate's directory, the service's success path (phase 15) with the
+    gate's data and checkpoint."""
     from graspnet_tpu_torch.ops import cuda as kernels
     from graspnet_tpu_torch.scripts import learnability_gate
 
     kernels.reset_launches()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_gate_") as work:
         result = learnability_gate.run(work, steps=GATE_STEPS, bar=GATE_BAR, seed=0, device="cuda")
-    launches = kernels.launches()
+        launches = kernels.launches()
+        success = service_success_phase(result)
     steps, forwards = result["steps"], 6  # 2 dumps x (warm-up + 2 test frames)
     expected = {**{k: 0 for k in launches}, "ball_query": 4 * steps + 3 * forwards, "crop_group": steps,
                 "crop_mlp_train": steps, "crop_mlp_train_backward": steps, "scatter_add_rows": 5 * steps,
                 "fps_chain": forwards, "sa1_fused": forwards, "crop_fused": forwards}
-    log(phase="learnability", launches=launches, **{k: v for k, v in result.items() if k != "trajectory"},
+    log(phase="learnability", launches=launches,
+        **{k: v for k, v in result.items() if k not in ("trajectory", "dataset_root", "checkpoint_path")},
         trajectory_tail=result["trajectory"][-5:])
     if launches != expected:
         raise AssertionError(f"gate launches {launches}, expected {expected}")
@@ -1450,7 +1475,245 @@ def learnability_phase() -> dict:
         raise AssertionError(f"learnability gate: AP(trained) {result['ap_trained']} AP(random) "
                              f"{result['ap_random']}, bar {GATE_BAR}")
     return {k: result[k] for k in ("ap_trained", "ap_trained_08", "ap_trained_04", "ap_random", "train_s",
-                                   "dataset_gen_s", "final_loss")}
+                                   "dataset_gen_s", "final_loss")} | success
+
+
+def feature_input_phase() -> dict:
+    """Phase 13: the SA1 routes away from K3 at GraspNetConfig() widths,
+    seed-1 weights, on two tabletop clouds: extra input channels (an RGB-like
+    triple, input_feature_dim=3, SA1 MLP 6-64-64-128) and sa1.normalize_xyz=
+    False.  Each forward launches K1 1, K3 0, K4 4 (SA1-4) and K5 1, and
+    equals the CPU's: selections exactly, floats within FEATURE_TOL x
+    max(1, scale).  Returns the launches of the feature-input forward."""
+    import dataclasses
+
+    from graspnet_tpu_torch.config import GraspNetConfig, SAConfig
+    from graspnet_tpu_torch.models import GraspNet, init_weights
+    from graspnet_tpu_torch.ops import cuda as kernels
+    from graspnet_tpu_torch.utils.synthetic import tabletop_cloud
+
+    t_phase = time.perf_counter()
+    base = GraspNetConfig()
+    cases = {"input_features": GraspNetConfig(input_feature_dim=3, sa1=SAConfig(2048, 0.04, 64, (6, 64, 64, 128))),
+             "sa1_unnormalized": dataclasses.replace(base, sa1=dataclasses.replace(base.sa1, normalize_xyz=False))}
+    rng = np.random.default_rng(DATA_SEED + 2)
+    xyz = np.stack([tabletop_cloud(rng) for _ in range(B_KERNELS)])
+    rgb = rng.uniform(0, 1, xyz.shape).astype(np.float32)
+    expected = {**{k: 0 for k in kernels.launches()}, "fps_chain": 1, "ball_query": 4, "crop_fused": 1}
+    out = {}
+    for name, cfg in cases.items():
+        clouds = torch.from_numpy(np.concatenate([xyz, rgb[..., :cfg.input_feature_dim]], axis=-1))
+        model = init_weights(GraspNet(cfg), WEIGHT_SEED).eval()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            want = model(clouds)
+        cpu_s = time.perf_counter() - t0
+        model.to("cuda")
+        kernels.reset_launches()
+        with torch.inference_mode():
+            got = model(clouds.to("cuda"))
+        torch.cuda.synchronize()
+        launches = kernels.launches()
+        if launches != expected:
+            raise AssertionError(f"{name}: launches {launches}, expected {expected}")
+        for key in ("sa1_inds", "fp2_inds", "grasp_top_view_inds"):
+            if not torch.equal(got[key].cpu(), want[key]):
+                raise AssertionError(f"{name}: {key} differs card vs CPU")
+        errs = {key: feature_err(got[key].cpu(), want[key])
+                for key in ("fp2_features", "objectness_score", "view_score", "grasp_score_pred",
+                            "grasp_width_pred", "grasp_tolerance_pred")}
+        out[name] = dict(channels=clouds.shape[-1], launches=launches, max_abs_err=errs, cpu_forward_s=cpu_s)
+        del model
+    log(phase="feature_input", b=B_KERNELS, n=N_POINTS, selections_equal=True, **out,
+        phase_s=time.perf_counter() - t_phase)
+    return out["input_features"]["launches"]
+
+
+def service_reply_diff(card: dict, cpu: dict) -> dict:
+    """Card vs CPU replies of GraspService.compute(): `ok` equal; with
+    grasps, the rows as compare_topk holds them and best_pose / tf_pose
+    within TOPK_ATOL."""
+    if card["ok"] != cpu["ok"]:
+        raise AssertionError(f"service ok differs: card {card.get('error')} cpu {cpu.get('error')}")
+    if not cpu["ok"]:
+        return {"ok": False}
+    rows = compare_topk(np.asarray(card["grasps"], np.float32), np.asarray(cpu["grasps"], np.float32))
+    pose_err = max(float(np.abs(np.asarray(card[k]) - np.asarray(cpu[k])).max()) for k in ("best_pose", "tf_pose"))
+    if pose_err > TOPK_ATOL:
+        raise AssertionError(f"service poses differ by {pose_err}")
+    return {"ok": True, **rows, "pose_max_abs_err": pose_err}
+
+
+def service_phase(ckpt: str) -> dict:
+    """Phase 14: apps/service.py on the card with seed-1 weights
+    (`ckpt`) at GraspNetConfig(): compute() on two 250k-point requests
+    (scripts/bench_service.make_clouds) against the CPU service, with the
+    collision filter off (rows as compare_topk holds them, poses within
+    TOPK_ATOL) and on (ok and num_grasps equal); one TCP round trip on an
+    ephemeral port (a 30k-point request) equal to the in-process reply;
+    then bench_service.run: SERVICE_REQUESTS requests from SERVICE_CLIENTS
+    threads at max_batch 1 and 8 with the filter on, each dispatch
+    launching K1 1, K3 1, K4 3 and K5 1."""
+    import socket
+
+    from graspnet_tpu_torch.apps.service import GraspService, ServiceConfig, serve_tcp
+    from graspnet_tpu_torch.ops import cuda as kernels
+    from graspnet_tpu_torch.scripts import bench_service
+
+    t_phase = time.perf_counter()
+    clouds = bench_service.make_clouds(2, RAW_CLOUD_POINTS, seed=DATA_SEED + 3)
+    compared = {}
+    for thresh in (-1.0, COLLISION_THRESH):
+        card = GraspService(ServiceConfig(checkpoint_path=ckpt, collision_thresh=thresh, device="cuda"))
+        cpu = GraspService(ServiceConfig(checkpoint_path=ckpt, collision_thresh=thresh, device="cpu"))
+        rows = []
+        for cloud in clouds:
+            got, want = card.compute(cloud), cpu.compute(cloud)
+            if thresh <= 0:
+                if not want["ok"]:
+                    raise AssertionError(f"no grasps without the collision filter: {want['error']}")
+                rows.append(service_reply_diff(got, want))
+            elif (got["ok"], got.get("num_grasps")) != (want["ok"], want.get("num_grasps")):
+                raise AssertionError(f"collision on: card {got.get('num_grasps')} grasps, cpu {want.get('num_grasps')}")
+            else:
+                rows.append({"ok": got["ok"], "num_grasps": got.get("num_grasps")})
+        compared[f"collision_{thresh}"] = rows
+        del cpu
+        if thresh > 0:
+            request = bench_service.make_clouds(1, 30_000, seed=DATA_SEED + 4)[0]
+            srv = serve_tcp(card, port=0)
+            try:
+                with socket.create_connection(("127.0.0.1", srv.server_address[1]), timeout=120) as sock:
+                    sock.sendall(json.dumps({"cloud": request.tolist()}).encode() + b"\n")
+                    reply = json.loads(sock.makefile("rb").readline().decode())
+            finally:
+                srv.shutdown()
+                srv.server_close()
+            local = json.loads(json.dumps(card.compute(request)))
+            same = {k: v for k, v in reply.items() if k != "timings_ms"} == \
+                {k: v for k, v in local.items() if k != "timings_ms"}
+            if not same:
+                raise AssertionError("TCP reply differs from the in-process compute()")
+            compared["tcp_30k"] = {"ok": reply["ok"], "num_grasps": reply.get("num_grasps"), "equal": same}
+        del card
+    requests = bench_service.make_clouds(SERVICE_REQUESTS, RAW_CLOUD_POINTS, seed=DATA_SEED + 5)
+    result = bench_service.run(requests, SERVICE_CLIENTS, COLLISION_THRESH, checkpoint_path=ckpt, device="cuda")
+    per_dispatch = {**{k: 0 for k in kernels.launches()}, "fps_chain": 1, "ball_query": 3, "sa1_fused": 1,
+                    "crop_fused": 1}
+    for mode in result["modes"]:
+        if mode["launches_per_dispatch"] != per_dispatch:
+            raise AssertionError(f"service max_batch={mode['max_batch']}: launches per dispatch "
+                                 f"{mode['launches_per_dispatch']}, expected {per_dispatch}")
+    log(phase="service", card_vs_cpu=compared, requests=SERVICE_REQUESTS, clients=SERVICE_CLIENTS,
+        raw_points=RAW_CLOUD_POINTS, collision_thresh=COLLISION_THRESH, bench=result,
+        phase_s=time.perf_counter() - t_phase)
+    b1, b8 = result["modes"]
+    return {"launches_per_dispatch": per_dispatch, "service_requests_per_s_b1": b1["requests_per_s"],
+            "service_requests_per_s_b8": b8["requests_per_s"], "service_ms_per_request_b1": b1["ms_per_request_sustained"],
+            "service_ms_per_request_b8": b8["ms_per_request_sustained"], "service_dispatches_b8": b8["device_dispatches"]}
+
+
+def service_success_phase(gate: dict) -> dict:
+    """Phase 15 (inside the learnability gate's directory): the port of
+    `bench_service --learnable`: the gate's 1024-point tiny config and its
+    trained checkpoint, SERVICE_REQUESTS requests drawn from the learnable
+    test scene, max_batch 1 and 8, the collision filter on.  The gate's
+    dumps carry surviving grasps on these scenes, so every mode must
+    answer ok > 0."""
+    from graspnet_tpu_torch.scripts import bench_service
+    from graspnet_tpu_torch.scripts.learnability_gate import gate_config
+
+    t_phase = time.perf_counter()
+    cfg = gate_config()
+    clouds = bench_service.make_learnable_clouds(SERVICE_REQUESTS, gate["dataset_root"], cfg)
+    result = bench_service.run(clouds, SERVICE_CLIENTS, COLLISION_THRESH, checkpoint_path=gate["checkpoint_path"],
+                               model_cfg=cfg, num_point=cfg.num_point, device="cuda", learnable=True)
+    rows = [{k: m[k] for k in ("max_batch", "requests", "ok", "requests_per_s", "ms_per_request_sustained",
+                               "device_dispatches")} for m in result["modes"]]
+    log(phase="service_success", modes=rows, value=result["value"], speedup_vs_unbatched=result["speedup_vs_unbatched"],
+        phase_s=time.perf_counter() - t_phase)
+    if not all(m["ok"] > 0 for m in rows):
+        raise AssertionError(f"service success path: no ok reply in a mode: {rows}")
+    return {f"service_success_ok_b{m['max_batch']}": m["ok"] for m in rows} | \
+        {f"service_success_requests_per_s_b{m['max_batch']}": m["requests_per_s"] for m in rows}
+
+
+def demos_phase(ckpt: str) -> dict:
+    """Phase 16: the six demos in process through their main(argv) on the
+    card with seed-1 weights at GraspNetConfig(), on a synthetic RGB-D frame
+    in the reference demo layout (utils/synthetic.py::write_demo_frame,
+    DEMO_FRAME pixels): image_demo's dump equal to a --device cpu run of
+    the same demo (compare_topk), a --save_ply PLY that reads back with
+    32 vertices a grasp plus the scene, demo_pointcloud, segmentation_demo,
+    stereo_demo, grasp_tf --once's pose equal to the service's best pose for
+    the same frame, and grasp_base.  The demos' own printing goes to a
+    buffer."""
+    import contextlib
+    import io
+
+    from graspnet_tpu_torch.apps import (
+        demo_pointcloud,
+        grasp_base,
+        grasp_tf,
+        image_demo,
+        segmentation_demo,
+        stereo_demo,
+    )
+    from graspnet_tpu_torch.apps.service import GraspService, ServiceConfig
+    from graspnet_tpu_torch.eval.ap import load_ply_points
+    from graspnet_tpu_torch.utils.synthetic import write_demo_frame
+
+    t_phase = time.perf_counter()
+    out, times = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_demos_") as work:
+        paths = write_demo_frame(os.path.join(work, "frame"), np.random.default_rng(DATA_SEED + 6), *DEMO_FRAME)
+        frame = os.path.dirname(paths["color.png"])
+        j = lambda name: os.path.join(work, name)  # noqa: E731
+        ck = ["--checkpoint_path", ckpt]
+        runs = {
+            "image_demo": lambda: image_demo.main(["--data_dir", frame, "--dump", j("card.npy"), "--save_ply",
+                                                   j("card.ply"), *ck]),
+            "image_demo_cpu": lambda: image_demo.main(["--data_dir", frame, "--dump", j("cpu.npy"), *ck,
+                                                       "--device", "cpu"]),
+            "demo_pointcloud": lambda: demo_pointcloud.main(["--cloud_path", paths["cloud.npy"], "--dump",
+                                                             j("pc.npy"), *ck]),
+            "segmentation_demo": lambda: segmentation_demo.main(["--data_dir", frame, "--mask", paths["mask.png"],
+                                                                 "--dump", j("seg.npy"), *ck]),
+            "stereo_demo": lambda: stereo_demo.main(["--cloud_path", paths["cloud.npy"], "--intrinsics",
+                                                     paths["K.txt"], "--mask_path", paths["mask.png"],
+                                                     "--depth_path", paths["depth.png"], *ck]),
+            "grasp_tf": lambda: grasp_tf.main(["--data_dir", frame, "--once", "--collision_thresh", "-1", *ck]),
+        }
+        results, printed = {}, io.StringIO()
+        for name, fn in runs.items():
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                results[name] = fn()
+            times[name] = time.perf_counter() - t0
+        card, cpu = np.load(j("card.npy")), np.load(j("cpu.npy"))
+        out["image_demo_card_vs_cpu"] = compare_topk(card, cpu)
+        scene = image_demo.load_frame(frame)
+        ply = load_ply_points(j("card.ply"))
+        if len(ply) != 32 * len(card) + len(scene) or not np.allclose(ply[32 * len(card):], scene, atol=1e-6):
+            raise AssertionError(f"image_demo PLY: {len(ply)} vertices for {len(card)} grasps and {len(scene)} points")
+        out["ply_vertices"] = len(ply)
+        out["rows"] = {"image_demo": len(card), "demo_pointcloud": len(np.load(j("pc.npy"))),
+                       "segmentation_demo": len(np.load(j("seg.npy")))}
+        out["stereo_demo"] = {"ok": results["stereo_demo"]["ok"], "num_grasps": results["stereo_demo"].get("num_grasps")}
+        service = GraspService(ServiceConfig(checkpoint_path=ckpt, collision_thresh=-1.0, device="cuda"))
+        best = np.asarray(service.compute(scene)["best_pose"], np.float32)
+        if not np.array_equal(results["grasp_tf"], best):
+            raise AssertionError(f"grasp_tf pose {results['grasp_tf']} differs from the service's {best}")
+        out["grasp_tf_equals_service_best_pose"] = True
+        np.save(j("base.npy"), np.eye(4))
+        np.save(j("grasp.npy"), results["grasp_tf"])
+        with contextlib.redirect_stdout(printed):
+            based = grasp_base.main(["--grasp_path", j("grasp.npy"), "--extrinsics_path", j("base.npy")])
+        if not np.allclose(based, results["grasp_tf"]):
+            raise AssertionError("grasp_base with identity extrinsics moved the grasp")
+    log(phase="demos", frame=list(DEMO_FRAME), scene_points=len(scene), seconds=times, **out,
+        phase_s=time.perf_counter() - t_phase)
+    return {"demos_s": sum(times.values())}
 
 
 def main() -> int:
@@ -1483,6 +1746,7 @@ def main() -> int:
     launches, timing = main_path_phase(cfg, pipe, clouds)
     profile_phase(pipe, clouds)
     del pipe
+    feature_launches = feature_input_phase()
     from graspnet_tpu_torch.models import GraspNet, init_weights
 
     crop_mlp = init_weights(GraspNet(cfg), TRAIN_SEED).crop.mlp.to(dev)
@@ -1498,20 +1762,35 @@ def main() -> int:
     del eval_pipe
     eval_timing = test_app_phase(cfg)
     eval_launches = eval_timing.pop("launches_per_batch")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_weights_") as wdir:
+        from graspnet_tpu_torch import checkpoint
+
+        ckpt = os.path.join(wdir, f"seed{WEIGHT_SEED}.pt")  # seed 1: the service's replies carry grasps
+        checkpoint.save(ckpt, init_weights(GraspNet(cfg), WEIGHT_SEED).state_dict())
+        service = service_phase(ckpt)
+        service_launches = service.pop("launches_per_dispatch")
+        demos = demos_phase(ckpt)
     gate = learnability_phase()
-    for r in rows:  # the counts read after one serving forward, one training step, one tool run and one eval batch
+    # the counts read after one serving forward, one training step, one tool
+    # run, one eval batch, one feature-input forward and one service dispatch
+    # (the same at max_batch 1 and at the MicroBatcher's bucket of 8)
+    for r in rows:
         r["launches_per_forward"] = launches[r["name"]]
         r["launches_per_train_step"] = train_launches[r["name"]]
         r["launches_per_tool_run"] = tool_launches[r["name"]]
         r["launches_per_eval_batch"] = eval_launches[r["name"]]
+        r["launches_per_feature_forward"] = feature_launches[r["name"]]
+        r["launches_per_service_dispatch"] = service_launches[r["name"]]
         r["launches"] = (r["launches_per_forward"] + r["launches_per_train_step"] + r["launches_per_tool_run"]
-                         + r["launches_per_eval_batch"])
+                         + r["launches_per_eval_batch"] + r["launches_per_feature_forward"]
+                         + r["launches_per_service_dispatch"])
     keys = ("name", "route", "source", "replaces", "launches", "launches_per_forward",
-            "launches_per_train_step", "launches_per_tool_run", "launches_per_eval_batch", "max_abs_err", "ms",
+            "launches_per_train_step", "launches_per_tool_run", "launches_per_eval_batch",
+            "launches_per_feature_forward", "launches_per_service_dispatch", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}), flush=True)
     log(phase="summary", gpu=smi, **timing, **train_timing, bench=tool_records["bench"],
-        collision_ms_per_frame=collision["ms_per_frame"], **eval_timing,
+        collision_ms_per_frame=collision["ms_per_frame"], **eval_timing, **service, **demos,
         **{f"gate_{k}": v for k, v in gate.items()})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -71,7 +71,8 @@ class GraspPipeline:
 
     @torch.inference_mode()
     def forward(self, clouds: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """graspnet_forward (inference): (B, N, 3) on the device -> end_points."""
+        """graspnet_forward (inference): (B, N, 3 + input_feature_dim) on
+        the device -> end_points."""
         return self.model(clouds)
 
     @torch.inference_mode()
@@ -93,13 +94,14 @@ class GraspPipeline:
         top_k: int = 50,
         batch_size: int = 1,
     ) -> float:
-        """One forward on a zero cloud through the program the later calls
-        take (builds the kernels on first CUDA use); returns its wall time.
+        """One forward on a zero cloud (3 + input_feature_dim channels)
+        through the program the later calls take (builds the kernels on
+        first CUDA use); returns its wall time.
         With collision_thresh <= 0, nms and top_k, `run` takes the fused
         decode + NMS + top-K program, else the raw decode one; `topk`
         forces the choice (the JAX pipeline's keywords)."""
         fused = topk if topk is not None else (collision_thresh <= 0 and nms and bool(top_k))
-        dummy = torch.zeros((batch_size, self.cfg.num_point, 3), device=self.device)
+        dummy = torch.zeros((batch_size, self.cfg.num_point, 3 + self.cfg.input_feature_dim), device=self.device)
         t0 = time.perf_counter()
         if fused:
             rows, _ = self._infer_topk(dummy, top_k=top_k or 50)

@@ -119,6 +119,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_limit.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -881,10 +883,10 @@ __global__ void __launch_bounds__(kThreads + 32, 1) sa_feat_tc_kernel(SaArgs a) 
 // The grid of a persistent MLP kernel of `threads` threads a block: as many
 // blocks as fit the card at once (its occupancy at `smem` bytes of dynamic
 // shared memory x the SMs), at most one per group.  Also raises the
-// kernel's dynamic shared memory limit to `smem`.
+// kernel's dynamic shared memory limit to at least `smem`.
 template <class Kernel>
 cudaError_t persistent_grid(Kernel kernel, size_t smem, int groups, int* grid, int threads = kThreads) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = raise_smem_limit((const void*)kernel, smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;

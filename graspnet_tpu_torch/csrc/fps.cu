@@ -43,6 +43,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_limit.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -343,7 +345,7 @@ cudaError_t launch(const float* xyz, int64_t* out, int batch, int n, const Stage
   auto kernel = fps_cluster_kernel<T, PER0, REG0, LATE>;
   const size_t smem = sizeof(float4) + 2 * kMaxCluster * kSlotWords * sizeof(float) +
                       2 * (T / 32) * sizeof(Cand) + 3 * (size_t)st.max_forward * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = raise_smem_limit((const void*)kernel, smem);
   if (err != cudaSuccess) return err;
   if (csize > 8) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);

@@ -73,6 +73,8 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "smem_limit.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -952,7 +954,7 @@ size_t bwd_scratch(const Dims& d, int sm, float* base, BwdScratch* out) {
 
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  return raise_smem_limit((const void*)kernel, bytes);
 }
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }

@@ -89,6 +89,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_limit.cuh"
+
 namespace {
 
 constexpr int kSeedWarps = 8;   // K10: centers a block takes, one a warp
@@ -530,7 +532,7 @@ int launch_cylinder(const float* xyz, const float* centers, const float* rot, vo
   void (*kernel)(const float*, const float*, const float*, void*, QueryArgs, int) = cylinder_scan_kernel<Out>;
   const int stages = ring_stages(a.n);
   const int smem = stages * kStageFloats * (int)sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err = raise_smem_limit((const void*)kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = batch * ((a.m + kCylinderWarps - 1) / kCylinderWarps);
   if (blocks == 0) return (int)cudaSuccess;
@@ -547,7 +549,7 @@ extern "C" int gn_ball_query(const float* xyz, const float* centers,
   if (ns < 1 || n < 0 || m < 0) return (int)cudaErrorInvalidValue;
   const int stages = ring_stages(n);
   const int smem = stages * kStageFloats * (int)sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(ball_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err = raise_smem_limit((const void*)ball_scan_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = batch * ((m + kScanWarps - 1) / kScanWarps);
   if (blocks == 0) return (int)cudaSuccess;

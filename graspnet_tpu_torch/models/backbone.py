@@ -8,14 +8,18 @@ mirrors the JAX package's TPU gates, with the CUDA kernels in their place:
     unless the caller gives the chain (`sa_inds`, the host FPS of the
     training data) — the CUDA kernel has no multiple-of-128 constraint, so
     the chain also runs at `GraspNetConfig.tiny()`;
-  * eval: SA1 (xyz only) is the fused ball-crop kernel (backbone.py:71-84);
-    SA2-4 are the ball-query kernel, then a gather and the BN-folded MLP in
-    plain torch (backbone.py:85-107);
-  * train: every SA stage is the generic path (backbone.py:108-119) — the
-    ball-query kernel (or the given `sa_query_idx`), group, /r, the
-    batch-stat MLP and the max — and the indices it used are exported as
-    `end_points["sa_query_idx"]`, with the BN batch stats as
-    `end_points["bn_stats/backbone"]`.
+  * eval: an xyz-only stage with normalize_xyz and a 3-layer MLP (SA1
+    without input features) is the fused ball-crop kernel, under the JAX
+    gate's conditions (backbone.py:70-83); every other eval stage is the
+    ball-query kernel, then a gather, /r where normalize_xyz, and the
+    BN-folded MLP in plain torch (backbone.py:84-119);
+  * train: every SA stage is the generic path (backbone.py:109-119) — the
+    ball-query kernel (or the given `sa_query_idx`), group, /r where
+    normalize_xyz, the batch-stat MLP and the max — and the indices it used
+    are exported as `end_points["sa_query_idx"]`, with the BN batch stats
+    as `end_points["bn_stats/backbone"]`;
+  * extra input channels (`input_feature_dim > 0`) enter SA1 as features
+    (backbone.py:171,182); the FPS chain and the crop take xyz only.
 
 Each wrapper runs its plain version on a CPU tensor, so the same code serves
 both devices.  Output contract: 256-d features on the num_seed sa2 points;
@@ -48,11 +52,13 @@ class SAStage(nn.Module):
         only), the query indices (train only)."""
         sa = self.cfg
         new_xyz = ops.gather_points(xyz, inds)
-        if not train and features is None:
+        if features is None and not train and sa.normalize_xyz and len(self.mlp) == 3:
             folded = fold_bn_eval(self.mlp)
             return new_xyz, sa1_fused(xyz, new_xyz, folded, sa.radius, sa.nsample), None, None
         idx = qidx if qidx is not None else ball_query(xyz, new_xyz, sa.radius, sa.nsample)
-        grouped = (ops.group_points(xyz, idx) - new_xyz[:, :, None, :]) / sa.radius
+        grouped = ops.group_points(xyz, idx) - new_xyz[:, :, None, :]
+        if sa.normalize_xyz:
+            grouped = grouped / sa.radius
         if features is not None:
             grouped = torch.cat([grouped, ops.group_points(features, idx)], dim=-1)
         if not train:
@@ -98,7 +104,7 @@ class Backbone(nn.Module):
         sa_inds: Optional[Dict[str, torch.Tensor]] = None,
         sa_query_idx: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
-        """pointcloud (B, N, 3) -> seed_features (B, num_seed, C),
+        """pointcloud (B, N, 3 + input_feature_dim) -> seed_features (B, num_seed, C),
         seed_xyz (B, num_seed, 3), end_points.
 
         `sa_inds`: the FPS chain {"sa1".."sa4"}, each (B, npoint) int64
@@ -106,9 +112,8 @@ class Backbone(nn.Module):
         indices per stage (both parameter-independent, so a pre-pass may
         compute them once for the step)."""
         cfg = self.cfg
-        if pointcloud.shape[-1] != 3:
-            raise NotImplementedError("input_feature_dim > 0 is not ported yet")
-        xyz = pointcloud.contiguous()
+        xyz = pointcloud[..., :3].contiguous()
+        features = pointcloud[..., 3:] if pointcloud.shape[-1] > 3 else None
         if sa_inds:
             inds = [sa_inds[k] for k in ("sa1", "sa2", "sa3", "sa4")]
         else:
@@ -116,7 +121,7 @@ class Backbone(nn.Module):
         i1, i2, i3, i4 = inds
         q = sa_query_idx or {}
         stats, qidx = {}, {}
-        sa1_xyz, sa1_feat, stats["sa1"], qidx["sa1"] = self.sa1(xyz, None, i1, train, q.get("sa1"))
+        sa1_xyz, sa1_feat, stats["sa1"], qidx["sa1"] = self.sa1(xyz, features, i1, train, q.get("sa1"))
         sa2_xyz, sa2_feat, stats["sa2"], qidx["sa2"] = self.sa2(sa1_xyz, sa1_feat, i2, train, q.get("sa2"))
         sa3_xyz, sa3_feat, stats["sa3"], qidx["sa3"] = self.sa3(sa2_xyz, sa2_feat, i3, train, q.get("sa3"))
         sa4_xyz, sa4_feat, stats["sa4"], qidx["sa4"] = self.sa4(sa3_xyz, sa3_feat, i4, train, q.get("sa4"))
@@ -125,6 +130,7 @@ class Backbone(nn.Module):
         num_seed = sa2_xyz.shape[1]
         end_points = {
             "input_xyz": xyz,
+            "input_features": features,
             "sa1_xyz": sa1_xyz,
             "sa1_inds": i1,
             "sa2_xyz": sa2_xyz,

@@ -1,7 +1,7 @@
-"""Point-cloud ops: sampling, queries, grouping, 3-NN interpolation."""
+"""Point-cloud ops: sampling, queries, grouping, kNN and 3-NN interpolation."""
 
 from graspnet_tpu_torch.ops.query import cylinder_query, group_points, select_first_hits
-from graspnet_tpu_torch.ops.knn import three_interpolate, three_nn
+from graspnet_tpu_torch.ops.knn import knn, three_interpolate, three_nn
 from graspnet_tpu_torch.ops.sampling import furthest_point_sample, gather_points
 # the multi-depth cylinder query is the K8 kernel for a CUDA tensor and its
 # plain version for a CPU tensor, as `graspnet_tpu/models/heads.py:111-116`
@@ -18,6 +18,7 @@ __all__ = [
     "furthest_point_sample",
     "gather_points",
     "group_points",
+    "knn",
     "select_first_hits",
     "three_interpolate",
     "three_nn",

@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` compiles with `nvcc` for `sm_90a` into its own shared
 library with a plain C interface, which `ctypes` loads; pointers and the
-stream go in as `c_void_p`.  `csrc/host.cpp`, the host label library
+stream go in as `c_void_p`; the `csrc/*.cuh` headers they share are
+hashed into each library's name.  `csrc/host.cpp`, the host label library
 (`native.py`), compiles with `g++` beside them.  Nothing is built when a
 module is imported: `load(name)` builds at first use, and `build_all()`
 starts one compiler per source at once so a cold process pays for the
@@ -40,6 +41,15 @@ GXX_FLAGS = ("-O3", "-march=native", "-ffp-contract=off", "-fPIC", "-shared", "-
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()  # loader threads may reach a library's first use at once
 BUILD_SECONDS: Dict[str, float] = {}  # wall seconds of each compiler run of this process
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a kernel wrapper's `launches`.  Under a lock: the
+    service's threads launch kernels at once, and `+=` on an attribute is
+    a read-modify-write that a thread switch can split."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def _nvcc() -> str:
@@ -84,6 +94,8 @@ def _target(name: str) -> Path:
         digest.update(_native_target())
     else:
         digest.update(" ".join(NVCC_FLAGS).encode())
+        for header in sorted(CSRC.glob("*.cuh")):  # the headers the .cu sources include
+            digest.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

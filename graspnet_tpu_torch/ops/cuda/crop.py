@@ -215,7 +215,7 @@ def crop_fused(
     if not xyz.is_cuda:
         return crop_fused_plain(xyz, new_xyz, rot, folded, radius, hmin, hmax_list, nsample)
     out = _launch_cylinder(xyz, new_xyz, rot, folded, radius, hmin, hmax_list, nsample)
-    crop_fused.launches += 1
+    build.count_launch(crop_fused)
     return out
 
 
@@ -230,7 +230,7 @@ def sa1_fused(
         return crop_fused_plain(xyz, new_xyz, None, folded, radius, 0.0, (0.0,), nsample,
                                 1.0 / radius, True)[:, :, 0]
     out = _launch_ball(xyz, new_xyz, folded, radius, nsample, 1.0 / radius)
-    sa1_fused.launches += 1
+    build.count_launch(sa1_fused)
     return out
 
 
@@ -275,7 +275,7 @@ def crop_group(
         )
     out = torch.empty((b, m, ndepth, nsample, 3), dtype=torch.float32, device=xyz.device)
     cylinder_scan(xyz.contiguous(), new_xyz.contiguous(), rot.contiguous(), radius, hmin, hmax_list, out)
-    crop_group.launches += 1
+    build.count_launch(crop_group)
     return out
 
 
@@ -357,7 +357,7 @@ def sa_feat_fused(
         b, n, m, nsample, 1.0 / radius, c_in, c1, c2, c3, torch.cuda.current_stream(xyz.device).cuda_stream,
     )
     build.check(err, "sa_feat_fused")
-    sa_feat_fused.launches += 1
+    build.count_launch(sa_feat_fused)
     return out
 
 

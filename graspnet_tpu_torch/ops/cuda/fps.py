@@ -105,7 +105,7 @@ def fps_chain(xyz: torch.Tensor, npoints: Sequence[int], cluster: int = 0) -> Tu
         len(npoints), cluster, torch.cuda.current_stream(xyz.device).cuda_stream,
     )
     build.check(err, "fps_chain")
-    fps_chain.launches += 1
+    build.count_launch(fps_chain)
     offs = [0]
     for p in npoints:
         offs.append(offs[-1] + p)

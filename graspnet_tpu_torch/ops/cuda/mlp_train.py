@@ -98,7 +98,7 @@ def crop_mlp_train_backward(x, g_pooled, zext, w, gb, st, eps: float):
         g, s, c1, c2, c3, eps, sm, _stream(x),
     )
     build.check(err, "mlp_train backward")
-    crop_mlp_train_backward.launches += 1
+    build.count_launch(crop_mlp_train_backward)
     return dw, dgb
 
 
@@ -119,7 +119,7 @@ def _forward_kernel(x, w, gb, eps: float):
         g, s, c1, c2, c3, eps, sm, _stream(x),
     )
     build.check(err, "mlp_train forward")
-    crop_mlp_train.launches += 1
+    build.count_launch(crop_mlp_train)
     return st, zmax, zmin
 
 

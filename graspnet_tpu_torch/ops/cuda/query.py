@@ -194,7 +194,7 @@ def ball_query(
     xyz, new_xyz, _ = _check_inputs("ball_query", xyz, new_xyz, None, nsample, 1)
     out = torch.empty((*new_xyz.shape[:2], nsample), dtype=torch.int64, device=xyz.device)
     ball_scan(xyz, new_xyz, radius, out)
-    ball_query.launches += 1
+    build.count_launch(ball_query)
     return out
 
 
@@ -220,7 +220,7 @@ def cylinder_query_multi(
     xyz, new_xyz, rot = _check_inputs("cylinder_query_multi", xyz, new_xyz, rot, nsample, ndepth)
     out = torch.empty((*new_xyz.shape[:2], ndepth, nsample), dtype=torch.int64, device=xyz.device)
     cylinder_scan(xyz, new_xyz, rot, radius, hmin, hmax_list, out)
-    cylinder_query_multi.launches += 1
+    build.count_launch(cylinder_query_multi)
     return out
 
 
@@ -256,7 +256,7 @@ def multi_query(
         ndepth, _stream(xyz),
     )
     build.check(err, "multi_query")
-    multi_query.launches += 1
+    build.count_launch(multi_query)
     return out
 
 

@@ -89,7 +89,9 @@ def scatter_add_rows(g: torch.Tensor, idx: torch.Tensor, n: int, plan: Optional[
                          f"B={b}, K={k}, n={n}")
     out = torch.empty((b, n, c), dtype=torch.float32, device=g.device)
     _launch(g.contiguous(), perm, starts, out)
-    scatter_add_rows.launches += 1
+    from graspnet_tpu_torch.ops.cuda import build  # at launch: the kernel package imports this module
+
+    build.count_launch(scatter_add_rows)
     return out
 
 

@@ -1,5 +1,5 @@
-"""Grasp containers, NMS (host and device), voxel downsampling and the
-collision filter."""
+"""Grasp containers, NMS (host and device), voxel downsampling, the
+collision filter and gripper meshes."""
 
 from graspnet_tpu_torch.postproc.collision import (
     ModelFreeCollisionDetector,
@@ -8,8 +8,9 @@ from graspnet_tpu_torch.postproc.collision import (
     detect_batch,
 )
 from graspnet_tpu_torch.postproc.grasp import GRASP_ARRAY_LEN, Grasp, GraspGroup
+from graspnet_tpu_torch.postproc.gripper import grasp_group_meshes, gripper_mesh, save_meshes_ply
 from graspnet_tpu_torch.postproc.nms import grasp_nms, nms_keep_mask, nms_top_k
 from graspnet_tpu_torch.postproc.voxel import voxel_down_sample
 
 __all__ = ["GRASP_ARRAY_LEN", "Grasp", "GraspGroup", "ModelFreeCollisionDetector", "collision_counts_blocked",
-           "collision_ious", "detect_batch", "grasp_nms", "nms_keep_mask", "nms_top_k", "voxel_down_sample"]
+           "collision_ious", "detect_batch", "grasp_group_meshes", "grasp_nms", "gripper_mesh", "nms_keep_mask", "nms_top_k", "save_meshes_ply", "voxel_down_sample"]

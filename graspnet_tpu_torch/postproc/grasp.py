@@ -1,7 +1,7 @@
 """Grasp containers: the 17-float row contract.
 
-Counterpart of `graspnet_tpu/postproc/grasp.py`, without the mesh and
-open3d methods (they wait for the visualisation slice).  Row layout:
+Counterpart of `graspnet_tpu/postproc/grasp.py`; the mesh, PLY and open3d
+methods go through `postproc/gripper.py`.  Row layout:
 
     [0]     score
     [1]     width
@@ -83,6 +83,23 @@ class Grasp:
         self.rotation_matrix = T[:3, :3] @ self.rotation_matrix
         return self
 
+    def mesh(self, color_score: float | None = None):
+        """(vertices, triangles, rgb) gripper mesh for this grasp.
+
+        Color defaults to the raw clamped score; pass the min-max-normalized
+        value when rendering alongside `GraspGroup.meshes()` output (which
+        normalizes by default) so identical grasps get identical colors.
+        """
+        from graspnet_tpu_torch.postproc.gripper import grasp_row_mesh
+
+        return grasp_row_mesh(self.grasp_array, color_score)
+
+    def to_open3d_geometry(self, color_score: float | None = None):
+        """graspnetAPI-compatible single-gripper open3d mesh (open3d required)."""
+        from graspnet_tpu_torch.postproc.gripper import mesh_to_open3d
+
+        return mesh_to_open3d(*self.mesh(color_score))
+
     def __repr__(self):
         return (
             f"Grasp(score={self.score:.4f}, width={self.width:.4f}, "
@@ -161,6 +178,24 @@ class GraspGroup:
         """Greedy pose NMS (graspnetAPI GraspGroup.nms semantics)."""
         keep = grasp_nms(self.grasp_group_array, translation_thresh, rotation_thresh)
         return GraspGroup(self.grasp_group_array[keep])
+
+    def meshes(self, normalize_scores: bool = True):
+        """Gripper meshes, one (vertices, triangles, rgb) per grasp."""
+        from graspnet_tpu_torch.postproc.gripper import grasp_group_meshes
+
+        return grasp_group_meshes(self, normalize_scores)
+
+    def to_open3d_geometry_list(self):
+        """graspnetAPI-compatible open3d mesh list (open3d required)."""
+        from graspnet_tpu_torch.postproc.gripper import to_open3d_geometry_list
+
+        return to_open3d_geometry_list(self)
+
+    def save_ply(self, path: str) -> None:
+        """Dump all gripper meshes to one PLY file for offline viewing."""
+        from graspnet_tpu_torch.postproc.gripper import save_meshes_ply
+
+        save_meshes_ply(self.meshes(), path)
 
     def save_npy(self, path: str) -> None:
         np.save(path, self.grasp_group_array)

@@ -109,7 +109,9 @@ def run(work: str, *, steps: int = 600, bar: float = 6.0, seed: int = 0,
         device: str | torch.device = "cuda") -> dict:
     """The gate in `work` (the dataset under work/data, made when absent;
     the checkpoint under work/log; the dumps beside them).  Returns the
-    result dict; `passed` says whether AP(trained) >= bar > AP(random)."""
+    result dict; `passed` says whether AP(trained) >= bar > AP(random);
+    `dataset_root` and `checkpoint_path` name the data and the trained
+    weights, for callers that go on using them inside `work`."""
     device = resolve_device(device, "learnability_gate")
     cfg = gate_config()
     root = os.path.join(work, "data")
@@ -146,6 +148,8 @@ def run(work: str, *, steps: int = 600, bar: float = 6.0, seed: int = 0,
         "dataset_gen_s": gen_s,
         "final_loss": hist[-1][1],
         "trajectory": hist,
+        "dataset_root": root,
+        "checkpoint_path": ckpt,
         "backend": device.type,
         "source": "graspnet_tpu_torch/scripts/learnability_gate.py",
     }

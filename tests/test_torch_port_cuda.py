@@ -749,3 +749,108 @@ def test_tiny_train_steps_repeat_bitwise(dev):
     assert runs[0][0] == runs[1][0]
     for k, v in runs[0][1].items():
         assert torch.equal(v, runs[1][1][k]), k
+
+
+def _routing_cfg(case):
+    import dataclasses
+
+    from graspnet_tpu_torch.config import SAConfig
+
+    tiny = GraspNetConfig.tiny()
+    return {
+        "default": tiny,
+        "input_features": dataclasses.replace(tiny, input_feature_dim=3, sa1=SAConfig(128, 0.04, 16, (6, 8, 8, 16))),
+        "sa1_unnormalized": dataclasses.replace(tiny, sa1=dataclasses.replace(tiny.sa1, normalize_xyz=False)),
+        "sa1_two_layer_mlp": dataclasses.replace(tiny, sa1=SAConfig(128, 0.04, 16, (3, 8, 16))),
+    }[case]
+
+
+@pytest.mark.parametrize("case", ["default", "input_features", "sa1_unnormalized", "sa1_two_layer_mlp"])
+def test_sa_routes_on_the_card_match_cpu(dev, case):
+    """The JAX gates' SA1 routes on the card: K3 only for an xyz-only,
+    normalized, 3-layer stage; input features, normalize_xyz=False and a
+    2-layer MLP take K4 and the plain MLP (K3 would raise on the last).
+    The forward equals the CPU's: selections exactly, floats within
+    FEATURE_TOL x max(1, scale)."""
+    from graspnet_tpu_torch.models import GraspNet, init_weights
+
+    cfg = _routing_cfg(case)
+    rng = np.random.default_rng(9)
+    xyz = rng.uniform(-0.3, 0.3, (2, cfg.num_point, 3)).astype(np.float32)
+    clouds = torch.from_numpy(np.concatenate([xyz, rng.uniform(0, 1, (2, cfg.num_point, cfg.input_feature_dim))
+                                              .astype(np.float32)], axis=-1))
+    model = init_weights(GraspNet(cfg), 1).eval()
+    with torch.no_grad():
+        want = model(clouds)
+        model.to(dev)
+        kernels.reset_launches()
+        got = model(clouds.to(dev))
+    fused = case == "default"
+    counts = kernels.launches()
+    assert (counts["fps_chain"], counts["sa1_fused"], counts["ball_query"], counts["crop_fused"]) == \
+        (1, int(fused), 3 + (not fused), 1), counts
+    for key in ("sa1_inds", "fp2_inds", "grasp_top_view_inds"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+    for key in ("fp2_features", "objectness_score", "grasp_score_pred", "grasp_width_pred"):
+        assert_features_close(got[key].cpu(), want[key])
+
+
+@pytest.mark.parametrize("max_batch", [1, 4])
+@pytest.mark.parametrize("thresh", [-1.0, 0.01])
+def test_tiny_service_card_matches_cpu(dev, max_batch, thresh):
+    """GraspService.compute() on the card against the CPU service with the
+    same weights: the same replies (selection fields equal, floats within
+    1e-4), concurrent requests coalescing on the card."""
+    import concurrent.futures as cf
+
+    from graspnet_tpu_torch.apps.service import GraspService, ServiceConfig
+
+    def mk(device):
+        return GraspService(ServiceConfig(model_cfg=GraspNetConfig.tiny(), depth_min=0.0, depth_max=10.0,
+                                          collision_thresh=thresh, max_batch=max_batch, batch_wait_ms=20.0,
+                                          device=device))
+
+    rng = np.random.default_rng(4)
+    clouds = [rng.uniform(-0.3, 0.3, (3000, 3)).astype(np.float32) + np.float32([0, 0, 0.5]) for _ in range(4)]
+    card, cpu = mk("cuda"), mk("cpu")
+    try:
+        with cf.ThreadPoolExecutor(max_workers=4) as pool:
+            got = [f.result(timeout=120) for f in [pool.submit(card.compute, c) for c in clouds]]
+        for g, c in zip(got, clouds):
+            w = cpu.compute(c)
+            assert g["ok"] == w["ok"] and g.get("num_grasps") == w.get("num_grasps")
+            if w["ok"]:
+                ga, wa = np.asarray(g["grasps"]), np.asarray(w["grasps"])
+                np.testing.assert_array_equal(ga[:, [2, 3, 13, 14, 15, 16]], wa[:, [2, 3, 13, 14, 15, 16]])
+                np.testing.assert_allclose(ga, wa, rtol=0, atol=1e-4)
+                np.testing.assert_allclose(g["tf_pose"], w["tf_pose"], rtol=0, atol=1e-4)
+    finally:
+        card.close()
+        cpu.close()
+
+
+def test_kernels_launch_from_concurrent_threads(dev):
+    """Host threads launching one kernel at shapes that need different
+    dynamic shared memory (K4's ring at 20000, 3000 and 512 points): the
+    limit only grows (`csrc/smem_limit.cuh`), so no launch fails, and
+    every result equals the plain version's."""
+    import concurrent.futures as cf
+
+    rng = np.random.default_rng(11)
+    shapes = [(20000, 1024), (512, 256), (3000, 300)]
+    cases = []
+    for n, m in shapes:
+        xyz = cloud(rng, 1, n).to(dev)
+        centres = xyz[:, :m].contiguous()
+        cases.append((xyz, centres, kquery.ball_query_plain(xyz, centres, 0.1, 16)))
+
+    def work(i):
+        for k in range(20):
+            xyz, centres, want = cases[(i + k) % len(cases)]
+            got = kquery.ball_query(xyz, centres, 0.1, 16)
+            torch.cuda.current_stream(dev).synchronize()
+            assert torch.equal(got, want)
+        return True
+
+    with cf.ThreadPoolExecutor(max_workers=8) as pool:
+        assert all(f.result(timeout=120) for f in [pool.submit(work, i) for i in range(8)])

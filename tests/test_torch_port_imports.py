@@ -4,7 +4,8 @@ included), build nothing from a path inside `graspnet_tpu/`, and build no
 kernel when imported; with JAX blocked, a tiny serving call, a tiny
 training step, the training CLI's loop over a synthetic dataset and the
 timing entry points and the eval dump loop (`apps/test.py`, dump and AP)
-run on the CPU, loading no library but the host label library."""
+run on the CPU, loading no library but the host label library; so does a
+tiny micro-batched `GraspService.compute()` with the collision filter."""
 
 import os
 import re
@@ -45,7 +46,13 @@ new = {"graspnet_tpu_torch.utils.timing", "graspnet_tpu_torch.scripts.bench",
        "graspnet_tpu_torch.eval.force_closure", "graspnet_tpu_torch.data.learnable",
        "graspnet_tpu_torch.apps.test", "graspnet_tpu_torch.scripts.learnability_gate",
        "graspnet_tpu_torch.scripts.bench_test_app", "graspnet_tpu_torch.scripts.overfit_gate",
-       "graspnet_tpu_torch.scripts.bench_eval_frame", "graspnet_tpu_torch.scripts.train_stage_times"}
+       "graspnet_tpu_torch.scripts.bench_eval_frame", "graspnet_tpu_torch.scripts.train_stage_times",
+       "graspnet_tpu_torch.apps.batching", "graspnet_tpu_torch.apps.service", "graspnet_tpu_torch.apps.demo_pointcloud",
+       "graspnet_tpu_torch.apps.image_demo", "graspnet_tpu_torch.apps.segmentation_demo",
+       "graspnet_tpu_torch.apps.stereo_demo", "graspnet_tpu_torch.apps.grasp_tf", "graspnet_tpu_torch.apps.grasp_base",
+       "graspnet_tpu_torch.utils.transforms", "graspnet_tpu_torch.postproc.gripper", "graspnet_tpu_torch.sensors",
+       "graspnet_tpu_torch.sensors.cameras", "graspnet_tpu_torch.sensors.viz",
+       "graspnet_tpu_torch.scripts.bench_service"}
 assert new <= set(walked), new - set(walked)
 import chip_smoke
 from graspnet_tpu_torch.apps import GraspPipeline
@@ -54,6 +61,12 @@ from graspnet_tpu_torch.ops.cuda import build
 p = GraspPipeline(cfg=GraspNetConfig.tiny(), device="cpu")
 gg = p.get_grasps_topk(np.random.default_rng(0).uniform(-0.3, 0.3, (512, 3)).astype(np.float32))
 assert gg.grasp_group_array.shape[1] == 17
+from graspnet_tpu_torch.apps.service import GraspService, ServiceConfig
+svc = GraspService(ServiceConfig(model_cfg=GraspNetConfig.tiny(), depth_min=0.0, depth_max=10.0, device="cpu",
+                                 max_batch=2))
+reply = svc.compute(np.random.default_rng(1).uniform(0.2, 0.5, (2000, 3)).astype(np.float32))
+svc.close()
+assert reply["ok"] and len(reply["tf_pose"]) == 4, reply.get("error")
 from graspnet_tpu_torch.train import label_pipeline as lp
 from graspnet_tpu_torch.train.trainer import Trainer
 cfg = GraspNetConfig.tiny()
@@ -151,7 +164,9 @@ def test_gathers_and_kernel_package_import_in_any_order(first):
     code = f"""
 import importlib
 importlib.import_module({first!r})
-from graspnet_tpu_torch.ops import cuda, knn, query, sampling, scatter
+from graspnet_tpu_torch.ops import cuda, query, sampling, scatter
+# `ops.knn` names the kNN function, as in the JAX package; the module is in sys.modules
+knn = importlib.import_module("graspnet_tpu_torch.ops.knn")
 assert query.gather_rows is sampling.gather_rows is scatter.gather_rows
 assert knn.three_interpolate is scatter.three_interpolate
 assert cuda.scatter_add_rows is scatter.scatter_add_rows and scatter.scatter_add_rows in cuda.WRAPPERS

@@ -209,3 +209,39 @@ def test_training_timing_scripts_print_jax_keys(name, argv, capsys):
     for key in ("value", "device_step_ms"):
         assert math.isfinite(line[key]) and line[key] > 0
     assert set(kernels.launches().values()) == {0}
+
+
+def jax_dict_keys(script: str, name: str):
+    """The keys of the dict literal assigned to `name` (or returned) in a JAX script."""
+    tree = ast.parse((ROOT / "scripts" / script).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign) and getattr(node.targets[0], "id", None) == name \
+                and isinstance(node.value, ast.Dict):
+            return {k.value for k in node.value.keys}
+        if name == "return" and isinstance(node, ast.Return) and isinstance(node.value, ast.Dict):
+            return {k.value for k in node.value.keys}
+    raise AssertionError(f"no dict {name} in {script}")
+
+
+def test_bench_service_prints_jax_keys(capsys):
+    """`bench_service` at `--device cpu --tiny`: one JSON object with every
+    key of the JAX script's result and of each of its modes, the requests
+    served at max_batch 1 and 8, a dispatch per request unbatched and fewer
+    batched, and no kernel launched on the CPU."""
+    from graspnet_tpu_torch.scripts import bench_service
+
+    result = bench_service.main(["--device", "cpu", "--tiny", "--requests", "12", "--clients", "4"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == json.loads(json.dumps(result))
+    want = jax_dict_keys("bench_service.py", "result")
+    assert {"value", "unit", "speedup_vs_unbatched", "modes"} <= want <= set(line), want - set(line)
+    mode_keys = jax_dict_keys("bench_service.py", "return")
+    assert "device_dispatches" in mode_keys
+    unbatched, batched = line["modes"]
+    for mode in (unbatched, batched):
+        assert mode_keys <= set(mode), mode_keys - set(mode)
+        assert mode["requests"] == mode["ok"] == 12 and math.isfinite(mode["requests_per_s"])
+        assert set(mode["launches_per_dispatch"].values()) == {0}
+    assert (unbatched["max_batch"], batched["max_batch"]) == (1, 8)
+    assert unbatched["device_dispatches"] == 12 and 1 <= batched["device_dispatches"] <= 12
+    assert line["unit"] == "requests/s" and line["backend"] == "cpu" and line["gpu"] is None
