@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving path, training step and eval path on
-one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving path, training step, eval path and
+parallel paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -118,13 +118,33 @@ Phases (each prints one JSON line; any failure exits non-zero):
      segmentation_demo, stereo_demo, grasp_tf --once and grasp_base through
      their main(argv) on a synthetic RGB-D frame, image_demo's dump equal
      to a CPU run's, its PLY readable, grasp_tf's pose the service's best;
- 17. the kernels line (launches per serving forward, per training step,
-     per tool run, per eval batch, per feature-input forward and per
-     service dispatch), the nvidia-smi line, and last
-     {"ok": true, "device": {...}}.
+ 17. ddp_train (after phase 8): data-parallel training on the one card: a
+     one-rank NCCL group's Trainer.step bitwise the plain step (K7 1); two
+     gloo ranks (NCCL takes one rank a card), one scene each of the B=2
+     batch, their loss and summed gradients against the single-process
+     B=2 probe within the train-correctness bounds, K7 0 and K6 1 on each
+     rank; scripts/multiproc_check.py --device cuda --backend gloo ok;
+ 18. crop_routes: a two-layer crop MLP (3, 16, 32): a B=1 forward through
+     K6 and the generic MLP (no K5) equal to the CPU's, and a B=2 training
+     probe through K6 and the generic MLP (no K7) within the bounds;
+ 19. tolerance: data/tolerance.py on a synthetic object of 2048 label
+     points x 300*12*4 cells bitwise the CPU's, ms per object, and the CLI
+     over a two-object root;
+ 20. parallel_infer (after phase 16): GraspPipeline(mesh=) on meshes that
+     repeat cuda:0 (data 2 at B=4, candidate 4 at B=1, hybrid 2 x 2 at
+     B=2): top-50 equal to the unsharded pipeline's within PARALLEL_ATOL,
+     K1, K3 and K4 once a scene group, K5 once a seed block; ms per frame
+     beside the unsharded pipeline's (the code path on one card, not
+     scaling); the service with candidate_devices=2 against one device;
+ 21. the kernels line (launches per serving forward, per training step,
+     per tool run, per eval batch, per feature-input forward, per service
+     dispatch, per crop-routes forward and probe, per parallel_infer run,
+     per one-rank NCCL step and per rank's step of the two-rank run), the
+     nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 Without CUDA it exits with code 2 before printing any result.  The
-deterministic-mode child runs this file with `--deterministic-steps FILE`.
+deterministic-mode child runs this file with `--deterministic-steps FILE`;
+ddp_train's two ranks are spawned processes (torch.multiprocessing).
 """
 
 from __future__ import annotations
@@ -199,6 +219,12 @@ GATE_STEPS, GATE_BAR = 600, 6.0  # the learnability gate, as tests/test_learnabi
 # service / service_success: requests a mode and concurrent clients (scripts/bench_service.py's 16)
 SERVICE_REQUESTS, SERVICE_CLIENTS = 96, 16
 DEMO_FRAME = (240, 320)  # the demos' synthetic RGB-D frame, pixels (height, width)
+TOL_LABEL_POINTS = 2048  # tolerance: label points of the synthetic object
+# parallel_infer: sharded vs unsharded top-50 floats on the one card (the
+# JAX package's sharded-inference bound, tests/test_parallel.py:42), and
+# timed calls a mesh
+PARALLEL_ATOL, PARALLEL_REPS = 1e-5, 5
+MULTIPROC_TIMEOUT_S = 600  # ddp_train: scripts/multiproc_check.py on the card
 
 
 def log(**kv) -> None:
@@ -652,17 +678,17 @@ def tools_phase():
     return total, records
 
 
-def compare_topk(card: np.ndarray, cpu: np.ndarray) -> dict:
+def compare_topk(card: np.ndarray, cpu: np.ndarray, atol: float = TOPK_ATOL) -> dict:
     """Selection fields equal (row order, height, depth, centre, object id);
-    score, width and rotation within TOPK_ATOL."""
+    score, width and rotation within `atol`."""
     if card.shape != cpu.shape:
         raise AssertionError(f"top-K row counts differ: card {card.shape} cpu {cpu.shape}")
     sel = [2, 3, 13, 14, 15, 16]
     if not np.array_equal(card[:, sel], cpu[:, sel]):
         bad = np.nonzero((card[:, sel] != cpu[:, sel]).any(1))[0]
         raise AssertionError(f"top-K selections differ from row {bad[0]}: card {card[bad[0]]} cpu {cpu[bad[0]]}")
-    err = float(np.abs(card - cpu).max())
-    if err > TOPK_ATOL:
+    err = float(np.abs(card - cpu).max()) if card.size else 0.0
+    if err > atol:
         raise AssertionError(f"top-K floats differ by {err}")
     return {"rows": int(card.shape[0]), "max_abs_err": err}
 
@@ -1033,6 +1059,30 @@ def train_batches(cfg, clouds: np.ndarray):
     return full, {**small, "label_ctx": ctxs}, prep_ms
 
 
+def compare_grads(l_got, g_got, l_want, g_want, what: str) -> dict:
+    """A step's loss within STEP_LOSS_RTOL and its gradients within the
+    train-correctness bounds (PERF.md section 2): per leaf GRAD_TOL x
+    max(1, max |g|), LEAF_REL_L2_TOL relative L2 over the leaves that carry
+    LEAF_NORM_FLOOR of the norm, GRAD_REL_L2_TOL over all.  Raises past any."""
+    if abs(float(l_got) - float(l_want)) > STEP_LOSS_RTOL * abs(float(l_want)):
+        raise AssertionError(f"{what}: loss {float(l_got)} vs {float(l_want)}")
+    diff = {k: g_got[k].cpu().double() - g.cpu().double() for k, g in g_want.items()}
+    ratios = {k: d.abs().max().item() / max(1.0, g_want[k].abs().max().item()) for k, d in diff.items()}
+    norms = {k: g.double().norm().item() for k, g in g_want.items()}
+    total = sum(v * v for v in norms.values()) ** 0.5
+    rel_l2 = sum(d.square().sum().item() for d in diff.values()) ** 0.5 / total
+    leaf_rel = {k: diff[k].norm().item() / norms[k] for k in diff if norms[k] >= LEAF_NORM_FLOOR * total}
+    worst, worst_rel = max(ratios, key=ratios.get), max(leaf_rel, key=leaf_rel.get)
+    found = dict(loss_got=float(l_got), loss_want=float(l_want),
+                 worst_grad_err_over_scale=ratios[worst], worst_leaf=worst, grads_rel_l2=rel_l2,
+                 worst_leaf_rel_l2=leaf_rel[worst_rel], worst_rel_leaf=worst_rel,
+                 leaves_rel_checked=len(leaf_rel), leaves=len(diff),
+                 limits=[GRAD_TOL, GRAD_REL_L2_TOL, LEAF_REL_L2_TOL])
+    if ratios[worst] > GRAD_TOL or rel_l2 > GRAD_REL_L2_TOL or leaf_rel[worst_rel] > LEAF_REL_L2_TOL:
+        raise AssertionError(f"{what}: gradients out of bounds: {found}")
+    return found
+
+
 def train_phase(cfg, clouds: np.ndarray):
     """Phase 6: the port's Trainer through its entry points on the card.
     Returns the launches of a step, the timings, and the full and compact
@@ -1083,23 +1133,8 @@ def train_phase(cfg, clouds: np.ndarray):
     t0 = time.perf_counter()
     l_cpu, g_cpu = cpu.grads_compact(compact)
     cpu_s = time.perf_counter() - t0
-    if abs(float(l_card) - float(l_cpu)) > STEP_LOSS_RTOL * abs(float(l_cpu)):
-        raise AssertionError(f"card loss {float(l_card)} vs CPU {float(l_cpu)}")
-    diff = {k: g_card[k].cpu().double() - g.double() for k, g in g_cpu.items()}
-    ratios = {k: d.abs().max().item() / max(1.0, g_cpu[k].abs().max().item()) for k, d in diff.items()}
-    norms = {k: g.double().norm().item() for k, g in g_cpu.items()}
-    total = sum(v * v for v in norms.values()) ** 0.5
-    rel_l2 = sum(d.square().sum().item() for d in diff.values()) ** 0.5 / total
-    leaf_rel = {k: diff[k].norm().item() / norms[k] for k in diff if norms[k] >= LEAF_NORM_FLOOR * total}
-    worst, worst_rel = max(ratios, key=ratios.get), max(leaf_rel, key=leaf_rel.get)
-    found = dict(loss_card=float(l_card), loss_cpu=float(l_cpu), cpu_grads_s=cpu_s,
-                 worst_grad_err_over_scale=ratios[worst], worst_leaf=worst, grads_rel_l2=rel_l2,
-                 worst_leaf_rel_l2=leaf_rel[worst_rel], worst_rel_leaf=worst_rel,
-                 leaves_rel_checked=len(leaf_rel), leaves=len(diff),
-                 limits=[GRAD_TOL, GRAD_REL_L2_TOL, LEAF_REL_L2_TOL], top_views_equal=True)
-    if ratios[worst] > GRAD_TOL or rel_l2 > GRAD_REL_L2_TOL or leaf_rel[worst_rel] > LEAF_REL_L2_TOL:
-        raise AssertionError(f"card vs CPU gradients out of bounds: {found}")
-    log(phase="train_card_vs_cpu", **found)
+    found = compare_grads(l_card, g_card, l_cpu, g_cpu, "card vs CPU")
+    log(phase="train_card_vs_cpu", cpu_grads_s=cpu_s, top_views_equal=True, **found)
 
     # -- timing --
     step_ms = cuda_ms(lambda: tr.step(dev_full), 5)
@@ -1529,17 +1564,17 @@ def feature_input_phase() -> dict:
     return out["input_features"]["launches"]
 
 
-def service_reply_diff(card: dict, cpu: dict) -> dict:
+def service_reply_diff(card: dict, cpu: dict, atol: float = TOPK_ATOL) -> dict:
     """Card vs CPU replies of GraspService.compute(): `ok` equal; with
     grasps, the rows as compare_topk holds them and best_pose / tf_pose
-    within TOPK_ATOL."""
+    within `atol`."""
     if card["ok"] != cpu["ok"]:
         raise AssertionError(f"service ok differs: card {card.get('error')} cpu {cpu.get('error')}")
     if not cpu["ok"]:
         return {"ok": False}
-    rows = compare_topk(np.asarray(card["grasps"], np.float32), np.asarray(cpu["grasps"], np.float32))
+    rows = compare_topk(np.asarray(card["grasps"], np.float32), np.asarray(cpu["grasps"], np.float32), atol)
     pose_err = max(float(np.abs(np.asarray(card[k]) - np.asarray(cpu[k])).max()) for k in ("best_pose", "tf_pose"))
-    if pose_err > TOPK_ATOL:
+    if pose_err > atol:
         raise AssertionError(f"service poses differ by {pose_err}")
     return {"ok": True, **rows, "pose_max_abs_err": pose_err}
 
@@ -1716,6 +1751,317 @@ def demos_phase(ckpt: str) -> dict:
     return {"demos_s": sum(times.values())}
 
 
+def crop_routes_phase(clouds: np.ndarray):
+    """Phase 18: the CloudCrop's routes with a two-layer crop MLP (3, 16, 32)
+    and GraspNetConfig()'s other widths: a B=1 forward with seed-1 weights
+    takes K6 and the generic MLP, no K5 (K1 1, K3 1, K4 3, K6 1), equal to
+    the CPU's (selections exactly, floats within FEATURE_TOL x max(1,
+    scale)); one training probe at B=2 (`grads_compact`: pre-pass and
+    step) takes K6 and the generic MLP, no K7, card against CPU within the
+    train-correctness bounds (set at B=2, section 2 of PERF.md).  Returns the launches of the forward and of
+    the probe."""
+    import dataclasses
+
+    from graspnet_tpu_torch.config import GraspNetConfig
+    from graspnet_tpu_torch.models import GraspNet, init_weights
+    from graspnet_tpu_torch.ops import cuda as kernels
+    from graspnet_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(GraspNetConfig(), crop_mlp=(3, 16, 32))
+    zero = {k: 0 for k in kernels.launches()}
+    x = torch.from_numpy(clouds[:1])
+    model = init_weights(GraspNet(cfg), WEIGHT_SEED).eval()
+    with torch.inference_mode():
+        want = model(x)
+    model.to("cuda")
+    kernels.reset_launches()
+    with torch.inference_mode():
+        got = model(x.to("cuda"))
+    torch.cuda.synchronize()
+    eval_launches = kernels.launches()
+    expected = {**zero, "fps_chain": 1, "ball_query": 3, "sa1_fused": 1, "crop_group": 1}
+    if eval_launches != expected:
+        raise AssertionError(f"crop_routes eval: launches {eval_launches}, expected {expected}")
+    for key in ("fp2_inds", "grasp_top_view_inds"):
+        if not torch.equal(got[key].cpu(), want[key]):
+            raise AssertionError(f"crop_routes eval: {key} differs card vs CPU")
+    errs = {key: feature_err(got[key].cpu(), want[key])
+            for key in ("grasp_score_pred", "grasp_angle_cls_pred", "grasp_width_pred", "grasp_tolerance_pred")}
+    del model, got
+    _, compact, _ = train_batches(cfg, clouds[:B_KERNELS])
+    card = Trainer(cfg, TrainConfig(), seed=TRAIN_SEED)
+    cpu = Trainer(cfg, TrainConfig(), seed=TRAIN_SEED, device="cpu")
+    tops = [t.prepare(compact)[2].cpu() for t in (card, cpu)]
+    if not torch.equal(*tops):
+        raise AssertionError("crop_routes train: pre-pass top views differ card vs CPU")
+    kernels.reset_launches()
+    l_card, g_card = card.grads_compact(compact)
+    torch.cuda.synchronize()
+    step_launches = kernels.launches()
+    expected_step = {**zero, "ball_query": 4, "crop_group": 1, "scatter_add_rows": 5}
+    if step_launches != expected_step:
+        raise AssertionError(f"crop_routes train: launches {step_launches}, expected {expected_step}")
+    l_cpu, g_cpu = cpu.grads_compact(compact)
+    found = compare_grads(l_card, g_card, l_cpu, g_cpu, "crop_routes train, card vs CPU")
+    log(phase="crop_routes", crop_mlp=list(cfg.crop_mlp), eval_launches=eval_launches, eval_max_abs_err=errs,
+        selections_equal=True, train_launches=step_launches, train_card_vs_cpu=found,
+        phase_s=time.perf_counter() - t_phase)
+    return eval_launches, step_launches
+
+
+def tolerance_object(rng: np.random.Generator, n: int, v: int = 300, a: int = 12, d: int = 4):
+    """One synthetic object: n label points in a 6 cm box and friction
+    scores with mass on the thresholds (0, 0.3, mu = 0.55) beside uniform
+    values up to 1.2, as tests/test_torch_port_tolerance.py draws them."""
+    pts = rng.uniform(-0.03, 0.03, (n, 3)).astype(np.float32)
+    scores = rng.uniform(0.0, 1.2, (n, v, a, d)).astype(np.float32)
+    pick = rng.uniform(size=scores.shape)
+    scores[pick < 0.4] = 0.3
+    scores[(pick >= 0.4) & (pick < 0.45)] = 0.55
+    scores[(pick >= 0.45) & (pick < 0.5)] = 0.0
+    return pts, scores
+
+
+def tolerance_phase() -> dict:
+    """Phase 19: data/tolerance.py on the card: one synthetic object of
+    TOL_LABEL_POINTS label points at V*A*D = 300*12*4, bitwise the CPU
+    plain version; host ms per object on the card (median of 3, the
+    result fetched); then apps/generate_tolerance.py over a two-object
+    synthetic root on the card, its files bitwise the CPU function's."""
+    from graspnet_tpu_torch.apps import generate_tolerance as tol_cli
+    from graspnet_tpu_torch.data.tolerance import generate_tolerance
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(DATA_SEED + 6)
+    pts, scores = tolerance_object(rng, TOL_LABEL_POINTS)
+    card = generate_tolerance(pts, scores)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        generate_tolerance(pts, scores)
+        times.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    cpu = generate_tolerance(pts, scores, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if not np.array_equal(card, cpu):
+        raise AssertionError(f"tolerance: card differs from CPU at {int((card != cpu).sum())} cells")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tolerance_") as root:
+        os.makedirs(os.path.join(root, "grasp_label"))
+        objects = [tolerance_object(rng, 512) for _ in range(2)]
+        for i, (p, sc) in enumerate(objects):
+            np.savez(os.path.join(root, "grasp_label", f"{i:03d}_labels.npz"), points=p, scores=sc)
+        t0 = time.perf_counter()
+        tol_cli.main(["--dataset_root", root, "--num_objects", "2"])
+        cli_s = time.perf_counter() - t0
+        for i, (p, sc) in enumerate(objects):
+            got = np.load(os.path.join(root, "tolerance", f"{i:03d}_tolerance.npy"))
+            if not np.array_equal(got, generate_tolerance(p, sc, device="cpu")):
+                raise AssertionError(f"tolerance CLI: object {i} differs from the CPU function")
+    out = {"tolerance_ms_per_object": statistics.median(times), "tolerance_label_points": TOL_LABEL_POINTS}
+    log(phase="tolerance", **out, runs_ms=times, cpu_s=cpu_s, bitwise_equal=True, nonzero_share=float((card > 0).mean()),
+        distinct_radii=int(len(np.unique(card))), cli_two_objects_s=cli_s, phase_s=time.perf_counter() - t_phase)
+    return out
+
+
+def parallel_infer_phase(clouds: np.ndarray, ckpt: str) -> dict:
+    """Phase 20: parallel/ on one card whose device the meshes repeat:
+    GraspPipeline(mesh=) at GraspNetConfig(), seed-1 weights, with a data
+    mesh ['cuda:0'] * 2 at B=4, a candidate mesh ['cuda:0'] * 4 at B=1 and
+    the hybrid 2 x 2 at B=2; each top-50 equal to the unsharded card
+    pipeline's (selection fields equal, floats within PARALLEL_ATOL), each
+    forward launching K1, K3 and K4 once per scene group (K4 three times)
+    and K5 once per seed block; host ms per frame with every result
+    fetched, beside the unsharded pipeline's at the same batch (one card,
+    repeated device: the code path, not scaling).  Then the service with
+    candidate_devices=2 on ['cuda:0'] * 2 against the one-device service on
+    two 250k-point requests, collision filter off.  Returns the launches of
+    the three forwards, summed, and the timings."""
+    from graspnet_tpu_torch.apps import GraspPipeline
+    from graspnet_tpu_torch.apps.service import GraspService, ServiceConfig
+    from graspnet_tpu_torch.config import GraspNetConfig
+    from graspnet_tpu_torch.ops import cuda as kernels
+    from graspnet_tpu_torch.parallel import make_mesh
+    from graspnet_tpu_torch.scripts import bench_service
+
+    t_phase = time.perf_counter()
+    cfg = GraspNetConfig()
+    plain = GraspPipeline(cfg=cfg, seed=WEIGHT_SEED)
+    zero = {k: 0 for k in kernels.launches()}
+    total = dict(zero)
+    cases = {"data_2": (("data",), (2,), 4, 2, 1), "candidate_4": (("candidate",), (4,), 1, 1, 4),
+             "hybrid_2x2": (("data", "candidate"), (2, 2), 2, 2, 2)}
+    found, timing = {}, {}
+
+    def ms_per_frame(pipe, x, b):
+        pipe.get_grasps_topk_batch(x)
+        times = []
+        for _ in range(PARALLEL_REPS):
+            t0 = time.perf_counter()
+            pipe.get_grasps_topk_batch(x)
+            times.append((time.perf_counter() - t0) * 1e3 / b)
+        return statistics.median(times)
+
+    for name, (names, shape, b, groups, blocks) in cases.items():
+        n = int(np.prod(shape))
+        pipe = GraspPipeline(cfg=cfg, seed=WEIGHT_SEED, mesh=make_mesh(n, names, devices=["cuda:0"] * n, shape=shape))
+        x = clouds[:b]
+        kernels.reset_launches()
+        got = pipe.get_grasps_topk_batch(x)
+        torch.cuda.synchronize()
+        launches = kernels.launches()
+        expected = {**zero, "fps_chain": groups, "sa1_fused": groups, "ball_query": 3 * groups,
+                    "crop_fused": groups * blocks}
+        if launches != expected:
+            raise AssertionError(f"parallel_infer {name}: launches {launches}, expected {expected}")
+        total = {k: total[k] + v for k, v in launches.items()}
+        want = plain.get_grasps_topk_batch(x)
+        rows = [compare_topk(g.grasp_group_array, w.grasp_group_array, PARALLEL_ATOL) for g, w in zip(got, want)]
+        if any(r["rows"] != 50 for r in rows):
+            raise AssertionError(f"parallel_infer {name}: top-50 rows {[r['rows'] for r in rows]}")
+        found[name] = dict(batch=b, launches=launches, max_abs_err=max(r["max_abs_err"] for r in rows))
+        timing[f"parallel_{name}_ms_per_frame"] = ms_per_frame(pipe, x, b)
+        timing[f"parallel_{name}_unsharded_ms_per_frame"] = ms_per_frame(plain, x, b)
+        del pipe
+    requests = bench_service.make_clouds(2, RAW_CLOUD_POINTS, seed=DATA_SEED + 3)
+    one = GraspService(ServiceConfig(checkpoint_path=ckpt, collision_thresh=-1.0))
+    two = GraspService(ServiceConfig(checkpoint_path=ckpt, collision_thresh=-1.0, candidate_devices=2,
+                                     mesh_devices=("cuda:0",) * 2))
+    replies = [service_reply_diff(two.compute(c), one.compute(c), PARALLEL_ATOL) for c in requests]
+    if not all(r["ok"] for r in replies):
+        raise AssertionError(f"parallel_infer service: no grasps in a reply {replies}")
+    del one, two
+    log(phase="parallel_infer", what="one card, repeated device: code path, not scaling", cases=found,
+        service_candidate_2=replies, atol=PARALLEL_ATOL, **timing, phase_s=time.perf_counter() - t_phase)
+    return {"launches": total, **timing}
+
+
+def _local_half(compact: dict, rank: int) -> dict:
+    """Scene `rank` of a compact host batch, as a batch of one."""
+    out = {}
+    for k, v in compact.items():
+        if k == "sa_inds":
+            out[k] = {s: a[rank : rank + 1] for s, a in v.items()}
+        else:
+            out[k] = v[rank : rank + 1]
+    return out
+
+
+def ddp_rank(rank: int, port: int, batch_path: str, out_dir: str) -> None:
+    """One of the two ranks of ddp_train_phase on the card, over gloo: its
+    scene of the B=2 batch through `Trainer(group=)`: the probe's loss and
+    (summed) gradients, then one step_compact; each one's kernel launches."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from graspnet_tpu_torch.config import GraspNetConfig
+    from graspnet_tpu_torch.ops import cuda as kernels
+    from graspnet_tpu_torch.parallel import distributed
+    from graspnet_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    distributed.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo", device="cuda")
+    try:
+        with open(batch_path, "rb") as f:
+            local = _local_half(pickle.load(f), rank)
+        tr = Trainer(GraspNetConfig(), TrainConfig(), seed=TRAIN_SEED, group=dist.group.WORLD)
+        tr.set_epoch(0)
+        kernels.reset_launches()
+        loss, grads = tr.grads_compact(local)
+        torch.cuda.synchronize()
+        probe = kernels.launches()
+        kernels.reset_launches()
+        step_loss, _ = tr.step_compact(local)
+        torch.cuda.synchronize()
+        step = kernels.launches()
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), loss=float(loss), step_loss=float(step_loss),
+                 launches=json.dumps({"probe": probe, "step": step}),
+                 **{f"g:{k}": v.cpu().numpy() for k, v in grads.items()})
+    finally:
+        dist.destroy_process_group()
+
+
+def ddp_train_phase(cfg, full: dict, compact: dict) -> dict:
+    """Phase 17: data-parallel training on the card.
+    - A one-rank NCCL group: one Trainer(group=).step bitwise the plain
+      card step (loss and every state tensor), K7 launched (world size 1).
+    - Two ranks on the one card over gloo (NCCL takes one rank a card),
+      one scene each of the B=2 batch: the probe's loss and summed
+      gradients against the single-process B=2 card probe within the
+      train-correctness bounds (the routes differ by K7, as card and CPU
+      do); each rank launches K7 0 times, K6 and the scatter-add.
+    - scripts/multiproc_check.py --device cuda --backend gloo: verdict ok.
+    Returns the launches of the one-rank step and of one rank's step."""
+    import pickle
+    import socket
+
+    import torch.distributed as dist
+
+    from graspnet_tpu_torch.ops import cuda as kernels
+    from graspnet_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    zero = {k: 0 for k in kernels.launches()}
+
+    def free_port():
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
+    try:
+        grouped = Trainer(cfg, TrainConfig(), seed=TRAIN_SEED, group=dist.group.WORLD)
+        plain = Trainer(cfg, TrainConfig(), seed=TRAIN_SEED)
+        for t in (grouped, plain):
+            t.set_epoch(0)
+        dev_full = plain.put(full)
+        kernels.reset_launches()
+        l1, _ = grouped.step(dev_full)
+        torch.cuda.synchronize()
+        one_rank = kernels.launches()
+        l0, _ = plain.step(dev_full)
+        same = float(l1) == float(l0) and all(
+            torch.equal(a, b) for a, b in zip(grouped.model.state_dict().values(), plain.model.state_dict().values()))
+        if not same or one_rank["crop_mlp_train"] != 1 or one_rank["crop_mlp_train_backward"] != 1:
+            raise AssertionError(f"one-rank NCCL step: bitwise {same}, launches {one_rank}")
+        del grouped, plain, dev_full
+    finally:
+        dist.destroy_process_group()
+
+    ref = Trainer(cfg, TrainConfig(), seed=TRAIN_SEED)
+    ref.set_epoch(0)
+    l_ref, g_ref = ref.grads_compact(compact)
+    del ref
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as tmp:
+        batch_path = os.path.join(tmp, "compact.pkl")
+        with open(batch_path, "wb") as f:
+            pickle.dump(compact, f)
+        t0 = time.perf_counter()
+        torch.multiprocessing.spawn(ddp_rank, args=(free_port(), batch_path, tmp), nprocs=2, join=True)
+        ranks_s = time.perf_counter() - t0
+        ranks = [dict(np.load(os.path.join(tmp, f"rank{r}.npz"))) for r in range(2)]
+    g_ranks = {k[2:]: torch.from_numpy(v) for k, v in ranks[0].items() if k.startswith("g:")}
+    found = compare_grads(float(ranks[0]["loss"]), g_ranks, l_ref, g_ref, "2 gloo ranks vs the B=2 step")
+    rank_launches = [json.loads(str(r["launches"])) for r in ranks]
+    for r, counts in enumerate(rank_launches):
+        for what, c in counts.items():
+            if c["crop_mlp_train"] or c["crop_mlp_train_backward"] or not c["crop_group"] or not c["scatter_add_rows"]:
+                raise AssertionError(f"rank {r} {what}: launches {c} (K7 must stay off at world size 2)")
+    if float(ranks[0]["step_loss"]) != float(ranks[1]["step_loss"]):
+        raise AssertionError("the ranks report different global losses")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "graspnet_tpu_torch.scripts.multiproc_check", "--device", "cuda",
+                           "--backend", "gloo"], cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=MULTIPROC_TIMEOUT_S)
+    verdict = json.loads(proc.stdout.strip().splitlines()[-1]) if proc.stdout.strip() else {}
+    if proc.returncode != 0 or not verdict.get("ok"):
+        raise AssertionError(f"multiproc_check on the card: rc {proc.returncode}, {verdict or proc.stderr[-2000:]}")
+    log(phase="ddp_train", one_rank_nccl_bitwise=True, one_rank_launches=one_rank, two_gloo_ranks=found,
+        rank_launches=rank_launches, two_ranks_s=ranks_s, multiproc_check=verdict,
+        multiproc_check_s=time.perf_counter() - t0, phase_s=time.perf_counter() - t_phase)
+    return {"one_rank_step": one_rank, "rank_step": rank_launches[0]["step"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on a GPU", file=sys.stderr)
@@ -1755,7 +2101,10 @@ def main() -> int:
     scatter_row, cli_timing = train_cli_phase(cfg, clouds[:B_KERNELS], full)
     rows.append(scatter_row)
     train_timing.update(cli_timing)
+    ddp_launches = ddp_train_phase(cfg, full, compact)
     del full, compact
+    route_forward_launches, route_step_launches = crop_routes_phase(clouds)
+    tolerance = tolerance_phase()
     tool_launches, tool_records = tools_phase()
     eval_pipe = GraspPipeline(cfg=cfg, seed=WEIGHT_SEED)
     collision = collision_phase(eval_pipe)
@@ -1770,28 +2119,34 @@ def main() -> int:
         service = service_phase(ckpt)
         service_launches = service.pop("launches_per_dispatch")
         demos = demos_phase(ckpt)
+        parallel = parallel_infer_phase(clouds, ckpt)
+        parallel_launches = parallel.pop("launches")
     gate = learnability_phase()
     # the counts read after one serving forward, one training step, one tool
-    # run, one eval batch, one feature-input forward and one service dispatch
-    # (the same at max_batch 1 and at the MicroBatcher's bucket of 8)
+    # run, one eval batch, one feature-input forward, one service dispatch
+    # (the same at max_batch 1 and at the MicroBatcher's bucket of 8), the
+    # two-layer crop MLP's forward and training probe, the three mesh
+    # forwards of parallel_infer together, the one-rank NCCL step and one
+    # rank's step of the two-rank run
+    columns = {"launches_per_forward": launches, "launches_per_train_step": train_launches,
+               "launches_per_tool_run": tool_launches, "launches_per_eval_batch": eval_launches,
+               "launches_per_feature_forward": feature_launches,
+               "launches_per_service_dispatch": service_launches,
+               "launches_per_crop_routes_forward": route_forward_launches,
+               "launches_per_crop_routes_probe": route_step_launches,
+               "launches_per_parallel_infer": parallel_launches,
+               "launches_per_ddp1_step": ddp_launches["one_rank_step"],
+               "launches_per_ddp2_rank_step": ddp_launches["rank_step"]}
     for r in rows:
-        r["launches_per_forward"] = launches[r["name"]]
-        r["launches_per_train_step"] = train_launches[r["name"]]
-        r["launches_per_tool_run"] = tool_launches[r["name"]]
-        r["launches_per_eval_batch"] = eval_launches[r["name"]]
-        r["launches_per_feature_forward"] = feature_launches[r["name"]]
-        r["launches_per_service_dispatch"] = service_launches[r["name"]]
-        r["launches"] = (r["launches_per_forward"] + r["launches_per_train_step"] + r["launches_per_tool_run"]
-                         + r["launches_per_eval_batch"] + r["launches_per_feature_forward"]
-                         + r["launches_per_service_dispatch"])
-    keys = ("name", "route", "source", "replaces", "launches", "launches_per_forward",
-            "launches_per_train_step", "launches_per_tool_run", "launches_per_eval_batch",
-            "launches_per_feature_forward", "launches_per_service_dispatch", "max_abs_err", "ms",
+        for col, counts in columns.items():
+            r[col] = counts[r["name"]]
+        r["launches"] = sum(r[col] for col in columns)
+    keys = ("name", "route", "source", "replaces", "launches", *columns, "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}), flush=True)
     log(phase="summary", gpu=smi, **timing, **train_timing, bench=tool_records["bench"],
-        collision_ms_per_frame=collision["ms_per_frame"], **eval_timing, **service, **demos,
-        **{f"gate_{k}": v for k, v in gate.items()})
+        collision_ms_per_frame=collision["ms_per_frame"], **eval_timing, **service, **demos, **tolerance,
+        **parallel, **{f"gate_{k}": v for k, v in gate.items()})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}), flush=True)

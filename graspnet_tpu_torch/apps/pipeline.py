@@ -6,7 +6,8 @@ the caller asks for the CPU (`device="cpu"`, as the tests do); asking for
 CUDA on a host without it raises instead of running on the CPU.  Matmuls
 stay in full float32 (TF32 off), like the XLA f32 path the port is held
 against.  The collision filter counts on the pipeline's device
-(`postproc/collision.py`).
+(`postproc/collision.py`).  `mesh=` shards the decode over several devices
+(`parallel/candidate.py`), as the JAX pipeline's mesh does.
 """
 
 from __future__ import annotations
@@ -42,14 +43,28 @@ class GraspPipeline:
         seed: int = 0,
         device: str | torch.device = "cuda",
         checkpoint_path: Optional[str] = None,
+        mesh=None,
     ):
         """`params`: a GraspNet state dict (e.g. from
         `checkpoint.params_from_jax`); else `checkpoint_path`: a reference
         `.tar` checkpoint, or a file of `checkpoint.save` holding a bare
         state dict or the training CLI's state (whose 'model' it takes),
         as the JAX pipeline reads either (`graspnet_tpu/apps/pipeline.py:60-78`);
-        neither draws seeded random weights."""
+        neither draws seeded random weights.
+
+        `mesh`: a `parallel.Mesh`, whose first device takes the place of
+        `device` (the weights' home, where rows are gathered, NMS'd and
+        fetched).  Its axis names select the strategy
+        (`graspnet_tpu/apps/pipeline.py:41-137`): a 'candidate' axis above 1
+        (with a 'data' axis: the hybrid mesh) shards each scene's stage 2
+        over seed blocks and serves any batch; otherwise the scene batch
+        shards over the devices, and a batch the data axis does not divide
+        runs unsharded."""
         self.cfg = cfg
+        if mesh is not None:
+            for d in mesh.distinct():
+                resolve_device(d, "GraspPipeline")
+            device = mesh.devices.flat[0]
         self.device = resolve_device(device, "GraspPipeline")
         if params is None and checkpoint_path is not None:
             if checkpoint_path.endswith(".tar"):
@@ -64,6 +79,21 @@ class GraspPipeline:
             model.load_state_dict(params, strict=True)
         self.model = model.to(self.device).eval().requires_grad_(False)
         self.timings = PipelineTimings()
+        self.mesh = mesh
+        self._sharded = None
+        self._data_axis_size = 1  # the batch sizes the sharded decode takes
+        if mesh is not None:
+            from graspnet_tpu_torch.parallel import candidate_sharded_infer, data_parallel_infer
+
+            names = mesh.axis_names
+            if "candidate" in names and mesh.shape["candidate"] > 1:
+                data_axis = "data" if "data" in names and mesh.shape["data"] > 1 else None
+                self._sharded = candidate_sharded_infer(self.model, cfg, mesh, data_axis=data_axis)
+                if data_axis is not None:
+                    self._data_axis_size = mesh.shape["data"]
+            else:
+                self._sharded = data_parallel_infer(self.model, cfg, mesh, axis=names[0])
+                self._data_axis_size = mesh.shape[names[0]]
 
     # ---- device programs ----
     def _cloud(self, clouds: np.ndarray) -> torch.Tensor:
@@ -77,12 +107,17 @@ class GraspPipeline:
 
     @torch.inference_mode()
     def _infer(self, clouds: torch.Tensor):
+        """Network -> decode; sharded over the mesh when it takes the batch
+        (`graspnet_tpu/apps/pipeline.py:189-194`)."""
+        if self._sharded is not None and clouds.shape[0] % self._data_axis_size == 0:
+            return self._sharded(clouds)
         return pred_decode(self.model(clouds), self.cfg)
 
     @torch.inference_mode()
     def _infer_topk(self, clouds: torch.Tensor, top_k: int = 50):
-        """Network -> decode -> NMS -> top-K; only (B, K, 17) rows leave."""
-        grasps, valid = pred_decode(self.model(clouds), self.cfg)
+        """Network -> decode -> NMS -> top-K; only (B, K, 17) rows leave.
+        On a mesh, NMS and top-K run on the rows gathered on its first device."""
+        grasps, valid = self._infer(clouds)
         return nms_top_k(grasps, valid, k=top_k)
 
     # ---- public API ----

@@ -14,8 +14,8 @@ Here that core is `GraspService` (plain python, fully testable), wrapped by:
     when rclpy is importable.
 
 The service runs on the card unless `ServiceConfig.device` asks for the
-CPU.  One card: `candidate_devices` and `data_devices` above 1 raise
-NotImplementedError until the port's parallel package lands.
+CPU.  `candidate_devices` and `data_devices` above 1 shard the network over
+a mesh of cards (`parallel/`), as the JAX service does.
 
     python -m graspnet_tpu_torch.apps.service --port 9876 [--checkpoint_path CKPT]
 """
@@ -27,7 +27,7 @@ import dataclasses
 import json
 import socketserver
 import threading
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -36,10 +36,6 @@ from graspnet_tpu_torch.apps.pipeline import GraspPipeline
 from graspnet_tpu_torch.config import GraspNetConfig
 from graspnet_tpu_torch.postproc import GraspGroup
 from graspnet_tpu_torch.utils.transforms import apply_rotation_offsets, matrix_to_quaternion, quaternion_to_matrix
-
-_ONE_CARD = ("the port serves on one card: {name} > 1 (the {path}) waits for ROADMAP queue 1, "
-             "item [21], parallel/ -> torch.distributed")
-
 
 @dataclasses.dataclass
 class ServiceConfig:
@@ -52,11 +48,15 @@ class ServiceConfig:
     depth_max: float = 0.6
     seg_proximity_thresh: float = 0.02  # reference grasp_service.py mask filter
     max_world_z_for_approach: Optional[float] = None  # world-frame approach gate
-    # the JAX service's multi-chip paths: each frame's candidate sweep over
-    # several devices (latency), coalesced batches one frame a device
-    # (throughput).  The port serves on one card, so both stay 1.
+    # multi-device paths: each frame's candidate sweep over several devices
+    # (latency), coalesced batches one frame a device (throughput; needs
+    # max_batch a multiple of it); both > 1 make the hybrid 2-D mesh
     candidate_devices: int = 1
     data_devices: int = 1
+    # the mesh's devices, data-major (e.g. ("cuda:0",) * 2 to run the
+    # sharded code path on one card); default the cards cuda:0..n-1, or
+    # the CPU repeated with device="cpu"
+    mesh_devices: Optional[Tuple[str, ...]] = None
     # dynamic micro-batching (apps/batching.py): concurrent requests
     # coalesce into one batched device dispatch, up to max_batch or until
     # batch_wait_ms passes since the first waiter; 1 = per-request calls
@@ -74,12 +74,26 @@ class ServiceConfig:
     )
     device: str = "cuda"  # the card unless the caller asks for "cpu"
 
-    def __post_init__(self):
-        if self.candidate_devices > 1:
-            raise NotImplementedError(_ONE_CARD.format(name="candidate_devices",
-                                                       path="candidate-sharded latency path"))
-        if self.data_devices > 1:
-            raise NotImplementedError(_ONE_CARD.format(name="data_devices", path="data-parallel throughput path"))
+    def mesh(self):
+        """The serving mesh of `graspnet_tpu/apps/service.py:76-108`, or
+        None on one device."""
+        if self.data_devices > 1 and (self.max_batch < self.data_devices or self.max_batch % self.data_devices):
+            raise ValueError(
+                "data_devices requires micro-batching with max_batch a positive multiple of it "
+                f"(got max_batch={self.max_batch}, data_devices={self.data_devices})"
+            )
+        n = self.data_devices * self.candidate_devices
+        if n == 1:
+            return None
+        from graspnet_tpu_torch.parallel.mesh import make_mesh
+
+        devices = self.mesh_devices
+        if devices is None and self.device == "cpu":
+            devices = ("cpu",) * n
+        if self.candidate_devices > 1 and self.data_devices > 1:
+            return make_mesh(n, ("data", "candidate"), devices=devices,
+                             shape=(self.data_devices, self.candidate_devices))
+        return make_mesh(n, ("candidate",) if self.candidate_devices > 1 else ("data",), devices=devices)
 
 
 class GraspService:
@@ -88,7 +102,8 @@ class GraspService:
     def __init__(self, cfg: ServiceConfig = ServiceConfig()):
         self.cfg = cfg
         model_cfg = cfg.model_cfg or GraspNetConfig(num_point=cfg.num_point)
-        self.pipe = GraspPipeline(cfg=model_cfg, checkpoint_path=cfg.checkpoint_path, device=cfg.device)
+        self.pipe = GraspPipeline(cfg=model_cfg, checkpoint_path=cfg.checkpoint_path, device=cfg.device,
+                                  mesh=cfg.mesh())
         # warm the program compute() runs (top_k=0 there: the service
         # filters before truncating, so run() takes the raw decode path)
         self.batcher = None
@@ -482,9 +497,10 @@ def main(argv: Optional[Sequence[str]] = None):
         "train/test operating point)",
     )
     p.add_argument("--candidate_devices", type=int, default=1,
-                   help="shard each frame's candidate sweep over N cards (not ported: N > 1 raises)")
+                   help="shard each frame's candidate sweep over N cards (latency)")
     p.add_argument("--data_devices", type=int, default=1,
-                   help="shard coalesced request batches one frame a card (not ported: N > 1 raises)")
+                   help="shard coalesced request batches one frame a card (throughput; needs --max_batch "
+                   "a multiple of N)")
     p.add_argument(
         "--max_batch", type=int, default=1,
         help="micro-batch concurrent requests into one device dispatch; 1 disables",
@@ -501,7 +517,7 @@ def main(argv: Optional[Sequence[str]] = None):
         collision_thresh=args.collision_thresh,
         num_point=args.num_point,
         max_world_z_for_approach=args.max_world_z_for_approach,
-        candidate_devices=args.candidate_devices,  # > 1 raises NotImplementedError
+        candidate_devices=args.candidate_devices,
         data_devices=args.data_devices,
         max_batch=args.max_batch,
         batch_wait_ms=args.batch_wait_ms,

@@ -1,4 +1,4 @@
-"""Test / inference entry point (the reference's test.py), on one card.
+"""Test / inference entry point (the reference's test.py).
 
 Counterpart of `graspnet_tpu/apps/test.py`.  Two phases, as in the
 reference: (1) inference over a test split, dumping each frame's (M, 17)
@@ -10,8 +10,10 @@ which needs the dataset's object models).
         --camera realsense --split test_seen --checkpoint_path ckpt \
         --dump_dir logs/dump --collision_thresh 0.01
 
-Runs on CUDA unless `--device cpu` is passed.  One card: `--devices` takes
-1 and is an argparse error otherwise.  `--profile_dir` writes a
+Runs on CUDA unless `--device cpu` is passed.  `--devices N` shards each
+batch of N x `--batch_size` frames over a data mesh of the cards
+cuda:0..N-1 (`parallel/`; the CPU repeated with `--device cpu`); more cards
+than the host has is an argparse error.  `--profile_dir` writes a
 torch.profiler trace of the inference loop (`utils/tracing.py`).
 """
 
@@ -24,6 +26,7 @@ import time
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from graspnet_tpu_torch import native
 from graspnet_tpu_torch.apps.pipeline import GraspPipeline
@@ -45,17 +48,29 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--voxel_size", type=float, default=0.01)
     p.add_argument("--num_workers", type=int, default=30, help="eval processes")
     p.add_argument("--batch_size", type=int, default=1, help="frames per device batch")
-    p.add_argument("--devices", type=int, default=1, help="cards per batch: 1 (one card)")
+    p.add_argument("--devices", type=int, default=1, help="data-parallel cards; each takes --batch_size frames")
     p.add_argument("--skip_eval", action="store_true")
     p.add_argument("--max_frames", type=int, default=None)
     p.add_argument("--profile_dir", default=None, help="write a torch.profiler trace of the inference loop here")
     p.add_argument("--tiny", action="store_true", help="GraspNetConfig.tiny() (tests)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.devices != 1:
-        p.error(f"--devices {args.devices}: the port runs inference on one card "
-                "(data-parallel inference is ROADMAP queue 1, item [21], parallel/ -> torch.distributed)")
+    if args.devices < 1:
+        p.error(f"--devices {args.devices}: at least one device")
+    if args.devices > 1 and args.device != "cpu" and args.devices > torch.cuda.device_count():
+        p.error(f"--devices {args.devices}: this host has {torch.cuda.device_count()} CUDA device(s)")
     return args
+
+
+def make_eval_mesh(args):
+    """The data mesh of `--devices` (None for one), as the JAX loop builds
+    it (`graspnet_tpu/apps/test.py:73-80`)."""
+    n = getattr(args, "devices", 1)
+    if n <= 1:
+        return None
+    from graspnet_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n, devices=["cpu"] * n if getattr(args, "device", "cuda") == "cpu" else None)
 
 
 def inference(args, cfg: GraspNetConfig, dataset=None) -> dict:
@@ -72,8 +87,9 @@ def inference(args, cfg: GraspNetConfig, dataset=None) -> dict:
     if dataset is None:
         dataset = GraspNetDataset(args.dataset_root, camera=args.camera, split=args.split,
                                   num_points=cfg.num_point, remove_outlier=True, load_label=False, cfg=cfg)
-    pipe = GraspPipeline(cfg=cfg, checkpoint_path=args.checkpoint_path, device=getattr(args, "device", "cuda"))
-    bs = max(args.batch_size, 1)
+    pipe = GraspPipeline(cfg=cfg, checkpoint_path=args.checkpoint_path, device=getattr(args, "device", "cuda"),
+                         mesh=make_eval_mesh(args))
+    bs = max(args.batch_size, 1) * max(getattr(args, "devices", 1), 1)
     compile_s = pipe.warmup(topk=False, batch_size=bs)  # the raw decode program at the loop's batch
     print(f"warm-up: {compile_s:.1f}s; frames: {len(dataset)}", flush=True)
 
@@ -131,7 +147,7 @@ def inference(args, cfg: GraspNetConfig, dataset=None) -> dict:
                     ds_futs = [post_pool.submit(downsample_frame, i) for i in ids] if collide else []
                     with timer.stage("net"):
                         clouds = np.stack([s["point_clouds"] for s in samples])
-                        if len(ids) < bs:  # the tail batch, padded to the warmed-up shape
+                        if len(ids) < bs:  # the tail batch, padded to the warmed-up shape and the mesh
                             clouds = np.concatenate([clouds, np.repeat(clouds[-1:], bs - len(ids), axis=0)])
                         handle = pipe.dispatch_grasps_batch(clouds)
                     post_futures.append(batch_pool.submit(postproc_batch, ids, handle, ds_futs))

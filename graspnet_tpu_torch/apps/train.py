@@ -1,4 +1,4 @@
-"""Training entry point (the reference's train.py), on one card.
+"""Training entry point (the reference's train.py).
 
 Counterpart of `graspnet_tpu/apps/train.py`:
 
@@ -16,10 +16,19 @@ in flight, checkpoints at epoch - 1 (the epoch restarts on resume) and
 returns.  `train()` is the loop alone, for callers that build their own
 datasets (`scripts/bench_train_pipeline.py`, `chip_smoke.py`).
 
-Runs on CUDA unless `--device cpu` is passed.  One card only: `--n_devices`
-and `--candidate_devices` take 1 and raise otherwise, and there is no
-multi-host branch; `--profile_dir` writes a torch.profiler trace of five
-steps of the first epoch (`utils/tracing.py`); `--debug_nans` turns on
+Runs on CUDA unless `--device cpu` is passed.  Data-parallel training runs
+one process a device in a torch.distributed group (`parallel/distributed.py`,
+`Trainer(group=)`): `--n_devices N` on one command spawns N ranks on
+cuda:0..N-1 (or N CPU ranks with `--device cpu`); a torchrun or
+GRASPNET_COORDINATOR / NUM_PROCESSES / PROCESS_ID launch joins one group
+with each rank on cuda:(local rank).  `--dist_backend` is NCCL on CUDA and
+gloo on the CPU by default; ranks that share a card need gloo.  Each rank
+loads its shard of every global batch of `--batch_size` scenes; rank 0
+writes the main log and the checkpoint, rank i logs to `proc{i}/`; a
+resume loads on every rank.  Hybrid data x candidate training is not
+ported: `--candidate_devices` above 1 is an argparse error.
+`--profile_dir` writes a torch.profiler trace of five steps of the first
+epoch (`utils/tracing.py`); `--debug_nans` turns on
 `torch.autograd.set_detect_anomaly`.
 """
 
@@ -29,14 +38,17 @@ import argparse
 import contextlib
 import os
 import signal
+import socket
 import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from graspnet_tpu_torch import checkpoint
 from graspnet_tpu_torch.config import GraspNetConfig
 from graspnet_tpu_torch.data.dataset import DataLoader, GraspNetDataset, load_grasp_labels
+from graspnet_tpu_torch.parallel import distributed
 from graspnet_tpu_torch.train.trainer import TrainConfig, Trainer
 from graspnet_tpu_torch.utils.logging import MetricLogger
 from graspnet_tpu_torch.utils.tracing import device_trace
@@ -62,8 +74,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--lr_decay_steps", default="8,12,16")
     p.add_argument("--lr_decay_rates", default="0.1,0.1,0.1")
     p.add_argument("--num_workers", type=int, default=4)
-    p.add_argument("--n_devices", type=int, default=None, help="data-parallel width: 1 (one card)")
-    p.add_argument("--candidate_devices", type=int, default=1, help="candidate-sharded width: 1 (one card)")
+    p.add_argument("--n_devices", type=int, default=None,
+                   help="data-parallel ranks to spawn, one a device (cuda:0..N-1, or the CPU)")
+    p.add_argument("--candidate_devices", type=int, default=1,
+                   help="candidate-sharded width: 1 (hybrid training is not ported)")
+    p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                   help="torch.distributed backend (default: nccl on CUDA, gloo on the CPU)")
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--profile_dir", default=None, help="write a torch.profiler trace of 5 steps of the first epoch here")
     p.add_argument("--tiny", action="store_true", help="GraspNetConfig.tiny() (tests)")
@@ -77,9 +93,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    "same step); full: ship the whole (Ns, V, A, D) slabs")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    for flag in ("n_devices", "candidate_devices"):
-        if getattr(args, flag) not in (None, 1):
-            p.error(f"--{flag} {getattr(args, flag)}: the port trains on one card (parallel training is not ported)")
+    if args.candidate_devices != 1:
+        p.error(f"--candidate_devices {args.candidate_devices}: hybrid data x candidate training is not "
+                "ported (ROADMAP queue 1, 'hybrid data x candidate training')")
+    n = 1 if args.n_devices is None else args.n_devices
+    if n < 1:
+        p.error(f"--n_devices {n}: at least one")
+    if args.batch_size % n:
+        p.error(f"process count {n} must divide the global batch {args.batch_size}")
+    if n > 1 and args.device != "cpu" and n > torch.cuda.device_count():
+        p.error(f"--n_devices {n}: this host has {torch.cuda.device_count()} CUDA device(s)")
     return args
 
 
@@ -94,8 +117,15 @@ def resume(trainer: Trainer, path: Optional[str], logger: MetricLogger) -> int:
     return start
 
 
-def save_state(trainer: Trainer, log_dir: str, epoch_done: int, logger: MetricLogger) -> str:
-    """Checkpoint the full training state; a resume starts at epoch_done + 1."""
+def rank_of(trainer: Trainer) -> int:
+    return 0 if trainer.group is None else dist.get_rank(trainer.group)
+
+
+def save_state(trainer: Trainer, log_dir: str, epoch_done: int, logger: MetricLogger) -> Optional[str]:
+    """Checkpoint the full training state (rank 0 alone in a group; the
+    ranks hold equal states); a resume starts at epoch_done + 1."""
+    if rank_of(trainer) != 0:
+        return None
     path = os.path.join(os.path.abspath(log_dir), CHECKPOINT)
     checkpoint.save(path, {**trainer.state_dict(), "epoch": epoch_done})
     logger.log(f"saved {CHECKPOINT} (resume epoch {epoch_done + 1})")
@@ -140,17 +170,30 @@ def train(
     stop: Callable[[], bool] = lambda: False,
     profile_dir: Optional[str] = None,
 ) -> Dict[str, object]:
-    """The epoch loop of `graspnet_tpu/apps/train.py:256-334` on one card.
+    """The epoch loop of `graspnet_tpu/apps/train.py:256-334`.
 
     `profile_dir`: trace PROFILE_STEPS steps of the first epoch, from step
-    PROFILE_FIRST_STEP (earlier in a shorter epoch), into it.  Returns
-    `step_end_s`, the host clock after each train step's metrics were read
-    (the step is done then), and `epochs_done`."""
+    PROFILE_FIRST_STEP (earlier in a shorter epoch), into it.  In a
+    trainer's process group each rank loads its shard of every global
+    batch (`graspnet_tpu/apps/train.py:199-208`), the ranks stop together
+    when any of them is asked to, and rank 0 writes the checkpoints.
+    Returns `step_end_s`, the host clock after each train step's metrics
+    were read (the step is done then), and `epochs_done`."""
     tc = trainer.tc
     compact = label_mode == "compact"
     feed = trainer.prepare if compact else trainer.put
-    train_loader = DataLoader(train_ds, tc.batch_size, shuffle=True, num_workers=num_workers)
-    test_loader = DataLoader(test_ds, tc.batch_size, shuffle=False, num_workers=num_workers)
+    group = trainer.group
+    world = 1 if group is None else dist.get_world_size(group)
+    shards = dict(num_shards=world, shard_index=rank_of(trainer))
+    train_loader = DataLoader(train_ds, tc.batch_size // world, shuffle=True, num_workers=num_workers, **shards)
+    test_loader = DataLoader(test_ds, tc.batch_size // world, shuffle=False, num_workers=num_workers, **shards)
+    if group is not None:
+        asked = stop
+
+        def stop() -> bool:  # one collective a step: every rank leaves at the same step
+            flag = torch.tensor([float(asked())], device=trainer.device)
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+            return bool(flag.item())
     step_end_s: List[float] = []
     epochs_done = 0
     with contextlib.ExitStack() as profile:  # an exception ends a trace too
@@ -205,8 +248,56 @@ def train(
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
-    os.makedirs(args.log_dir, exist_ok=True)
-    logger = MetricLogger(args.log_dir)
+    if (args.n_devices or 1) > 1 and not _launched_in_a_group():
+        return spawn_ranks(args)
+    if distributed.initialize(backend=args.dist_backend, device=args.device):
+        return run(args, dist.group.WORLD, distributed.local_device(args.device))
+    return run(args, None, args.device)
+
+
+def _launched_in_a_group() -> bool:
+    return dist.is_initialized() or "GRASPNET_COORDINATOR" in os.environ or "WORLD_SIZE" in os.environ
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(args: argparse.Namespace) -> int:
+    """Start `--n_devices` ranks of this CLI on this host (rank i on cuda:i
+    or the CPU) and wait for them.  The libraries are built here first, so
+    the ranks find them built."""
+    from graspnet_tpu_torch.ops.cuda import build
+
+    build.build_all(build.SOURCES if args.device != "cpu" else (build.HOST,))
+    port = _free_port()
+    torch.multiprocessing.spawn(_rank_main, args=(args, port), nprocs=args.n_devices, join=True)
+    return 0
+
+
+def _rank_main(rank: int, args: argparse.Namespace, port: int) -> None:
+    distributed.initialize(f"127.0.0.1:{port}", args.n_devices, rank, backend=args.dist_backend, device=args.device)
+    try:
+        device = "cpu" if args.device == "cpu" else torch.device("cuda", rank)
+        run(args, dist.group.WORLD, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def run(args: argparse.Namespace, group, device) -> int:
+    """One rank's training (the only one without a group)."""
+    rank = 0 if group is None else dist.get_rank(group)
+    if group is not None:
+        world = dist.get_world_size(group)
+        if args.batch_size % world:
+            raise ValueError(f"process count {world} must divide the global batch {args.batch_size}")
+        if torch.device(device).type == "cuda":
+            torch.cuda.set_device(device)  # NCCL's own buffers go to the current device
+    log_dir = args.log_dir if rank == 0 else os.path.join(args.log_dir, f"proc{rank}")
+    os.makedirs(log_dir, exist_ok=True)
+    logger = MetricLogger(log_dir)
     try:
         if args.debug_nans:
             torch.autograd.set_detect_anomaly(True)
@@ -231,8 +322,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         test_ds = GraspNetDataset(args.dataset_root, valid_objs, grasp_labels, split="test_seen",
                                   augment=False, **common)
         logger.log(f"train len: {len(train_ds)}, test len: {len(test_ds)}")
-        trainer = Trainer(cfg=cfg, tc=tc, device=args.device)
+        trainer = Trainer(cfg=cfg, tc=tc, device=device, group=group)
         logger.log(f"device: {trainer.device}")
+        if group is not None:
+            logger.log(f"data-parallel rank {rank}/{world} ({dist.get_backend(group)}); "
+                       f"{tc.batch_size // world} scenes/rank/step")
         start_epoch = resume(trainer, args.checkpoint_path, logger)
         with preemption_flag() as stop:
             train(trainer, train_ds, test_ds, logger, args.log_dir, num_workers=args.num_workers,

@@ -66,8 +66,8 @@ def load_grasp_labels(root: str, num_objects: int = 88) -> Tuple[List[int], Dict
             # later as a TypeError deep inside get_data_label
             raise FileNotFoundError(
                 f"missing tolerance labels for object {i:03d}: {tol_path}. "
-                "Generate them first with the JAX package's generator: python -m "
-                f"graspnet_tpu.apps.generate_tolerance --dataset_root {root}"
+                "Generate them first: python -m "
+                f"graspnet_tpu_torch.apps.generate_tolerance --dataset_root {root}"
             )
         tolerance = np.load(tol_path)
         valid.append(i + 1)

@@ -3,9 +3,11 @@
 
 Counterpart of `graspnet_tpu/models/heads.py`.  Channels-last:
 objectness_score (B, Ns, 2), view_score (B, Ns, V), grasp_* (B, Ns, A, D).
-CloudCrop in eval mode is the fused crop kernel (heads.py:181-200); in
-train mode it is the crop-group kernel, then the train-MLP kernel
-(heads.py:201-257).  Each runs its plain version on a CPU tensor.  In train
+CloudCrop takes the JAX `crop_forward`'s kernels (`crop_route`): the fused
+crop kernel in eval with a 3-layer MLP (heads.py:181-200), the train-MLP
+kernel after the crop-group kernel in training with a 3-layer MLP on one
+rank (heads.py:233-246), else the crop-group kernel and the generic MLP.
+Each runs its plain version on a CPU tensor.  In train
 mode every head returns its BN batch stats (`bn_stats/*`) for the
 running-stat update after the step; nothing here updates the buffers.
 """
@@ -19,7 +21,7 @@ from torch import nn
 
 from graspnet_tpu_torch.config import GraspNetConfig
 from graspnet_tpu_torch.models import geometry
-from graspnet_tpu_torch.nn.layers import BatchNorm, Dense, SharedMLP, Stats, fold_bn_eval
+from graspnet_tpu_torch.nn.layers import BatchNorm, Dense, SharedMLP, Stats, fold_bn_eval, world_size
 from graspnet_tpu_torch.ops.cuda import crop_fused, crop_group, crop_mlp_train
 
 
@@ -76,8 +78,24 @@ class ApproachNet(Trunk):
         return out
 
 
+def crop_route(cfg: GraspNetConfig, train: bool, world: int = 1) -> str:
+    """The CloudCrop's kernels, as the JAX `crop_forward` chooses them
+    (heads.py:181-185, 233-246; every port MLP layer has its BN):
+    "k5" the fused crop in eval with a 3-layer MLP; "k7" the crop group,
+    then the train-MLP kernel, in training with a 3-layer MLP on a
+    one-rank runtime (the kernel's batch statistics are per call, where
+    data-parallel training needs the global batch's); else "k6+mlp" the
+    crop group, then the generic SharedMLP and the max over samples."""
+    three = len(cfg.crop_mlp) == 4
+    if not train:
+        return "k5" if three else "k6+mlp"
+    return "k7" if three and world == 1 else "k6+mlp"
+
+
 class CloudCrop(nn.Module):
     """Cylinder crop at all depths + embedding + max over samples."""
+
+    group = None  # the training process group (`nn.layers.set_process_group`)
 
     def __init__(self, cfg: GraspNetConfig):
         super().__init__()
@@ -94,10 +112,16 @@ class CloudCrop(nn.Module):
         and the rotations are data and labels there."""
         cfg = self.cfg
         geom = (cfg.cylinder_radius, cfg.hmin, tuple(cfg.hmax_list), cfg.crop_nsample)
-        if not train:
+        route = crop_route(cfg, train, world_size(self.group))
+        if route == "k5":
             return crop_fused(pointcloud, seed_xyz, vp_rot, fold_bn_eval(self.mlp), *geom), None
         grouped = crop_group(pointcloud, seed_xyz, vp_rot, *geom)  # (B, Ns, D, S, 3)
-        return crop_mlp_train(self.mlp, grouped)
+        if route == "k7":
+            return crop_mlp_train(self.mlp, grouped)
+        if not train:
+            return torch.amax(self.mlp(grouped), dim=3), None
+        out, stats = self.mlp.forward_train(grouped)
+        return torch.amax(out, dim=3), stats
 
 
 class OperationNet(Trunk):

@@ -5,6 +5,11 @@ params pytree (`kernel`, `bias`, `bn.{scale,offset,mean,var}`), so a state
 dict key is the pytree path joined by dots (see `checkpoint.params_from_jax`).
 Tensors are channels-last, as in the JAX package: a dense layer acts on the
 trailing axis, `x @ kernel + bias` with `kernel` shaped (in, out).
+
+Data-parallel training: `set_process_group(model, group)` gives every
+BatchNorm a torch.distributed process group, whose batch statistics are
+then those of the global batch (the sync-BN that GSPMD gives the JAX
+trainer on a mesh, `graspnet_tpu/parallel/mesh.py:5-9`).
 """
 
 from __future__ import annotations
@@ -12,6 +17,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 
@@ -49,6 +55,8 @@ class BatchNorm(nn.Module):
     """Batch norm over the trailing axis: `forward` normalizes with the
     running stats (eval), `forward_train` with the batch's."""
 
+    group = None  # a torch.distributed process group: global-batch statistics
+
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
@@ -71,11 +79,52 @@ class BatchNorm(nn.Module):
         n = 1
         for a in axes:
             n *= x.shape[a]
-        mean = torch.mean(x, dim=axes)
-        var = torch.mean(torch.square(x - mean), dim=axes)
+        if world_size(self.group) > 1:
+            mean, var, n = _global_moments(x, axes, n, self.group)
+        else:
+            mean = torch.mean(x, dim=axes)
+            var = torch.mean(torch.square(x - mean), dim=axes)
         y = (x - mean) * torch.rsqrt(var + self.eps) * self.scale + self.offset
-        stats = {"mean": mean.detach(), "var": var.detach() * (n / max(n - 1, 1))}
+        unbiased = n / max(n - 1, 1) if isinstance(n, int) else n / torch.clamp(n - 1, min=1)
+        stats = {"mean": mean.detach(), "var": var.detach() * unbiased}
         return y, stats
+
+
+def world_size(group) -> int:
+    """Ranks in a process group; 1 for None (one process)."""
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of `x` over the group's ranks, differentiable: the backward
+    sums each rank's cotangent, so every rank's gradient holds what its own
+    rows contributed to every rank's loss."""
+    from torch.distributed.nn.functional import all_reduce
+
+    return all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+
+
+def _global_moments(x: torch.Tensor, axes, n: int, group):
+    """Mean and biased variance over the rows of every rank, in the JAX
+    two-pass order (`graspnet_tpu/nn/layers.py:83-87`): the summed rows and
+    the row count for the mean, then the summed squared deviations from
+    the global mean.  Returns (mean, var, the global row count as a
+    tensor: reading it on the host would sync the card at every layer)."""
+    count = torch.full((1,), float(n), dtype=x.dtype, device=x.device)
+    total = all_reduce_sum(torch.cat([torch.sum(x, dim=axes), count]), group)
+    n_global = total[-1].detach()  # exact in float32 below 2^24 rows
+    mean = total[:-1] / n_global
+    var = all_reduce_sum(torch.sum(torch.square(x - mean), dim=axes), group) / n_global
+    return mean, var, n_global
+
+
+def set_process_group(module: nn.Module, group) -> None:
+    """Give every BatchNorm (and every module that declares a `group`
+    attribute, like the CloudCrop, whose kernel choice depends on it) in
+    `module` the process group; None restores one-process statistics."""
+    for m in module.modules():
+        if hasattr(type(m), "group"):
+            m.group = group
 
 
 class MLPLayer(nn.Module):

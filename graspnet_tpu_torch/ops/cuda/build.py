@@ -11,11 +11,14 @@ slowest build only.  Outputs go to `graspnet_tpu_torch/_build/` (listed in
 `.gitignore`), named by a hash of the source and flags, so an edited source
 rebuilds; the host library's name also hashes what `-march=native` means on
 this machine, so a library built for one CPU is never loaded on another.
-A failed build raises: there is no fallback.
+A failed build raises: there is no fallback.  Every launcher makes its
+tensors' card current around the ctypes call (`on_device`): the C side
+launches on the device that `cudaGetDevice` names.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,7 +27,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Iterator
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
@@ -50,6 +55,17 @@ def count_launch(wrapper) -> None:
     a read-modify-write that a thread switch can split."""
     with _COUNT_LOCK:
         wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def on_device(device: torch.device) -> Iterator[int]:
+    """Make `device` the current CUDA device for a launcher's ctypes call
+    and yield the handle of its current stream.  The C launchers launch on
+    the current device and set its shared memory limits there, so a tensor
+    on cuda:1 reached from a thread whose current device is cuda:0 would
+    otherwise be launched on with another device's stream."""
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream
 
 
 def _nvcc() -> str:

@@ -163,10 +163,11 @@ def _launch_ball(xyz, new_xyz, folded, radius, nsample, normalize):
     out = torch.empty((b, m, c3), dtype=torch.float32, device=xyz.device)
     fn = _fn("gn_sa1_mlp", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
              + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    err = fn(
-        idx.data_ptr(), *(t.data_ptr() for t in ts), out.data_ptr(), b, n, m, nsample,
-        normalize, c1, c2, c3, torch.cuda.current_stream(xyz.device).cuda_stream,
-    )
+    with build.on_device(xyz.device) as stream:
+        err = fn(
+            idx.data_ptr(), *(t.data_ptr() for t in ts), out.data_ptr(), b, n, m, nsample,
+            normalize, c1, c2, c3, stream,
+        )
     build.check(err, "sa1_fused")
     return out
 
@@ -190,10 +191,11 @@ def _launch_cylinder(xyz, new_xyz, rot, folded, radius, hmin, hmax_list, nsample
     cylinder_scan(*ts[:3], radius, hmin, hmax_list, grouped)
     out = torch.empty((b, m, ndepth, c3), dtype=torch.float32, device=xyz.device)
     fn = _fn("gn_crop_mlp", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    err = fn(
-        grouped.data_ptr(), *(t.data_ptr() for t in ts[3:]), out.data_ptr(), b * m * ndepth, nsample,
-        c1, c2, c3, torch.cuda.current_stream(xyz.device).cuda_stream,
-    )
+    with build.on_device(xyz.device) as stream:
+        err = fn(
+            grouped.data_ptr(), *(t.data_ptr() for t in ts[3:]), out.data_ptr(), b * m * ndepth, nsample,
+            c1, c2, c3, stream,
+        )
     build.check(err, "crop_fused")
     return out
 
@@ -352,10 +354,11 @@ def sa_feat_fused(
     # 1/r rounded to float32 once, as the plain version scales by it
     fn = _fn("gn_sa_feat_mlp", [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_float]
              + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    err = fn(
-        idx.data_ptr(), xyz.data_ptr(), new_xyz.data_ptr(), *(t.data_ptr() for t in ts), out.data_ptr(),
-        b, n, m, nsample, 1.0 / radius, c_in, c1, c2, c3, torch.cuda.current_stream(xyz.device).cuda_stream,
-    )
+    with build.on_device(xyz.device) as stream:
+        err = fn(
+            idx.data_ptr(), xyz.data_ptr(), new_xyz.data_ptr(), *(t.data_ptr() for t in ts), out.data_ptr(),
+            b, n, m, nsample, 1.0 / radius, c_in, c1, c2, c3, stream,
+        )
     build.check(err, "sa_feat_fused")
     build.count_launch(sa_feat_fused)
     return out

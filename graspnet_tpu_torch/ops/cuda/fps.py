@@ -100,10 +100,11 @@ def fps_chain(xyz: torch.Tensor, npoints: Sequence[int], cluster: int = 0) -> Tu
     xyz = xyz.contiguous()
     out = torch.empty((b, sum(npoints)), dtype=torch.int64, device=xyz.device)
     stages = (ctypes.c_int * len(npoints))(*npoints)
-    err = _lib()(
-        xyz.data_ptr(), out.data_ptr(), b, n, ctypes.cast(stages, ctypes.c_void_p),
-        len(npoints), cluster, torch.cuda.current_stream(xyz.device).cuda_stream,
-    )
+    with build.on_device(xyz.device) as stream:
+        err = _lib()(
+            xyz.data_ptr(), out.data_ptr(), b, n, ctypes.cast(stages, ctypes.c_void_p),
+            len(npoints), cluster, stream,
+        )
     build.check(err, "fps_chain")
     build.count_launch(fps_chain)
     offs = [0]

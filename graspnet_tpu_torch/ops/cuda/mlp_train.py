@@ -61,10 +61,6 @@ def _scratch(g: int, dims, sm: int, backward: bool, device) -> torch.Tensor:
     return torch.empty(fn(g, s, c1, c2, c3, sm, int(backward)), dtype=torch.float32, device=device)
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -89,14 +85,15 @@ def crop_mlp_train_backward(x, g_pooled, zext, w, gb, st, eps: float):
     dgb = [torch.empty_like(v) for v in gb]
     sm = _sm_count(x.device)
     scratch = _scratch(g, (s, c1, c2, c3), sm, True, x.device)
-    err = _fn("gn_mlp_train_bwd", 19)(
-        x.data_ptr(), g_pooled.data_ptr(), zext.data_ptr(), w[0].data_ptr(), w[1].data_ptr(),
-        w[2].data_ptr(), gb[0].data_ptr(), gb[1].data_ptr(), gb[2].data_ptr(),
-        st[0].data_ptr(), st[1].data_ptr(), st[2].data_ptr(),
-        dw[0].data_ptr(), dw[1].data_ptr(), dw[2].data_ptr(),
-        dgb[0].data_ptr(), dgb[1].data_ptr(), dgb[2].data_ptr(), scratch.data_ptr(),
-        g, s, c1, c2, c3, eps, sm, _stream(x),
-    )
+    with build.on_device(x.device) as stream:
+        err = _fn("gn_mlp_train_bwd", 19)(
+            x.data_ptr(), g_pooled.data_ptr(), zext.data_ptr(), w[0].data_ptr(), w[1].data_ptr(),
+            w[2].data_ptr(), gb[0].data_ptr(), gb[1].data_ptr(), gb[2].data_ptr(),
+            st[0].data_ptr(), st[1].data_ptr(), st[2].data_ptr(),
+            dw[0].data_ptr(), dw[1].data_ptr(), dw[2].data_ptr(),
+            dgb[0].data_ptr(), dgb[1].data_ptr(), dgb[2].data_ptr(), scratch.data_ptr(),
+            g, s, c1, c2, c3, eps, sm, stream,
+        )
     build.check(err, "mlp_train backward")
     build.count_launch(crop_mlp_train_backward)
     return dw, dgb
@@ -112,12 +109,13 @@ def _forward_kernel(x, w, gb, eps: float):
     zmin = torch.empty_like(zmax)
     sm = _sm_count(x.device)
     scratch = _scratch(g, (s, c1, c2, c3), sm, False, x.device)
-    err = _fn("gn_mlp_train_fwd", 12)(
-        x.data_ptr(), w[0].data_ptr(), w[1].data_ptr(), w[2].data_ptr(),
-        gb[0].data_ptr(), gb[1].data_ptr(), st[0].data_ptr(), st[1].data_ptr(),
-        st[2].data_ptr(), zmax.data_ptr(), zmin.data_ptr(), scratch.data_ptr(),
-        g, s, c1, c2, c3, eps, sm, _stream(x),
-    )
+    with build.on_device(x.device) as stream:
+        err = _fn("gn_mlp_train_fwd", 12)(
+            x.data_ptr(), w[0].data_ptr(), w[1].data_ptr(), w[2].data_ptr(),
+            gb[0].data_ptr(), gb[1].data_ptr(), st[0].data_ptr(), st[1].data_ptr(),
+            st[2].data_ptr(), zmax.data_ptr(), zmin.data_ptr(), scratch.data_ptr(),
+            g, s, c1, c2, c3, eps, sm, stream,
+        )
     build.check(err, "mlp_train forward")
     build.count_launch(crop_mlp_train)
     return st, zmax, zmin

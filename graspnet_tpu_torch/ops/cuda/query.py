@@ -112,10 +112,6 @@ def _fn(name: str, argtypes):
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _check_inputs(who, xyz, new_xyz, rot, nsample, ndepth):
     """Contiguous float32 CUDA (xyz, new_xyz, rot), or raise; rot=None
     stands for the ball mode, which has no rotations.  The cylinder scan
@@ -149,10 +145,11 @@ def ball_scan(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float, out: torc
     b, n, _ = xyz.shape
     m, nsample = out.shape[1], out.shape[2]
     # r*r rounded to float32 once, as the JAX package compares against it
-    err = _fn("gn_ball_query", [_P, _P, _P, _I, _I, _I, _F, _I, _P])(
-        xyz.data_ptr(), new_xyz.data_ptr(), out.data_ptr(), b, n, m,
-        radius * radius, nsample, _stream(xyz),
-    )
+    with build.on_device(xyz.device) as stream:
+        err = _fn("gn_ball_query", [_P, _P, _P, _I, _I, _I, _F, _I, _P])(
+            xyz.data_ptr(), new_xyz.data_ptr(), out.data_ptr(), b, n, m,
+            radius * radius, nsample, stream,
+        )
     build.check(err, "ball_query")
 
 
@@ -174,10 +171,11 @@ def cylinder_scan(
     b, n, _ = xyz.shape
     m, ndepth, nsample = out.shape[1:4]
     hmax = (ctypes.c_float * ndepth)(*hmax_list)
-    err = _fn("gn_cylinder_scan", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _I, _P])(
-        xyz.data_ptr(), new_xyz.data_ptr(), rot.data_ptr(), out.data_ptr(), int(out.dim() == 5),
-        b, n, m, nsample, radius * radius, hmin, ctypes.cast(hmax, ctypes.c_void_p), ndepth, _stream(xyz),
-    )
+    with build.on_device(xyz.device) as stream:
+        err = _fn("gn_cylinder_scan", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _I, _P])(
+            xyz.data_ptr(), new_xyz.data_ptr(), rot.data_ptr(), out.data_ptr(), int(out.dim() == 5),
+            b, n, m, nsample, radius * radius, hmin, ctypes.cast(hmax, ctypes.c_void_p), ndepth, stream,
+        )
     build.check(err, "cylinder_scan")
 
 
@@ -250,11 +248,12 @@ def multi_query(
     m = new_xyz.shape[1]
     hmax = (ctypes.c_float * ndepth)(*hmax_list)
     out = torch.empty((b, m, ndepth, nsample), dtype=torch.int64, device=xyz.device)
-    err = _fn("gn_multi_query", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _I, _P])(
-        xyz.data_ptr(), new_xyz.data_ptr(), 0 if rot is None else rot.data_ptr(), out.data_ptr(),
-        b, n, m, nsample, int(rotate), radius * radius, hmin, ctypes.cast(hmax, ctypes.c_void_p),
-        ndepth, _stream(xyz),
-    )
+    with build.on_device(xyz.device) as stream:
+        err = _fn("gn_multi_query", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _I, _P])(
+            xyz.data_ptr(), new_xyz.data_ptr(), 0 if rot is None else rot.data_ptr(), out.data_ptr(),
+            b, n, m, nsample, int(rotate), radius * radius, hmin, ctypes.cast(hmax, ctypes.c_void_p),
+            ndepth, stream,
+        )
     build.check(err, "multi_query")
     build.count_launch(multi_query)
     return out

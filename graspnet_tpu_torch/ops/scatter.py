@@ -66,8 +66,9 @@ def _launch(g: torch.Tensor, perm: torch.Tensor, starts: torch.Tensor, out: torc
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    err = fn(g.data_ptr(), perm.data_ptr(), starts.data_ptr(), out.data_ptr(), out.shape[0] * out.shape[1],
-             out.shape[2], torch.cuda.current_stream(g.device).cuda_stream)
+    with build.on_device(g.device) as stream:
+        err = fn(g.data_ptr(), perm.data_ptr(), starts.data_ptr(), out.data_ptr(), out.shape[0] * out.shape[1],
+                 out.shape[2], stream)
     build.check(err, "scatter_add_rows")
 
 

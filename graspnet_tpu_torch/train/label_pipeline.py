@@ -41,11 +41,13 @@ def process_grasp_labels(
     end_points: Dict[str, Any], labels: Dict[str, torch.Tensor], cfg: GraspNetConfig
 ) -> Dict[str, torch.Tensor]:
     """Device half of the full path (`label_pipeline.py:42-76`): log
-    rescale with the batch-global max and the per-view max over (A, D)."""
+    rescale with the batch-global max and the per-view max over (A, D).
+    A `label_u_max` in `labels` (the max over every data-parallel rank's
+    scenes) takes the place of this batch's own max."""
     raw = labels["grasp_labels"].float()
     widths = labels["grasp_widths"].float()
     mask = (raw > 0) & (widths <= cfg.grasp_max_width)
-    u_max = torch.max(raw)  # batch-global max, as in the reference
+    u_max = labels["label_u_max"] if "label_u_max" in labels else torch.max(raw)  # batch-global max
     rescaled = torch.where(mask, torch.log(u_max / torch.where(mask, raw, 1.0)), 0.0)
     b, ns, v, a, d = rescaled.shape
     view_label = torch.amax(rescaled.reshape(b, ns, v, a * d), dim=-1)

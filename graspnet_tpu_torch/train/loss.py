@@ -5,6 +5,13 @@ total = objectness CE + view MSE + 0.2 * grasp, the grasp term being score
 huber + angle CE + width huber(/0.1) + tolerance huber(/0.05), masked by
 objectness AND (label > THRESH_BAD); every boolean-indexed mean is a masked
 sum over the count + 1e-6.  Same metric names as the JAX package.
+
+With a torch.distributed process group of more than one rank, every
+denominator is the global batch's (the JAX package's masked means over the
+whole batch, `graspnet_tpu/train/loss.py:22-24, 59-61, 85-112`): each
+rank's loss is its own numerator over the global denominator, so the
+global loss is the sum of the ranks' losses and its gradient the sum of
+theirs.  The metrics then report the global values.
 """
 
 from __future__ import annotations
@@ -12,14 +19,32 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 from graspnet_tpu_torch.config import GraspNetConfig
 from graspnet_tpu_torch.models.geometry import huber_loss
+from graspnet_tpu_torch.nn.layers import world_size
 
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def _count(x: torch.Tensor, group) -> torch.Tensor:
+    """sum(x) over this rank's rows, or over every rank's with a group: a
+    denominator, which carries no gradient."""
+    total = torch.sum(x)
+    if group is not None:
+        total = total.detach().clone()
+        dist.all_reduce(total, group=group)
+    return total
+
+
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor, eps: float = 1e-6, group=None) -> torch.Tensor:
     m = mask.to(x.dtype)
-    return torch.sum(x * m) / (torch.sum(m) + eps)
+    return torch.sum(x * m) / (_count(m, group) + eps)
+
+
+def _mean(x: torch.Tensor, group=None) -> torch.Tensor:
+    if group is None:
+        return torch.mean(x)
+    return torch.sum(x) / _count(torch.ones_like(x), group)
 
 
 def _cross_entropy(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -33,36 +58,36 @@ def _seed_labels(end_points: Dict[str, Any]) -> torch.Tensor:
     return torch.gather(end_points["objectness_label"], 1, end_points["fp2_inds"])
 
 
-def compute_objectness_loss(end_points: Dict[str, Any]) -> Tuple[torch.Tensor, Dict]:
+def compute_objectness_loss(end_points: Dict[str, Any], group=None) -> Tuple[torch.Tensor, Dict]:
     """CE over per-seed objectness (loss.py:33-47)."""
     score = end_points["objectness_score"]  # (B, Ns, 2)
     label = _seed_labels(end_points)
-    loss = torch.mean(_cross_entropy(score, label))
+    loss = _mean(_cross_entropy(score, label), group)
     pred = torch.argmax(score, dim=-1)
     correct = (pred == label).float()
     metrics = {
-        "stage1_objectness_acc": torch.mean(correct),
-        "stage1_objectness_prec": _masked_mean(correct, pred == 1),
-        "stage1_objectness_recall": _masked_mean(correct, label == 1),
+        "stage1_objectness_acc": _mean(correct, group),
+        "stage1_objectness_prec": _masked_mean(correct, pred == 1, group=group),
+        "stage1_objectness_recall": _masked_mean(correct, label == 1, group=group),
     }
     return loss, metrics
 
 
-def compute_view_loss(end_points: Dict[str, Any], cfg: GraspNetConfig):
+def compute_view_loss(end_points: Dict[str, Any], cfg: GraspNetConfig, group=None):
     """Masked MSE over per-seed view scores (loss.py:50-64)."""
     view_score = end_points["view_score"]  # (B, Ns, V)
     view_label = end_points["batch_grasp_view_label"]
     obj_v = (_seed_labels(end_points) > 0)[..., None]
     sq = torch.square(view_score - view_label)
     # masked-element count = sum(obj) * V
-    denom = torch.sum(obj_v.float()) * view_score.shape[-1] + 1e-6
+    denom = _count(obj_v.float(), group) * view_score.shape[-1] + 1e-6
     loss = torch.sum(sq * obj_v) / denom
     pos_pred = (view_score >= cfg.thresh_good) & obj_v
     metrics = {"stage1_pos_view_pred_count": torch.sum(pos_pred.to(torch.int32))}
     return loss, metrics
 
 
-def compute_grasp_loss(end_points: Dict[str, Any], cfg: GraspNetConfig):
+def compute_grasp_loss(end_points: Dict[str, Any], cfg: GraspNetConfig, group=None):
     """Stage-2 losses at the matched view (loss.py:67-126)."""
     obj_mask = _seed_labels(end_points) > 0  # (B, Ns)
     grasp_label = end_points["batch_grasp_label"]  # (B, Ns, A, D)
@@ -79,7 +104,7 @@ def compute_grasp_loss(end_points: Dict[str, Any], cfg: GraspNetConfig):
 
     graspable = tgt_label > cfg.thresh_bad
     loss_mask = (obj_mask[..., None] & graspable).float()  # (B, Ns, D)
-    denom = torch.sum(loss_mask) + 1e-6
+    denom = _count(loss_mask, group) + 1e-6
 
     score_pred = at_tgt(end_points["grasp_score_pred"])
     score_loss = torch.sum(huber_loss(score_pred - tgt_label, 1.0) * loss_mask) / denom
@@ -91,9 +116,9 @@ def compute_grasp_loss(end_points: Dict[str, Any], cfg: GraspNetConfig):
     a = cfg.num_angle
     diff = torch.abs(angle_pred - tgt_cls)
     on = loss_mask > 0
-    acc0 = _masked_mean((angle_pred == tgt_cls).float(), on)
-    acc15 = _masked_mean(((diff <= 1) | (diff >= a - 1)).float(), on)
-    acc30 = _masked_mean(((diff <= 2) | (diff >= a - 2)).float(), on)
+    acc0 = _masked_mean((angle_pred == tgt_cls).float(), on, group=group)
+    acc15 = _masked_mean(((diff <= 1) | (diff >= a - 1)).float(), on, group=group)
+    acc30 = _masked_mean(((diff <= 2) | (diff >= a - 2)).float(), on, group=group)
 
     width_pred = at_tgt(end_points["grasp_width_pred"])
     width_loss = (
@@ -117,11 +142,19 @@ def compute_grasp_loss(end_points: Dict[str, Any], cfg: GraspNetConfig):
     return loss, metrics
 
 
-def get_loss(end_points: Dict[str, Any], cfg: GraspNetConfig):
-    """Total loss = objectness + view + 0.2 * grasp (loss.py:129-143)."""
-    obj_loss, m1 = compute_objectness_loss(end_points)
-    view_loss, m2 = compute_view_loss(end_points, cfg)
-    grasp_loss, m3 = compute_grasp_loss(end_points, cfg)
+def get_loss(end_points: Dict[str, Any], cfg: GraspNetConfig, group=None):
+    """Total loss = objectness + view + 0.2 * grasp (loss.py:129-143).
+
+    `group`: a process group of the data-parallel ranks.  With more than
+    one rank the returned loss is this rank's share of the global loss (its
+    numerators over the global denominators; backward it, then sum the
+    gradients over the ranks), and the metrics are the global values,
+    "loss/overall_loss" the global loss."""
+    if world_size(group) == 1:
+        group = None
+    obj_loss, m1 = compute_objectness_loss(end_points, group)
+    view_loss, m2 = compute_view_loss(end_points, cfg, group)
+    grasp_loss, m3 = compute_grasp_loss(end_points, cfg, group)
     loss = obj_loss + view_loss + 0.2 * grasp_loss
     metrics = {
         "loss/overall_loss": loss,
@@ -131,4 +164,11 @@ def get_loss(end_points: Dict[str, Any], cfg: GraspNetConfig):
         **m2,
         **m3,
     }
+    if group is not None:
+        # every metric is a rank's numerator over a global denominator, or
+        # a count: their sums over the ranks are the global values
+        names = list(metrics)
+        flat = torch.stack([metrics[k].detach().float() for k in names])
+        dist.all_reduce(flat, group=group)
+        metrics = {k: v.to(metrics[k].dtype) for k, v in zip(names, flat)}
     return loss, metrics

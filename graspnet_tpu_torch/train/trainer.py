@@ -1,7 +1,7 @@
-"""Single-card Trainer: optimizer, schedules, the train and eval steps, and
-the compact two-phase label path.
+"""Trainer: optimizer, schedules, the train and eval steps, the compact
+two-phase label path, and data-parallel training over a process group.
 
-Counterpart of `graspnet_tpu/train/trainer.py` on one device.  Reference
+Counterpart of `graspnet_tpu/train/trainer.py`.  Reference
 recipe (train.py:26-41, 96-112): Adam lr 1e-3 with x0.1 step decay at
 epochs 8/12/16, weight decay 0, batch 2, 18 epochs; BN momentum halves from
 0.5 every 2 epochs with floor 0.001.  The optimizer is torch's own Adam,
@@ -11,10 +11,21 @@ neither the optimizer nor the decay touches them (trainer.py:52-62 masks
 them by name).  They get the torch-style momentum update from the step's
 batch stats after the optimizer step, in place.
 
-Runs on the card unless the caller asks for the CPU.  The data- and
-candidate-parallel branches of the JAX trainer are not ported here.  The
-step is bitwise repeatable on the card: the differentiable gathers' backward
-is the deterministic scatter-add (`ops/scatter.py`), not torch's atomic one.
+Runs on the card unless the caller asks for the CPU.  The step is bitwise
+repeatable on the card: the differentiable gathers' backward is the
+deterministic scatter-add (`ops/scatter.py`), not torch's atomic one.
+
+Data parallel (`group=`, a torch.distributed process group with one rank a
+device, each feeding its own scenes): what GSPMD gives the JAX trainer on a
+'data' mesh (`trainer.py:141-178, 349-394`), by hand.  The weights are
+broadcast from the group's first rank at construction; every BatchNorm
+takes the global batch's statistics and the CloudCrop leaves the per-call
+K7 kernel (`nn.layers.set_process_group`); the loss takes the global
+denominators (`train/loss.py`) and the gradients are summed over the ranks
+before Adam; the compact path's `label_u_max` is the global max and its
+top views stay rank-local.  The ranks then hold equal weights after every
+step.  A one-rank group takes the one-process arithmetic bitwise.  Hybrid
+data x candidate training is not ported (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -25,11 +36,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from graspnet_tpu_torch.config import GraspNetConfig
 from graspnet_tpu_torch.device import resolve_device
 from graspnet_tpu_torch.models import GraspNet, init_weights
-from graspnet_tpu_torch.nn.layers import bn_update_running, shared_mlp_update_stats
+from graspnet_tpu_torch.nn.layers import bn_update_running, set_process_group, shared_mlp_update_stats, world_size
 from graspnet_tpu_torch.train.label_pipeline import matched_scene_labels, static_scene_labels
 from graspnet_tpu_torch.train.loss import get_loss
 
@@ -90,9 +102,12 @@ class Trainer:
         params: Optional[Dict[str, torch.Tensor]] = None,
         seed: int = 0,
         device: str | torch.device = "cuda",
+        group=None,
     ):
         """`params`: a GraspNet state dict (e.g. from
-        `checkpoint.params_from_jax`); None draws seeded random weights."""
+        `checkpoint.params_from_jax`); None draws seeded random weights.
+        `group`: the data-parallel process group this rank trains in (None:
+        one process); its first rank's weights win."""
         self.cfg = cfg
         self.tc = tc
         self.device = resolve_device(device, "Trainer")
@@ -102,6 +117,13 @@ class Trainer:
         else:
             model.load_state_dict(params, strict=True)
         self.model = model.to(self.device)
+        self.group = group
+        if group is not None:
+            src = dist.get_global_rank(group, 0)
+            with torch.no_grad():
+                for t in self.model.state_dict().values():
+                    dist.broadcast(t, src=src, group=group)
+            set_process_group(self.model, group if world_size(group) > 1 else None)
         self.opt = torch.optim.Adam(
             self.model.parameters(), lr=tc.learning_rate, betas=(0.9, 0.999), eps=1e-8,
             weight_decay=tc.weight_decay,
@@ -160,29 +182,69 @@ class Trainer:
 
     # -- steps ----------------------------------------------------------------
     def _forward_loss(self, device_batch: Dict[str, Any], train: bool):
+        """(loss, metrics, end_points); in a group of several ranks the loss
+        is this rank's share and the metrics the global values."""
         ep = self.model(device_batch["point_clouds"], train, labels=device_batch)
         ep["objectness_label"] = device_batch["objectness_label"]
-        loss, metrics = get_loss(ep, self.cfg)
+        loss, metrics = get_loss(ep, self.cfg, self.group)
         return loss, metrics, ep
+
+    def _global_loss(self, loss, metrics):
+        return metrics["loss/overall_loss"] if world_size(self.group) > 1 else loss.detach()
+
+    def _sum_grads(self, grads):
+        """Sum a list of gradients over the group's ranks, in place, in one
+        collective (the same order on every rank)."""
+        if self.group is None:
+            return
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self.group)
+        off = 0
+        for g in grads:
+            g.copy_(flat[off : off + g.numel()].view_as(g))
+            off += g.numel()
 
     def _train_step(self, device_batch: Dict[str, Any]):
         momentum = bn_momentum_at_epoch(self.tc, self.epoch)
         loss, metrics, ep = self._forward_loss(device_batch, train=True)
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
+        if self.group is not None:
+            params = list(self.model.parameters())
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            self._sum_grads([p.grad for p in params])
         self.opt.step()
         apply_bn_updates(self.model, ep, momentum)
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+        return self._global_loss(loss, metrics), {k: v.detach() for k, v in metrics.items()}
+
+    def _global_u_max(self, u_max) -> torch.Tensor:
+        """The batch-global label max, over every rank's scenes."""
+        u = torch.as_tensor(u_max, dtype=torch.float32).to(self.device)
+        if self.group is not None:
+            dist.all_reduce(u, op=dist.ReduceOp.MAX, group=self.group)
+        return u
+
+    def _full_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """A full-label batch on the device; in a group, with the label max
+        of every rank's scenes, which the rescale takes in place of this
+        batch's own."""
+        device_batch = self._device_batch(batch)
+        if self.group is None or "label_u_max" in device_batch:
+            return device_batch
+        u_max = self._global_u_max(torch.max(device_batch["grasp_labels"].float()))
+        return {**device_batch, "label_u_max": u_max}
 
     def step(self, batch: Dict[str, Any]):
         """One optimization step on a host or device full-label batch."""
-        return self._train_step(self._device_batch(batch))
+        return self._train_step(self._full_batch(batch))
 
     def eval_step(self, batch: Dict[str, Any]):
         """Running-stat BN, label crops (the reference's eval epoch)."""
         with torch.no_grad():
-            loss, metrics, _ = self._forward_loss(self._device_batch(batch), train=False)
-        return loss, metrics
+            loss, metrics, _ = self._forward_loss(self._full_batch(batch), train=False)
+        return self._global_loss(loss, metrics), metrics
 
     # -- compact two-phase step ---------------------------------------------
     def prepare(self, batch: Dict[str, Any], *, train: bool = True):
@@ -211,8 +273,12 @@ class Trainer:
         top_np = top.cpu().numpy()
         matched = [matched_scene_labels(c, top_np[i], self.cfg) for i, c in enumerate(ctxs)]
         labels = {k: np.stack([m[k] for m in matched]) for k in matched[0]}
-        labels["label_u_max"] = np.float32(max(c.scene_umax for c in ctxs))
+        u_max = np.float32(max(c.scene_umax for c in ctxs))
+        if self.group is None:
+            labels["label_u_max"] = u_max
         device_batch = {**small, **static, **self.put(labels)}
+        if self.group is not None:
+            device_batch["label_u_max"] = self._global_u_max(u_max)
         if qidx:
             device_batch["sa_query_idx"] = qidx
         return device_batch
@@ -228,11 +294,14 @@ class Trainer:
         """(loss, gradients by state-dict key) on a compact batch, changing
         no state.  Buffers (the BN running stats) get zero gradients, as
         their leaves do in the JAX package's grads."""
-        loss, _, _ = self._forward_loss(self._finalize_batch(self.prepare(batch)), train=True)
+        loss, metrics, _ = self._forward_loss(self._finalize_batch(self.prepare(batch)), train=True)
         names, params = zip(*self.model.named_parameters())
-        grads = dict(zip(names, torch.autograd.grad(loss, params)))
+        grads = list(torch.autograd.grad(loss, params, allow_unused=True))
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+        self._sum_grads(grads)
+        grads = dict(zip(names, grads))
         full = {k: grads.get(k, torch.zeros_like(v)) for k, v in self.model.state_dict().items()}
-        return loss.detach(), full
+        return self._global_loss(loss, metrics), full
 
     def eval_step_compact(self, batch: Dict[str, Any]):
         """Eval step on a compact batch: the running-stat pre-pass, then
@@ -240,4 +309,4 @@ class Trainer:
         handle = self.prepare(batch, train=False)
         with torch.no_grad():
             loss, metrics, _ = self._forward_loss(self._finalize_batch(handle), train=False)
-        return loss, metrics
+        return self._global_loss(loss, metrics), metrics

@@ -9,8 +9,11 @@ calls (the event records, the queue filling at its start) cancels, and a
 host stall inside one window does not reach the record.  Every iteration
 sums each output tensor into a running total, as `slope_timing.py:24-31`
 consumes every output leaf, so a stage is timed with all of its outputs
-made.  On CPU tensors the windows run on the host clock and the records say
-`backend: "cpu"`: that is no device time.
+made.  On CPU tensors the windows run on the host clock, on one intra-op
+thread, and the records say `backend: "cpu"`: that is no device time.  (A
+pool of threads on a host shared with other processes stalls at its
+barriers for hundreds of ms, long enough to make every short window slower
+than a long one: a negative slope under a loaded test run.)
 
 Every `timeit` of the process records into `RECORDS`; `dump_records(path,
 source)` writes `{"stage_ms", "backend", "source", "gpu"}` as JSON.  The
@@ -103,14 +106,20 @@ def _window(fn, args, k: int, device: torch.device) -> float:
 def timeit(name: str, fn, *args, width: int = 50) -> float:
     """Record and print the slope time of fn(*args) in ms."""
     device = _device(args)
-    for leaf in _tensors(fn(*args)):  # warm-up: builds kernels, fills caches
-        leaf.detach().float().sum()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    lo, hi = [], []
-    for _ in range(REPS):  # in turns, so that a slow stretch of the host reaches both lengths
-        lo.append(_window(fn, args, K_LO, device))
-        hi.append(_window(fn, args, K_HI, device))
+    threads = torch.get_num_threads()
+    if device.type == "cpu":
+        torch.set_num_threads(1)
+    try:
+        for leaf in _tensors(fn(*args)):  # warm-up: builds kernels, fills caches
+            leaf.detach().float().sum()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        lo, hi = [], []
+        for _ in range(REPS):  # in turns, so that a slow stretch of the host reaches both lengths
+            lo.append(_window(fn, args, K_LO, device))
+            hi.append(_window(fn, args, K_HI, device))
+    finally:
+        torch.set_num_threads(threads)
     t_lo, t_hi = min(lo), min(hi)
     per = (t_hi - t_lo) / (K_HI - K_LO)
     print(f"{name:{width}s} {per:9.4f} ms", flush=True)

@@ -854,3 +854,62 @@ def test_kernels_launch_from_concurrent_threads(dev):
 
     with cf.ThreadPoolExecutor(max_workers=8) as pool:
         assert all(f.result(timeout=120) for f in [pool.submit(work, i) for i in range(8)])
+
+
+def test_two_layer_crop_mlp_serves_and_trains_on_the_card(dev):
+    """The CloudCrop's JAX routes on the card with crop_mlp=(3, 16, 32):
+    eval takes K6 and the generic MLP (K5 takes 3 layers only), training
+    takes K6 and the generic MLP (K7 likewise).  The forward equals the
+    CPU's (selections exactly, floats within FEATURE_TOL x max(1, scale));
+    a training probe's loss within 1e-5 relative and its gradients within
+    chip_smoke.py's card-vs-CPU bounds (3e-2 x max(1, max |g|) per leaf)."""
+    import dataclasses
+
+    from graspnet_tpu_torch.models import GraspNet, init_weights
+    from graspnet_tpu_torch.scripts.multiproc_check import build_batch
+    from graspnet_tpu_torch.train.trainer import Trainer
+
+    cfg = dataclasses.replace(GraspNetConfig.tiny(), crop_mlp=(3, 16, 32))
+    clouds = torch.from_numpy(np.random.default_rng(4).uniform(-0.3, 0.3, (2, cfg.num_point, 3)).astype(np.float32))
+    model = init_weights(GraspNet(cfg), 1).eval()
+    with torch.no_grad():
+        want = model(clouds)
+        model.to(dev)
+        kernels.reset_launches()
+        got = model(clouds.to(dev))
+    counts = kernels.launches()
+    assert (counts["crop_fused"], counts["crop_group"]) == (0, 1), counts
+    for key in ("fp2_inds", "grasp_top_view_inds"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+    for key in ("grasp_score_pred", "grasp_angle_cls_pred", "grasp_width_pred", "grasp_tolerance_pred"):
+        assert_features_close(got[key].cpu(), want[key])
+    batch = build_batch(cfg, 0, 0, 2)
+    card, cpu = Trainer(cfg, seed=0, device=dev), Trainer(cfg, seed=0, device="cpu")
+    kernels.reset_launches()
+    l_card, g_card = card.grads_compact(batch)
+    counts = kernels.launches()
+    assert (counts["crop_mlp_train"], counts["crop_mlp_train_backward"], counts["crop_group"]) == (0, 0, 1), counts
+    l_cpu, g_cpu = cpu.grads_compact(batch)
+    assert abs(float(l_card) - float(l_cpu)) <= 1e-5 * abs(float(l_cpu))
+    for k, g in g_cpu.items():
+        err = (g_card[k].cpu() - g).abs().max().item()
+        assert err <= 3e-2 * max(1.0, g.abs().max().item()), (k, err)
+
+
+def test_launchers_take_their_tensors_card_from_another_current_device(dev):
+    """With cuda:0 current, kernels on tensors of cuda:1 launch there (the
+    launchers enter their inputs' device) and equal the plain versions."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: this host has one")
+    rng = np.random.default_rng(5)
+    xyz = cloud(rng, 2, 4096)
+    centres = xyz[:, :256].clone()
+    other = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        got_fps = kernels.fps_chain(xyz.to(other), (512, 256))
+        got_ball = kernels.ball_query(xyz.to(other), centres.to(other), 0.05, 16)
+        assert got_ball.device == other
+    want_fps = kfps.fps_chain_plain(xyz, (512, 256))
+    for g, w in zip(got_fps, want_fps):
+        assert torch.equal(g.cpu(), w)
+    assert torch.equal(got_ball.cpu(), kquery.ball_query_plain(xyz, centres, 0.05, 16))

@@ -5,7 +5,8 @@ kernel when imported; with JAX blocked, a tiny serving call, a tiny
 training step, the training CLI's loop over a synthetic dataset and the
 timing entry points and the eval dump loop (`apps/test.py`, dump and AP)
 run on the CPU, loading no library but the host label library; so does a
-tiny micro-batched `GraspService.compute()` with the collision filter."""
+tiny micro-batched `GraspService.compute()` with the collision filter, and
+a tiny candidate-sharded pipeline on the CPU repeated twice."""
 
 import os
 import re
@@ -52,7 +53,11 @@ new = {"graspnet_tpu_torch.utils.timing", "graspnet_tpu_torch.scripts.bench",
        "graspnet_tpu_torch.apps.stereo_demo", "graspnet_tpu_torch.apps.grasp_tf", "graspnet_tpu_torch.apps.grasp_base",
        "graspnet_tpu_torch.utils.transforms", "graspnet_tpu_torch.postproc.gripper", "graspnet_tpu_torch.sensors",
        "graspnet_tpu_torch.sensors.cameras", "graspnet_tpu_torch.sensors.viz",
-       "graspnet_tpu_torch.scripts.bench_service"}
+       "graspnet_tpu_torch.scripts.bench_service", "graspnet_tpu_torch.data.tolerance",
+       "graspnet_tpu_torch.apps.generate_tolerance", "graspnet_tpu_torch.parallel",
+       "graspnet_tpu_torch.parallel.mesh", "graspnet_tpu_torch.parallel.distributed",
+       "graspnet_tpu_torch.parallel.candidate", "graspnet_tpu_torch.scripts.multiproc_check",
+       "graspnet_tpu_torch.scripts.bench_scaling", "graspnet_tpu_torch.scripts.fleet_projection"}
 assert new <= set(walked), new - set(walked)
 import chip_smoke
 from graspnet_tpu_torch.apps import GraspPipeline
@@ -61,6 +66,9 @@ from graspnet_tpu_torch.ops.cuda import build
 p = GraspPipeline(cfg=GraspNetConfig.tiny(), device="cpu")
 gg = p.get_grasps_topk(np.random.default_rng(0).uniform(-0.3, 0.3, (512, 3)).astype(np.float32))
 assert gg.grasp_group_array.shape[1] == 17
+from graspnet_tpu_torch.parallel import make_mesh
+pm = GraspPipeline(cfg=GraspNetConfig.tiny(), device="cpu", mesh=make_mesh(2, ("candidate",), devices=["cpu"] * 2))
+assert pm.get_grasps_topk(np.random.default_rng(0).uniform(-0.3, 0.3, (512, 3)).astype(np.float32)).grasp_group_array.shape[1] == 17
 from graspnet_tpu_torch.apps.service import GraspService, ServiceConfig
 svc = GraspService(ServiceConfig(model_cfg=GraspNetConfig.tiny(), depth_min=0.0, depth_max=10.0, device="cpu",
                                  max_batch=2))

@@ -11,7 +11,7 @@ TestIO and TestRosHelpers and of `tests/test_service_batching.py`, plus:
   fields equal and their floats, `best_pose` and `tf_pose` within 1e-5
   (the decode's tolerance in `tests/test_torch_port_pipeline.py`);
 * the MicroBatcher against the per-request path at 1e-5;
-* `candidate_devices` / `data_devices` above 1 raising NotImplementedError
+* `candidate_devices` / `data_devices` raising where they cannot serve
   in ServiceConfig and in the CLI's flags, and the card as the default.
 Every blocking wait has a timeout and every server an ephemeral port, so a
 hang fails one test.
@@ -163,12 +163,20 @@ class TestService:
 
 @pytest.mark.parametrize("field", ["candidate_devices", "data_devices"])
 def test_multi_device_flags_raise(field):
-    """One card: the multi-device paths raise instead of serving on one."""
-    with pytest.raises(NotImplementedError, match=r"\[21\]"):
-        ServiceConfig(model_cfg=GraspNetConfig.tiny(), device="cpu", **{field: 2})
-    with pytest.raises(NotImplementedError, match=field):
-        service_mod.main(["--device", "cpu", f"--{field}", "2"])
+    """The multi-device paths raise where they cannot serve: a data mesh
+    without a max_batch that is a multiple of it, and more cards than the
+    host has (no card stands in for another).  They serve on the CPU and
+    on a card list: tests/test_torch_port_parallel.py."""
+    if field == "data_devices":
+        with pytest.raises(ValueError, match="max_batch"):
+            ServiceConfig(model_cfg=GraspNetConfig.tiny(), device="cpu", data_devices=2).mesh()
+        with pytest.raises(ValueError, match="max_batch"):
+            service_mod.main(["--device", "cpu", "--data_devices", "2"])
+    n = max(2, torch.cuda.device_count() + 1)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        ServiceConfig(model_cfg=GraspNetConfig.tiny(), max_batch=n, **{field: n}).mesh()
     assert ServiceConfig(**{field: 1}).device == "cuda"  # the card by default
+    assert ServiceConfig(device="cpu", max_batch=2, **{field: 2}).mesh().devices.tolist() == [torch.device("cpu")] * 2
 
 
 def test_cli_serves_tcp_until_interrupted(monkeypatch, capsys):

@@ -131,9 +131,16 @@ def test_cli_dumps_and_evaluates(loop, tmp_path):
 
 @pytest.mark.parametrize("flags", [["--devices", "2"], ["--devices", "8"]])
 def test_more_than_one_card_is_a_parse_error(flags, capsys):
+    """More cards than the host has (on CUDA, the default) is a parse
+    error; `--devices N --device cpu` shards over the CPU
+    (tests/test_torch_port_parallel.py)."""
+    n = int(flags[1])
+    if torch.cuda.device_count() >= n:
+        pytest.skip(f"this host has {n} cards")
     with pytest.raises(SystemExit):
         app.parse_args(["--dataset_root", "x", "--dump_dir", "y", *flags])
-    assert "[21]" in capsys.readouterr().err
+    assert "CUDA device" in capsys.readouterr().err
+    assert app.parse_args(["--dataset_root", "x", "--dump_dir", "y", "--device", "cpu", *flags]).devices == n
 
 
 def test_the_loop_runs_on_the_card_by_default(loop, tmp_path):
