@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's serving path, training step, eval path and
-parallel paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving path, training step, eval path,
+parallel paths, MSG modules and checkpoint verifier on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py
 
@@ -139,16 +140,37 @@ Phases (each prints one JSON line; any failure exits non-zero):
  21. the kernels line (launches per serving forward, per training step,
      per tool run, per eval batch, per feature-input forward, per service
      dispatch, per crop-routes forward and probe, per parallel_infer run,
-     per one-rank NCCL step and per rank's step of the two-rank run), the
-     nvidia-smi line, and last {"ok": true, "device": {...}}.
+     per one-rank NCCL step, per rank's step of the two-rank run, per
+     rank's step of the 2 x 2 hybrid run, per MSG forward and per
+     verify_checkpoint run), printed after phase 24, the nvidia-smi line,
+     and last {"ok": true, "device": {...}};
+ 22. hybrid_train (after phase 17): hybrid data x candidate training on
+     the one card: gloo ranks laid out 2 x 2 and 1 x 2 at GraspNetConfig()
+     on the B=2 batch, stage 2 on seed blocks of 512; the probe's loss and
+     summed gradients against the single-process B=2 probe within the
+     train-correctness bounds, every rank's weights and BN buffers bitwise
+     equal after a step, each rank's step launching K4 4, K6 1, the
+     scatter-add 5 and no K7; on every rank, outside the counted runs, K6
+     bitwise its plain version and the scatter-add bitwise the CPU's sum on
+     the calls of one more probe (its seed block's shapes);
+ 23. msg: the MSG modules (models/msg.py) at the PointNet++ classification
+     model's SA1 widths (npoint 512, radii 0.1/0.2/0.4, nsample
+     16/32/128) and an LFP stage over it, on the B=2 tabletop clouds: FPS
+     and K4 indices equal to their plain versions, the forward equal to the
+     CPU's, launches FPS 1 and K4 5 a forward;
+ 24. verify_checkpoint: scripts/verify_checkpoint.py on a fabricated
+     reference-layout .tar and a synthetic frame: PASS on the card against
+     the CPU's rows, exit 1 on a golden with one row perturbed.
 
 Without CUDA it exits with code 2 before printing any result.  The
 deterministic-mode child runs this file with `--deterministic-steps FILE`;
-ddp_train's two ranks are spawned processes (torch.multiprocessing).
+ddp_train's two ranks (hybrid_rank laid out 2 x 1) and hybrid_train's
+ranks are spawned processes (torch.multiprocessing).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -225,6 +247,12 @@ TOL_LABEL_POINTS = 2048  # tolerance: label points of the synthetic object
 # timed calls a mesh
 PARALLEL_ATOL, PARALLEL_REPS = 1e-5, 5
 MULTIPROC_TIMEOUT_S = 600  # ddp_train: scripts/multiproc_check.py on the card
+VERIFY_TIMEOUT_S = 300  # verify_checkpoint: the script's child process on the card
+# verify_checkpoint's frame: with WEIGHT_SEED's weights its top 51 pre-NMS
+# scores lie at least 1.8e-5 apart on the CPU (rows sorted by a score that
+# another rounding moves by ~1e-7 keep their order); frame seeds 0 and 2
+# hold pairs 2.9e-7 and 1.9e-6 apart, near enough to swap two rows
+VERIFY_FRAME_SEED = 1
 
 
 def log(**kv) -> None:
@@ -1266,6 +1294,32 @@ def repeatability_phase(cfg, full) -> dict:
             "child_losses_equal_default_workspace": got["losses"] == run1, "child_s": child_s}
 
 
+@contextlib.contextmanager
+def recording(module, name: str):
+    """The calls of `module.<name>` while the block runs, their tensor
+    arguments (and tuples of them) copied.  A kernel wrapper counts its
+    launches under its module-level name, which is the recorder while the
+    block runs when `module` is the wrapper's own: those launches stay out
+    of the counts."""
+    calls, real = [], getattr(module, name)
+
+    def copied(a):
+        if isinstance(a, torch.Tensor):
+            return a.clone()
+        return tuple(copied(x) for x in a) if isinstance(a, tuple) else a
+
+    def record(*args):
+        calls.append(tuple(copied(a) for a in args))
+        return real(*args)
+
+    record.launches = real.launches
+    setattr(module, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
 def capture_scatter_calls(cfg, full):
     """The scatter-add calls of one Trainer.step as its backward makes them:
     (g, idx, n, plan), copied."""
@@ -1274,28 +1328,37 @@ def capture_scatter_calls(cfg, full):
 
     tr = Trainer(cfg, TrainConfig(), seed=TRAIN_SEED)
     dev_full = tr.put(full)
-    calls, real = [], gathers.scatter_add_rows
-
-    def record(g, idx, n, plan=None):
-        calls.append((g.clone(), idx.clone(), n, tuple(p.clone() for p in plan)))
-        return real(g, idx, n, plan)
-
-    # the wrapper counts its launches under its module-level name, which is
-    # `record` during the capture: this step's launches stay out of the counts
-    record.launches = real.launches
-    gathers.scatter_add_rows = record
-    try:
+    with recording(gathers, "scatter_add_rows") as calls:
         tr.step(dev_full)
         torch.cuda.synchronize()
-    finally:
-        gathers.scatter_add_rows = real
     return calls
 
 
+def check_scatter_call(g, idx, n, plan):
+    """The scatter-add kernel at one call: bitwise repeatable, bitwise the
+    CPU's sequential sum (the same adds in the same order) and within
+    SCATTER_F64_TOL x max(1, scale) of a float64 sum.  Returns (the
+    kernel's sum, |kernel - plain on the card|, its error from float64, the
+    scale)."""
+    from graspnet_tpu_torch.ops import scatter as ksc
+
+    got = ksc.scatter_add_rows(g, idx, n, plan)
+    again = ksc.scatter_add_rows(g, idx, n, plan)
+    plain = ksc.scatter_add_rows_plain(g, idx, n)
+    cpu = ksc.scatter_add_rows_plain(g.cpu(), idx.cpu(), n)
+    f64 = ksc.scatter_add_rows_plain(g.cpu().double(), idx.cpu(), n)
+    torch.cuda.synchronize()
+    scale = max(1.0, f64.abs().max().item())
+    err64 = (got.cpu().double() - f64).abs().max().item()
+    if not torch.equal(got, again) or not torch.equal(got.cpu(), cpu) or err64 > SCATTER_F64_TOL * scale:
+        raise AssertionError(f"scatter_add_rows at {tuple(g.shape)} -> {n}: repeatable "
+                             f"{torch.equal(got, again)}, equal to the CPU's sum {torch.equal(got.cpu(), cpu)}, "
+                             f"{err64} from float64 at scale {scale}")
+    return got, (got - plain).abs().max().item(), err64, scale
+
+
 def scatter_kernel_row(cfg, full) -> dict:
-    """The scatter-add kernel at each call of a step: bitwise the CPU's
-    sequential sum (the same adds in the same order), within
-    SCATTER_F64_TOL x max(1, scale) of a float64 sum, bitwise repeatable;
+    """The scatter-add kernel at each call of a step (`check_scatter_call`);
     times of the step's calls together."""
     from graspnet_tpu_torch.ops import scatter as ksc
 
@@ -1304,19 +1367,8 @@ def scatter_kernel_row(cfg, full) -> dict:
         raise AssertionError(f"a step made {len(calls)} scatter-add calls, expected 5")
     shapes, err_plain, nbytes, adds = [], 0.0, 0, 0
     for g, idx, n, plan in calls:
-        got = ksc.scatter_add_rows(g, idx, n, plan)
-        again = ksc.scatter_add_rows(g, idx, n, plan)
-        plain = ksc.scatter_add_rows_plain(g, idx, n)
-        cpu = ksc.scatter_add_rows_plain(g.cpu(), idx.cpu(), n)
-        f64 = ksc.scatter_add_rows_plain(g.cpu().double(), idx.cpu(), n)
-        torch.cuda.synchronize()
-        scale = max(1.0, f64.abs().max().item())
-        err64 = (got.cpu().double() - f64).abs().max().item()
-        if not torch.equal(got, again) or not torch.equal(got.cpu(), cpu) or err64 > SCATTER_F64_TOL * scale:
-            raise AssertionError(f"scatter_add_rows at {tuple(g.shape)} -> {n}: repeatable "
-                                 f"{torch.equal(got, again)}, equal to the CPU's sum {torch.equal(got.cpu(), cpu)}, "
-                                 f"{err64} from float64 at scale {scale}")
-        err_plain = max(err_plain, (got - plain).abs().max().item())
+        _, err, err64, scale = check_scatter_call(g, idx, n, plan)
+        err_plain = max(err_plain, err)
         b, k, c = g.shape
         nbytes += g.numel() * 4 + idx.numel() * 8 + b * n * c * 4
         adds += g.numel()
@@ -1936,49 +1988,15 @@ def parallel_infer_phase(clouds: np.ndarray, ckpt: str) -> dict:
     return {"launches": total, **timing}
 
 
-def _local_half(compact: dict, rank: int) -> dict:
-    """Scene `rank` of a compact host batch, as a batch of one."""
+def _scenes(compact: dict, lo: int, hi: int) -> dict:
+    """Scenes [lo, hi) of a compact host batch, as a batch."""
     out = {}
     for k, v in compact.items():
         if k == "sa_inds":
-            out[k] = {s: a[rank : rank + 1] for s, a in v.items()}
+            out[k] = {s: a[lo:hi] for s, a in v.items()}
         else:
-            out[k] = v[rank : rank + 1]
+            out[k] = v[lo:hi]
     return out
-
-
-def ddp_rank(rank: int, port: int, batch_path: str, out_dir: str) -> None:
-    """One of the two ranks of ddp_train_phase on the card, over gloo: its
-    scene of the B=2 batch through `Trainer(group=)`: the probe's loss and
-    (summed) gradients, then one step_compact; each one's kernel launches."""
-    import pickle
-
-    import torch.distributed as dist
-
-    from graspnet_tpu_torch.config import GraspNetConfig
-    from graspnet_tpu_torch.ops import cuda as kernels
-    from graspnet_tpu_torch.parallel import distributed
-    from graspnet_tpu_torch.train.trainer import TrainConfig, Trainer
-
-    distributed.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo", device="cuda")
-    try:
-        with open(batch_path, "rb") as f:
-            local = _local_half(pickle.load(f), rank)
-        tr = Trainer(GraspNetConfig(), TrainConfig(), seed=TRAIN_SEED, group=dist.group.WORLD)
-        tr.set_epoch(0)
-        kernels.reset_launches()
-        loss, grads = tr.grads_compact(local)
-        torch.cuda.synchronize()
-        probe = kernels.launches()
-        kernels.reset_launches()
-        step_loss, _ = tr.step_compact(local)
-        torch.cuda.synchronize()
-        step = kernels.launches()
-        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), loss=float(loss), step_loss=float(step_loss),
-                 launches=json.dumps({"probe": probe, "step": step}),
-                 **{f"g:{k}": v.cpu().numpy() for k, v in grads.items()})
-    finally:
-        dist.destroy_process_group()
 
 
 def ddp_train_phase(cfg, full: dict, compact: dict) -> dict:
@@ -1986,7 +2004,9 @@ def ddp_train_phase(cfg, full: dict, compact: dict) -> dict:
     - A one-rank NCCL group: one Trainer(group=).step bitwise the plain
       card step (loss and every state tensor), K7 launched (world size 1).
     - Two ranks on the one card over gloo (NCCL takes one rank a card),
-      one scene each of the B=2 batch: the probe's loss and summed
+      `hybrid_rank` laid out 2 x 1 (data-parallel), one scene each of the
+      B=2 batch, K6 and the scatter-add held against their plain versions
+      at a rank's shapes: the probe's loss and summed
       gradients against the single-process B=2 card probe within the
       train-correctness bounds (the routes differ by K7, as card and CPU
       do); each rank launches K7 0 times, K6 and the scatter-add.
@@ -2037,9 +2057,10 @@ def ddp_train_phase(cfg, full: dict, compact: dict) -> dict:
         with open(batch_path, "wb") as f:
             pickle.dump(compact, f)
         t0 = time.perf_counter()
-        torch.multiprocessing.spawn(ddp_rank, args=(free_port(), batch_path, tmp), nprocs=2, join=True)
+        torch.multiprocessing.spawn(hybrid_rank, args=(free_port(), batch_path, tmp, (2, 1)), nprocs=2, join=True)
         ranks_s = time.perf_counter() - t0
         ranks = [dict(np.load(os.path.join(tmp, f"rank{r}.npz"))) for r in range(2)]
+    block_kernels = [json.loads(str(r["block_kernels"])) for r in ranks]
     g_ranks = {k[2:]: torch.from_numpy(v) for k, v in ranks[0].items() if k.startswith("g:")}
     found = compare_grads(float(ranks[0]["loss"]), g_ranks, l_ref, g_ref, "2 gloo ranks vs the B=2 step")
     rank_launches = [json.loads(str(r["launches"])) for r in ranks]
@@ -2057,9 +2078,302 @@ def ddp_train_phase(cfg, full: dict, compact: dict) -> dict:
     if proc.returncode != 0 or not verdict.get("ok"):
         raise AssertionError(f"multiproc_check on the card: rc {proc.returncode}, {verdict or proc.stderr[-2000:]}")
     log(phase="ddp_train", one_rank_nccl_bitwise=True, one_rank_launches=one_rank, two_gloo_ranks=found,
-        rank_launches=rank_launches, two_ranks_s=ranks_s, multiproc_check=verdict,
+        rank_launches=rank_launches, rank_kernels_vs_plain=block_kernels, two_ranks_s=ranks_s, multiproc_check=verdict,
         multiproc_check_s=time.perf_counter() - t0, phase_s=time.perf_counter() - t_phase)
     return {"one_rank_step": one_rank, "rank_step": rank_launches[0]["step"]}
+
+
+def block_kernel_checks(crops: list, scatters: list) -> dict:
+    """K6 and the scatter-add at one probe's calls (`recording`), each
+    against its plain version: K6's offsets bitwise `crop_group_plain`'s,
+    the scatter-add as `check_scatter_call` holds it.  The shapes and
+    errors."""
+    from graspnet_tpu_torch.ops.cuda import crop as kcrop
+
+    if len(crops) != 1 or len(scatters) != 5:
+        raise AssertionError(f"a probe made {len(crops)} crop_group and {len(scatters)} scatter-add calls, "
+                             f"expected 1 and 5")
+    out = {"crop_group": [], "scatter_add_rows": []}
+    for args in crops:
+        got, want = kcrop.crop_group(*args), kcrop.crop_group_plain(*args)
+        if not torch.equal(got, want):
+            raise AssertionError(f"crop_group at seeds {tuple(args[1].shape)} differs from its plain version by "
+                                 f"{(got - want).abs().max().item()}")
+        out["crop_group"].append({"seeds": list(args[1].shape[:2]), "bitwise_plain": True})
+    for g, idx, n, plan in scatters:
+        _, err, err64, scale = check_scatter_call(g, idx, n, plan)
+        out["scatter_add_rows"].append({"g": list(g.shape), "n": n, "max_abs_err_plain": err, "err_f64": err64,
+                                        "scale": scale, "bitwise_cpu_sum": True})
+    return out
+
+
+def hybrid_rank(rank: int, port: int, batch_path: str, out_dir: str, layout: tuple) -> None:
+    """One rank of hybrid_train_phase (and, laid out 2 x 1, of
+    ddp_train_phase) on the card, over gloo: its data row's scenes of the
+    B=2 batch through `Trainer(group=, candidate=C)`, stage 2 on its seed
+    block: the probe's loss and (summed) gradients, then one step_compact;
+    each one's kernel launches and the state after the step.  Then, outside
+    the counted runs, one more probe whose K6 and scatter-add calls are
+    held against their plain versions (`block_kernel_checks`)."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from graspnet_tpu_torch.config import GraspNetConfig
+    from graspnet_tpu_torch.models import heads
+    from graspnet_tpu_torch.ops import cuda as kernels
+    from graspnet_tpu_torch.ops import scatter as gathers
+    from graspnet_tpu_torch.parallel import distributed
+    from graspnet_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    rows, cand = layout
+    distributed.initialize(f"127.0.0.1:{port}", rows * cand, rank, backend="gloo", device="cuda")
+    try:
+        with open(batch_path, "rb") as f:
+            compact = pickle.load(f)
+        sl = distributed.process_local_batch_slice(len(compact["label_ctx"]), cand)
+        local = _scenes(compact, sl.start, sl.stop)
+        tr = Trainer(GraspNetConfig(), TrainConfig(), seed=TRAIN_SEED, group=dist.group.WORLD, candidate=cand)
+        tr.set_epoch(0)
+        kernels.reset_launches()
+        loss, grads = tr.grads_compact(local)
+        torch.cuda.synchronize()
+        probe = kernels.launches()
+        kernels.reset_launches()
+        step_loss, _ = tr.step_compact(local)
+        torch.cuda.synchronize()
+        step = kernels.launches()
+        grads = {f"g:{k}": v.cpu().numpy() for k, v in grads.items()} if rank == 0 else {}
+        state = {f"s:{k}": v.cpu().numpy() for k, v in tr.model.state_dict().items()}
+        with recording(heads, "crop_group") as crops, recording(gathers, "scatter_add_rows") as scatters:
+            tr.grads_compact(local)
+            torch.cuda.synchronize()
+        checked = block_kernel_checks(crops, scatters)
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), loss=float(loss), step_loss=float(step_loss),
+                 launches=json.dumps({"probe": probe, "step": step}), block_kernels=json.dumps(checked),
+                 **grads, **state)
+    finally:
+        dist.destroy_process_group()
+
+
+def hybrid_train_phase(cfg, compact: dict) -> dict:
+    """Phase 22: hybrid data x candidate training on the card: gloo ranks
+    sharing it (NCCL takes one rank a card), laid out 2 x 2 (a scene a data
+    row, two seed blocks of 512 each) and 1 x 2 (both scenes, two blocks),
+    at GraspNetConfig() on the B=2 batch.  In each layout the probe's loss
+    and summed gradients against the single-process B=2 card probe within
+    the train-correctness bounds (the routes differ by K7, as card and CPU
+    do); every rank's weights and BN buffers after one step bitwise rank
+    0's; each rank's step launches K4 4, K6 1, the scatter-add 5 and no K7;
+    on every rank, K6 and the scatter-add against their plain versions at
+    its seed block's shapes (`hybrid_rank`).  Returns a 2 x 2 rank's step
+    launches."""
+    import pickle
+    import socket
+
+    from graspnet_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+
+    def free_port():
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    ref = Trainer(cfg, TrainConfig(), seed=TRAIN_SEED)
+    ref.set_epoch(0)
+    l_ref, g_ref = ref.grads_compact(compact)
+    del ref
+    found, step_launches = {}, None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_hybrid_") as tmp:
+        batch_path = os.path.join(tmp, "compact.pkl")
+        with open(batch_path, "wb") as f:
+            pickle.dump(compact, f)
+        for layout in ((2, 2), (1, 2)):
+            name, n = f"{layout[0]}x{layout[1]}", layout[0] * layout[1]
+            out_dir = os.path.join(tmp, name)
+            os.makedirs(out_dir)
+            t0 = time.perf_counter()
+            torch.multiprocessing.spawn(hybrid_rank, args=(free_port(), batch_path, out_dir, layout), nprocs=n,
+                                        join=True)
+            ranks_s = time.perf_counter() - t0
+            ranks = [dict(np.load(os.path.join(out_dir, f"rank{r}.npz"))) for r in range(n)]
+            g = {k[2:]: torch.from_numpy(v) for k, v in ranks[0].items() if k.startswith("g:")}
+            grads = compare_grads(float(ranks[0]["loss"]), g, l_ref, g_ref, f"hybrid {name} vs the B=2 step")
+            states = [k for k in ranks[0] if k.startswith("s:")]
+            unequal = [(r, k) for r in range(1, n) for k in states if not np.array_equal(ranks[r][k], ranks[0][k])]
+            if unequal:
+                raise AssertionError(f"hybrid {name}: rank states differ after a step: {unequal[:5]}")
+            if len({float(r["step_loss"]) for r in ranks}) != 1:
+                raise AssertionError(f"hybrid {name}: the ranks report different global losses")
+            launches = [json.loads(str(r["launches"])) for r in ranks]
+            for r, counts in enumerate(launches):
+                c = counts["step"]
+                want = {**{k: 0 for k in c}, "ball_query": 4, "crop_group": 1, "scatter_add_rows": 5}
+                if c != want:
+                    raise AssertionError(f"hybrid {name} rank {r} step: launches {c}, expected {want}")
+            found[name] = dict(card_vs_b2_step=grads, ranks_bitwise_equal=True, state_tensors=len(states),
+                               rank_launches=[c["step"] for c in launches], ranks_s=ranks_s,
+                               rank_kernels_vs_plain=[json.loads(str(r["block_kernels"])) for r in ranks])
+            if layout == (2, 2):
+                step_launches = launches[0]["step"]
+    log(phase="hybrid_train", **found, phase_s=time.perf_counter() - t_phase)
+    return step_launches
+
+
+# SA-MSG at the PointNet++ classification model's first stage (Qi et al.
+# 2017, pointnet2_cls_msg SA1), then an LFP stage back onto 2048 points
+MSG_SA = dict(npoint=512, radii=(0.1, 0.2, 0.4), nsamples=(16, 32, 128),
+              mlps=((32, 32, 64), (64, 64, 128), (64, 96, 128)))
+MSG_LFP = dict(targets=2048, radii=(0.2, 0.4), nsamples=(16, 32), mlps=((128,), (128,)), post=(128,))
+
+
+def seeded_msg(module, seed: int):
+    """Seeded weights for an MSG module: Kaiming-normal kernels and BN
+    running statistics and affine drawn away from the identity."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in module.state_dict().items():
+            if name.endswith("kernel"):
+                t.copy_(torch.randn(t.shape, generator=gen) * (2.0 / t.shape[0]) ** 0.5)
+            elif name.endswith(("mean", "offset")):
+                t.copy_((torch.rand(t.shape, generator=gen) - 0.5) * 0.2)
+            elif name.endswith(("var", "scale")):
+                t.copy_(0.5 + torch.rand(t.shape, generator=gen))
+    return module
+
+
+def msg_phase(clouds: np.ndarray) -> dict:
+    """Phase 23: the MSG modules (models/msg.py) on the card at published
+    widths (MSG_SA, MSG_LFP) on B=2 tabletop clouds of 20000 points, seeded
+    weights: the FPS stage and every ball query against their plain
+    versions on the card (indices equal), the eval forward against the same
+    modules on the CPU (indices equal, features within FEATURE_TOL x max(1,
+    scale)); launches a forward: FPS 1, K4 one per SA scale and one per LFP
+    scale; CUDA-event ms of the forward.  Returns those launches."""
+    from graspnet_tpu_torch import ops
+    from graspnet_tpu_torch.models.msg import LFPModuleMSG, SAModuleMSG
+    from graspnet_tpu_torch.ops import cuda as kernels
+    from graspnet_tpu_torch.ops.cuda import fps as kfps
+    from graspnet_tpu_torch.ops.cuda import query as kquery
+
+    t_phase = time.perf_counter()
+    sa_cfg, lfp_cfg = MSG_SA, MSG_LFP
+    sa = seeded_msg(SAModuleMSG(sa_cfg["mlps"], in_dim=0, npoint=sa_cfg["npoint"], radii=sa_cfg["radii"],
+                                nsamples=sa_cfg["nsamples"]), DATA_SEED).eval()
+    c_sa = sum(m[-1] for m in sa_cfg["mlps"])
+    lfp = seeded_msg(LFPModuleMSG(lfp_cfg["mlps"], lfp_cfg["post"], in_dim=c_sa, skip_dim=0,
+                                  radii=lfp_cfg["radii"], nsamples=lfp_cfg["nsamples"]), DATA_SEED + 1).eval()
+    x_cpu = torch.from_numpy(clouds[:B_KERNELS])
+
+    def forward(x):
+        new_xyz, feat, inds, _ = sa(x)
+        up, _ = lfp(x[:, : lfp_cfg["targets"]], new_xyz, None, feat)
+        return new_xyz, feat, inds, up
+
+    with torch.inference_mode():
+        want = forward(x_cpu)
+    sa.cuda(), lfp.cuda()
+    x = x_cpu.cuda()
+    with torch.inference_mode():
+        kernels.reset_launches()
+        got = forward(x)
+        torch.cuda.synchronize()
+        launches = kernels.launches()
+        expected = {**{k: 0 for k in launches}, "fps_chain": 1,
+                    "ball_query": len(sa_cfg["radii"]) + len(lfp_cfg["radii"])}
+        if launches != expected:
+            raise AssertionError(f"msg: launches {launches}, expected {expected}")
+        inds = ops.furthest_point_sample(x, sa_cfg["npoint"])
+        if not torch.equal(inds, kfps.fps_plain(x, sa_cfg["npoint"])):
+            raise AssertionError("msg: FPS indices differ from the plain version on the card")
+        new_xyz = ops.gather_points(x, inds)
+        calls = [(x, new_xyz, r, ns) for r, ns in zip(sa_cfg["radii"], sa_cfg["nsamples"])]
+        calls += [(new_xyz, x[:, : lfp_cfg["targets"]], r, ns) for r, ns in zip(lfp_cfg["radii"], lfp_cfg["nsamples"])]
+        for args in calls:
+            if not torch.equal(kquery.ball_query(*args), kquery.ball_query_plain(*args)):
+                raise AssertionError(f"msg: ball query r={args[2]} ns={args[3]} differs from the plain version")
+        if not (torch.equal(got[2].cpu(), want[2]) and torch.equal(got[0].cpu(), want[0])):
+            raise AssertionError("msg: card and CPU sample different centres")
+        # feature_err raises past FEATURE_TOL x max(1, scale) or at a non-finite value
+        errs = {"sa_features": feature_err(got[1].cpu(), want[1]), "lfp_features": feature_err(got[3].cpu(), want[3])}
+        ms = cuda_ms(lambda: forward(x), 10)
+    log(phase="msg", sa=sa_cfg, lfp=lfp_cfg, b=B_KERNELS, n=N_POINTS, launches=launches, card_vs_cpu=errs,
+        bound=FEATURE_TOL, indices_equal_plain=True, forward_ms=ms,
+        out_shapes=[list(got[1].shape), list(got[3].shape)], phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def verify_checkpoint_phase() -> dict:
+    """Phase 24: scripts/verify_checkpoint.py on the card.  A fabricated
+    reference-layout .tar at GraspNetConfig() (`checkpoint.reference_state_dict`
+    of the seed-1 weights: every seed objectness-positive, as phase 3's
+    WEIGHT_SEED) and a synthetic RGB-D frame in the example-data layout
+    (`write_demo_frame`, DEMO_FRAME pixels); the golden is the script's
+    frame_rows on the CPU, (50, 17) pre-NMS rows.  The script in-process on
+    the card must PASS (its audit line equal counts), its launches counted
+    (the warm-up and the frame: two forwards); in a child process with one
+    row of the golden perturbed it must exit 1 with FAIL.  Returns the
+    launches of the PASS run."""
+    import contextlib
+    import io
+
+    from graspnet_tpu_torch import checkpoint
+    from graspnet_tpu_torch.config import GraspNetConfig
+    from graspnet_tpu_torch.models import GraspNet, init_weights
+    from graspnet_tpu_torch.ops import cuda as kernels
+    from graspnet_tpu_torch.scripts import verify_checkpoint
+    from graspnet_tpu_torch.utils.synthetic import write_demo_frame
+
+    t_phase = time.perf_counter()
+    cfg = GraspNetConfig()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_verify_") as tmp:
+        state = init_weights(GraspNet(cfg), WEIGHT_SEED).state_dict()
+        tar = os.path.join(tmp, "checkpoint-rs.tar")
+        torch.save({"model_state_dict": checkpoint.reference_state_dict(state), "epoch": 0}, tar)
+        frame = os.path.join(tmp, "example_data")
+        write_demo_frame(frame, np.random.default_rng(VERIFY_FRAME_SEED), *DEMO_FRAME)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            golden = verify_checkpoint.frame_rows(state, frame, cfg, 50, -1.0, "cpu")
+        cpu_s = time.perf_counter() - t0
+        if golden.shape != (50, 17):
+            raise AssertionError(f"verify_checkpoint: the CPU golden holds {golden.shape} rows")
+        paths = {name: os.path.join(tmp, f"{name}.npy") for name in ("golden", "perturbed")}
+        np.save(paths["golden"], golden)
+        bad = golden.copy()
+        bad[7, 0] += 1e-3
+        np.save(paths["perturbed"], bad)
+        argv = ["--checkpoint", tar, "--data_dir", frame, "--device", "cuda"]
+        out = io.StringIO()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = verify_checkpoint.main(argv + ["--golden", paths["golden"]])
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = kernels.launches()
+        text = out.getvalue()
+        n = sum(v.numel() for v in state.values())
+        expected = {**{k: 0 for k in launches}, "fps_chain": 2, "ball_query": 6, "sa1_fused": 2, "crop_fused": 2}
+        if rc != 0 or "PASS: matches golden dump" not in text or f"converted params: {n:,} values (state dict: " \
+                f"{n:,})" not in text or launches != expected:
+            raise AssertionError(f"verify_checkpoint on the card: rc {rc}, launches {launches} (expected "
+                                 f"{expected}):\n{text}")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "graspnet_tpu_torch.scripts.verify_checkpoint", *argv,
+                               "--golden", paths["perturbed"]], cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=VERIFY_TIMEOUT_S)
+        child_s = time.perf_counter() - t0
+        if proc.returncode != 1 or "FAIL: 1 entries exceed atol=0.0001" not in proc.stdout:
+            raise AssertionError(f"verify_checkpoint, perturbed golden: rc {proc.returncode}\n{proc.stdout[-2000:]}"
+                                 f"\n{proc.stderr[-2000:]}")
+    diff_line = next(line for line in text.splitlines() if line.startswith("max abs diff"))
+    log(phase="verify_checkpoint", frame=list(DEMO_FRAME), params=n, card_vs_cpu_golden=diff_line, passed=True,
+        perturbed_rc=proc.returncode, min_score_gap_top50=float(np.min(-np.diff(golden[:, 0]))),
+        launches=launches, cpu_golden_s=cpu_s, card_run_s=card_s, child_s=child_s,
+        phase_s=time.perf_counter() - t_phase)
+    return launches
 
 
 def main() -> int:
@@ -2102,7 +2416,10 @@ def main() -> int:
     rows.append(scatter_row)
     train_timing.update(cli_timing)
     ddp_launches = ddp_train_phase(cfg, full, compact)
+    hybrid_launches = hybrid_train_phase(cfg, compact)
     del full, compact
+    msg_launches = msg_phase(clouds)
+    verify_launches = verify_checkpoint_phase()
     route_forward_launches, route_step_launches = crop_routes_phase(clouds)
     tolerance = tolerance_phase()
     tool_launches, tool_records = tools_phase()
@@ -2126,8 +2443,9 @@ def main() -> int:
     # run, one eval batch, one feature-input forward, one service dispatch
     # (the same at max_batch 1 and at the MicroBatcher's bucket of 8), the
     # two-layer crop MLP's forward and training probe, the three mesh
-    # forwards of parallel_infer together, the one-rank NCCL step and one
-    # rank's step of the two-rank run
+    # forwards of parallel_infer together, the one-rank NCCL step, one
+    # rank's step of the two-rank run and of the 2 x 2 hybrid run, one MSG
+    # forward and one verify_checkpoint run
     columns = {"launches_per_forward": launches, "launches_per_train_step": train_launches,
                "launches_per_tool_run": tool_launches, "launches_per_eval_batch": eval_launches,
                "launches_per_feature_forward": feature_launches,
@@ -2136,7 +2454,10 @@ def main() -> int:
                "launches_per_crop_routes_probe": route_step_launches,
                "launches_per_parallel_infer": parallel_launches,
                "launches_per_ddp1_step": ddp_launches["one_rank_step"],
-               "launches_per_ddp2_rank_step": ddp_launches["rank_step"]}
+               "launches_per_ddp2_rank_step": ddp_launches["rank_step"],
+               "launches_per_hybrid_rank_step": hybrid_launches,
+               "launches_per_msg_forward": msg_launches,
+               "launches_per_verify_run": verify_launches}
     for r in rows:
         for col, counts in columns.items():
             r[col] = counts[r["name"]]

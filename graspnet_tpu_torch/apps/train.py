@@ -25,8 +25,13 @@ with each rank on cuda:(local rank).  `--dist_backend` is NCCL on CUDA and
 gloo on the CPU by default; ranks that share a card need gloo.  Each rank
 loads its shard of every global batch of `--batch_size` scenes; rank 0
 writes the main log and the checkpoint, rank i logs to `proc{i}/`; a
-resume loads on every rank.  Hybrid data x candidate training is not
-ported: `--candidate_devices` above 1 is an argparse error.
+resume loads on every rank.  Hybrid data x candidate training:
+`--n_devices D --candidate_devices C` spawns D x C ranks (rank r on
+cuda:r); rank r loads data row r // C's shard of each batch and runs stage
+2 on seed block r % C of it (`Trainer(candidate=)`).  Without
+`--n_devices`, D is the largest data width that divides the batch with
+D x C ranks on the host's cards (the JAX CLI's default; one row on the
+CPU).  C must divide the model's seeds.
 `--profile_dir` writes a torch.profiler trace of five steps of the first
 epoch (`utils/tracing.py`); `--debug_nans` turns on
 `torch.autograd.set_detect_anomaly`.
@@ -77,7 +82,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--n_devices", type=int, default=None,
                    help="data-parallel ranks to spawn, one a device (cuda:0..N-1, or the CPU)")
     p.add_argument("--candidate_devices", type=int, default=1,
-                   help="candidate-sharded width: 1 (hybrid training is not ported)")
+                   help="seed blocks C a data row's stage 2 shards over (hybrid training: D x C ranks)")
     p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
                    help="torch.distributed backend (default: nccl on CUDA, gloo on the CPU)")
     p.add_argument("--log_every", type=int, default=10)
@@ -93,17 +98,31 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    "same step); full: ship the whole (Ns, V, A, D) slabs")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.candidate_devices != 1:
-        p.error(f"--candidate_devices {args.candidate_devices}: hybrid data x candidate training is not "
-                "ported (ROADMAP queue 1, 'hybrid data x candidate training')")
+    cand = args.candidate_devices
+    if cand < 1:
+        p.error(f"--candidate_devices {cand}: at least one")
+    num_seed = model_config(args).num_seed
+    if num_seed % cand:
+        p.error(f"num_seed {num_seed} must divide by the candidate axis size {cand}")
+    if args.n_devices is None and cand > 1:
+        # the largest data width that divides the global batch (the JAX CLI's default)
+        avail = torch.cuda.device_count() // cand if args.device != "cpu" else 1
+        args.n_devices = max(d for d in range(1, max(min(avail, args.batch_size), 1) + 1)
+                             if args.batch_size % d == 0)
     n = 1 if args.n_devices is None else args.n_devices
     if n < 1:
         p.error(f"--n_devices {n}: at least one")
     if args.batch_size % n:
         p.error(f"process count {n} must divide the global batch {args.batch_size}")
-    if n > 1 and args.device != "cpu" and n > torch.cuda.device_count():
-        p.error(f"--n_devices {n}: this host has {torch.cuda.device_count()} CUDA device(s)")
+    ranks = n * cand
+    if ranks > 1 and args.device != "cpu" and ranks > torch.cuda.device_count():
+        p.error(f"--n_devices {n} x --candidate_devices {cand}: this host has {torch.cuda.device_count()} "
+                "CUDA device(s)")
     return args
+
+
+def model_config(args: argparse.Namespace) -> GraspNetConfig:
+    return GraspNetConfig.tiny() if args.tiny else GraspNetConfig(num_point=args.num_point, num_view=args.num_view)
 
 
 def resume(trainer: Trainer, path: Optional[str], logger: MetricLogger) -> int:
@@ -174,8 +193,8 @@ def train(
 
     `profile_dir`: trace PROFILE_STEPS steps of the first epoch, from step
     PROFILE_FIRST_STEP (earlier in a shorter epoch), into it.  In a
-    trainer's process group each rank loads its shard of every global
-    batch (`graspnet_tpu/apps/train.py:199-208`), the ranks stop together
+    trainer's process group each rank loads its data row's shard of every
+    global batch (`graspnet_tpu/apps/train.py:199-208`), the ranks stop together
     when any of them is asked to, and rank 0 writes the checkpoints.
     Returns `step_end_s`, the host clock after each train step's metrics
     were read (the step is done then), and `epochs_done`."""
@@ -183,10 +202,10 @@ def train(
     compact = label_mode == "compact"
     feed = trainer.prepare if compact else trainer.put
     group = trainer.group
-    world = 1 if group is None else dist.get_world_size(group)
-    shards = dict(num_shards=world, shard_index=rank_of(trainer))
-    train_loader = DataLoader(train_ds, tc.batch_size // world, shuffle=True, num_workers=num_workers, **shards)
-    test_loader = DataLoader(test_ds, tc.batch_size // world, shuffle=False, num_workers=num_workers, **shards)
+    rows = (1 if group is None else dist.get_world_size(group)) // trainer.candidate
+    shards = dict(num_shards=rows, shard_index=distributed.hybrid_layout(rank_of(trainer), trainer.candidate)[0])
+    train_loader = DataLoader(train_ds, tc.batch_size // rows, shuffle=True, num_workers=num_workers, **shards)
+    test_loader = DataLoader(test_ds, tc.batch_size // rows, shuffle=False, num_workers=num_workers, **shards)
     if group is not None:
         asked = stop
 
@@ -248,7 +267,7 @@ def train(
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
-    if (args.n_devices or 1) > 1 and not _launched_in_a_group():
+    if (args.n_devices or 1) * args.candidate_devices > 1 and not _launched_in_a_group():
         return spawn_ranks(args)
     if distributed.initialize(backend=args.dist_backend, device=args.device):
         return run(args, dist.group.WORLD, distributed.local_device(args.device))
@@ -265,20 +284,24 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def world_of(args: argparse.Namespace) -> int:
+    return (args.n_devices or 1) * args.candidate_devices
+
+
 def spawn_ranks(args: argparse.Namespace) -> int:
-    """Start `--n_devices` ranks of this CLI on this host (rank i on cuda:i
-    or the CPU) and wait for them.  The libraries are built here first, so
-    the ranks find them built."""
+    """Start `--n_devices` x `--candidate_devices` ranks of this CLI on this
+    host (rank i on cuda:i or the CPU) and wait for them.  The libraries
+    are built here first, so the ranks find them built."""
     from graspnet_tpu_torch.ops.cuda import build
 
     build.build_all(build.SOURCES if args.device != "cpu" else (build.HOST,))
     port = _free_port()
-    torch.multiprocessing.spawn(_rank_main, args=(args, port), nprocs=args.n_devices, join=True)
+    torch.multiprocessing.spawn(_rank_main, args=(args, port), nprocs=world_of(args), join=True)
     return 0
 
 
 def _rank_main(rank: int, args: argparse.Namespace, port: int) -> None:
-    distributed.initialize(f"127.0.0.1:{port}", args.n_devices, rank, backend=args.dist_backend, device=args.device)
+    distributed.initialize(f"127.0.0.1:{port}", world_of(args), rank, backend=args.dist_backend, device=args.device)
     try:
         device = "cpu" if args.device == "cpu" else torch.device("cuda", rank)
         run(args, dist.group.WORLD, device)
@@ -289,10 +312,13 @@ def _rank_main(rank: int, args: argparse.Namespace, port: int) -> None:
 def run(args: argparse.Namespace, group, device) -> int:
     """One rank's training (the only one without a group)."""
     rank = 0 if group is None else dist.get_rank(group)
+    cand = args.candidate_devices
     if group is not None:
         world = dist.get_world_size(group)
-        if args.batch_size % world:
-            raise ValueError(f"process count {world} must divide the global batch {args.batch_size}")
+        if world % cand:
+            raise ValueError(f"{world} ranks do not form data rows of --candidate_devices {cand}")
+        if args.batch_size % (world // cand):
+            raise ValueError(f"data width {world // cand} must divide the global batch {args.batch_size}")
         if torch.device(device).type == "cuda":
             torch.cuda.set_device(device)  # NCCL's own buffers go to the current device
     log_dir = args.log_dir if rank == 0 else os.path.join(args.log_dir, f"proc{rank}")
@@ -301,8 +327,7 @@ def run(args: argparse.Namespace, group, device) -> int:
     try:
         if args.debug_nans:
             torch.autograd.set_detect_anomaly(True)
-        cfg = GraspNetConfig.tiny() if args.tiny else GraspNetConfig(num_point=args.num_point,
-                                                                     num_view=args.num_view)
+        cfg = model_config(args)
         tc = TrainConfig(
             learning_rate=args.learning_rate,
             weight_decay=args.weight_decay,
@@ -322,9 +347,13 @@ def run(args: argparse.Namespace, group, device) -> int:
         test_ds = GraspNetDataset(args.dataset_root, valid_objs, grasp_labels, split="test_seen",
                                   augment=False, **common)
         logger.log(f"train len: {len(train_ds)}, test len: {len(test_ds)}")
-        trainer = Trainer(cfg=cfg, tc=tc, device=device, group=group)
+        trainer = Trainer(cfg=cfg, tc=tc, device=device, group=group, candidate=cand)
         logger.log(f"device: {trainer.device}")
-        if group is not None:
+        if group is not None and cand > 1:
+            row, block = distributed.hybrid_layout(rank, cand)
+            logger.log(f"hybrid rank {rank}/{world} ({dist.get_backend(group)}): data row {row} of {world // cand}, "
+                       f"seed block {block} of {cand}; {tc.batch_size // (world // cand)} scenes/row/step")
+        elif group is not None:
             logger.log(f"data-parallel rank {rank}/{world} ({dist.get_backend(group)}); "
                        f"{tc.batch_size // world} scenes/rank/step")
         start_epoch = resume(trainer, args.checkpoint_path, logger)

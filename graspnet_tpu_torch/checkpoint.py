@@ -9,7 +9,8 @@ bare GraspNet state dict.  They replace the JAX package's orbax path
 reference checkpoint (`{epoch, optimizer_state_dict, loss,
 model_state_dict}`, reference train.py:211-219) and
 `convert_torch_state_dict` maps its module names onto the port's
-(`graspnet_tpu/checkpoint.py:1-108`), asserting every name and shape.
+(`graspnet_tpu/checkpoint.py:1-108`), asserting every name and shape;
+`reference_state_dict` maps them back, to write a reference-layout file.
 
 `params_from_jax` turns the JAX params (nested dicts/lists of numpy arrays,
 e.g. `jax.tree_util.tree_map(np.asarray, params)`) into a state dict for
@@ -17,7 +18,8 @@ e.g. `jax.tree_util.tree_map(np.asarray, params)`) into a state dict for
 state-dict key is the pytree path joined by dots
 (`backbone.sa1.mlp.0.bn.scale`).  Every leaf is matched by name and shape
 against the module built from `cfg`; a missing, extra or misshapen leaf
-raises.  `params_to_jax` goes the other way, so tests can compare
+raises; `module_params_from_jax` does the same for any module named after
+its pytree (the MSG modules of `models/msg.py`).  `params_to_jax` goes the other way, so tests can compare
 parameters and gradients with the JAX package leaf by leaf.
 """
 
@@ -43,24 +45,35 @@ def _leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
         yield prefix[:-1], tree
 
 
+def module_params_from_jax(params_np: Dict[str, Any], module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """A JAX params pytree (numpy leaves) -> a state dict for `module`, whose
+    attribute names mirror the pytree, every leaf matched by its path and
+    shape: GraspNet's (`params_from_jax`), or the JAX `init_sa_msg` /
+    `init_lfp_msg` params for the `models.msg` module built with the same
+    widths (`{"mlps": [[layer, ...], ...], "post": [...]}` -> `mlps.k.i.*`,
+    `post.i.*`)."""
+    what = type(module).__name__
+    expected = {k: tuple(v.shape) for k, v in module.state_dict().items()}
+    got = dict(_leaves(params_np))
+    missing = sorted(set(expected) - set(got))
+    extra = sorted(set(got) - set(expected))
+    if missing or extra:
+        raise ValueError(f"params do not match {what}: missing {missing}, extra {extra}")
+    state = {}
+    for key, shape in expected.items():
+        arr = np.asarray(got[key], dtype=np.float32)
+        if arr.shape != shape:
+            raise ValueError(f"{key}: shape {arr.shape}, {what} expects {shape}")
+        state[key] = torch.from_numpy(arr.copy())
+    return state
+
+
 def params_from_jax(params_np: Dict[str, Any], cfg: GraspNetConfig = GraspNetConfig()) -> Dict[str, torch.Tensor]:
     """JAX params pytree (numpy leaves) -> state dict for GraspNet(cfg)."""
     from graspnet_tpu_torch.models.graspnet import GraspNet
 
     with torch.device("meta"):
-        expected = {k: tuple(v.shape) for k, v in GraspNet(cfg).state_dict().items()}
-    got = dict(_leaves(params_np))
-    missing = sorted(set(expected) - set(got))
-    extra = sorted(set(got) - set(expected))
-    if missing or extra:
-        raise ValueError(f"params do not match GraspNet: missing {missing}, extra {extra}")
-    state = {}
-    for key, shape in expected.items():
-        arr = np.asarray(got[key], dtype=np.float32)
-        if arr.shape != shape:
-            raise ValueError(f"{key}: shape {arr.shape}, GraspNet expects {shape}")
-        state[key] = torch.from_numpy(arr.copy())
-    return state
+        return module_params_from_jax(params_np, GraspNet(cfg))
 
 
 def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
@@ -178,6 +191,48 @@ def convert_torch_state_dict(sd: Dict[str, Any], cfg: GraspNetConfig = GraspNetC
         "tolerance": _conv_head(sd, "grasp_generator.tolerance"),
     }
     return params_from_jax(tree, cfg)
+
+
+def reference_state_dict(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A GraspNet state dict in the reference's module names and conv shapes
+    (the inverse of `convert_torch_state_dict`), with a zero
+    `num_batches_tracked` beside each BatchNorm as torch writes it: a
+    reference-layout checkpoint of these weights."""
+    tree = params_to_jax(state)
+    sd: Dict[str, torch.Tensor] = {}
+
+    def conv(prefix: str, layer: Dict[str, Any], ndim: int) -> None:
+        w = np.asarray(layer["kernel"]).T
+        sd[f"{prefix}.weight"] = torch.from_numpy(w.reshape(w.shape + (1,) * ndim).copy())
+        if "bias" in layer:
+            sd[f"{prefix}.bias"] = torch.from_numpy(np.asarray(layer["bias"]).copy())
+
+    def bn(prefix: str, p: Dict[str, Any]) -> None:
+        for name, key in (("weight", "scale"), ("bias", "offset"), ("running_mean", "mean"), ("running_var", "var")):
+            sd[f"{prefix}.{name}"] = torch.from_numpy(np.asarray(p[key]).copy())
+        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+    def mlp(prefix: str, layers: list) -> None:
+        for i, layer in enumerate(layers):
+            conv(f"{prefix}.layer{i}.conv", layer, 2)
+            bn(f"{prefix}.layer{i}.bn.bn", layer["bn"])
+
+    def head(prefix: str, p: Dict[str, Any]) -> None:
+        for c in ("conv1", "conv2", "conv3"):
+            conv(f"{prefix}.{c}", p[c], 1)
+        for b in ("bn1", "bn2"):
+            bn(f"{prefix}.{b}", p[b])
+
+    bb = "view_estimator.backbone"
+    for k in ("sa1", "sa2", "sa3", "sa4"):
+        mlp(f"{bb}.{k}.mlp_module", tree["backbone"][k]["mlp"])
+    for k in ("fp1", "fp2"):
+        mlp(f"{bb}.{k}.mlp", tree["backbone"][k]["mlp"])
+    head("view_estimator.vpmodule", tree["approach"])
+    mlp("grasp_generator.crop.mlps", tree["crop"]["mlp"])
+    head("grasp_generator.operation", tree["operation"])
+    head("grasp_generator.tolerance", tree["tolerance"])
+    return sd
 
 
 def load_torch_checkpoint(path: str, cfg: GraspNetConfig = GraspNetConfig()) -> Dict[str, torch.Tensor]:

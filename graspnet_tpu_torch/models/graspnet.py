@@ -36,6 +36,7 @@ class GraspNet(nn.Module):
         point_clouds: torch.Tensor,
         train: bool = False,
         labels: Optional[Dict[str, Any]] = None,
+        seed_block: Optional[slice] = None,
     ) -> Dict[str, Any]:
         """(B, N, 3) -> end_points.
 
@@ -46,7 +47,16 @@ class GraspNet(nn.Module):
         labels, in either BN mode, the crop source is the label points with
         the matched label rotations (graspnet.py:87-127: the reference's
         eval epoch keeps label crops); without, the seeds with the predicted
-        top-view rotations."""
+        top-view rotations.
+
+        `seed_block`: a labelled forward's block of seeds for stage 2 (hybrid
+        data x candidate training, the JAX `seed_sharding`,
+        graspnet.py:64-72,113-128): the backbone and the approach net run
+        on every seed, then the crop, the heads and the matched label slabs
+        the grasp loss reads (`batch_grasp_label/width/tolerance`) cover the
+        block only; the view labels stay whole for the stage-1 view loss,
+        and `end_points["seed_block"]` tells the loss which seeds' masks to
+        take."""
         labels = labels or {}
         seed_features, _, end_points = self.backbone(
             point_clouds, train, labels.get("sa_inds"), labels.get("sa_query_idx")
@@ -65,6 +75,13 @@ class GraspNet(nn.Module):
                 end_points.update(label_pipeline.process_grasp_labels(end_points, labels, self.cfg))
                 end_points.update(label_pipeline.match_grasp_view_and_label(end_points, self.cfg))
             crop_seed, crop_rot = end_points["batch_grasp_point"], end_points["batch_grasp_view_rot"]
+        if seed_block is not None:
+            if not has_labels:
+                raise ValueError("a seed block shards a labelled forward's stage 2")
+            crop_seed, crop_rot = crop_seed[:, seed_block], crop_rot[:, seed_block]
+            for k in ("batch_grasp_label", "batch_grasp_width", "batch_grasp_tolerance"):
+                end_points[k] = end_points[k][:, seed_block]
+            end_points["seed_block"] = seed_block
         vp_features, crop_stats = self.crop(crop_seed, end_points["input_xyz"], crop_rot, train)
         if train:
             end_points["bn_stats/crop"] = crop_stats

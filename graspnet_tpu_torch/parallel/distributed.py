@@ -13,6 +13,11 @@ Launches (`apps/train.py`):
     GRASPNET_COORDINATOR=host0:8476 GRASPNET_NUM_PROCESSES=2 \\
         GRASPNET_PROCESS_ID=$i python -m graspnet_tpu_torch.apps.train ...
 
+Hybrid data x candidate training (`--candidate_devices C`) lays the
+world out as D x C ranks: rank r is data row r // C, which loads that row's
+scenes, and seed block r % C of their stage 2 (`hybrid_layout`,
+`seed_block`, `column_group`).
+
 The backend is NCCL for CUDA and gloo for the CPU unless the caller names
 one.  Nothing falls back on its own: ranks that share a card (NCCL takes
 one rank a device) need gloo named explicitly.
@@ -89,10 +94,44 @@ def global_mesh(axis_names: Sequence[str] = ("data",), shape=None, device: str =
     return make_mesh(None, axis_names, devices=names, shape=shape)
 
 
-def process_local_batch_slice(global_batch_size: int) -> slice:
-    """The [start, stop) rows of the global batch this rank should load."""
+def process_local_batch_slice(global_batch_size: int, candidate: int = 1) -> slice:
+    """The [start, stop) rows of the global batch this rank should load:
+    its data row's share (every rank of a row loads the same scenes)."""
     n = dist.get_world_size() if dist.is_initialized() else 1
     i = dist.get_rank() if dist.is_initialized() else 0
-    per = global_batch_size // n
-    assert per * n == global_batch_size, f"process count {n} must divide the global batch {global_batch_size}"
-    return slice(i * per, (i + 1) * per)
+    rows, row = n // candidate, hybrid_layout(i, candidate)[0]
+    per = global_batch_size // rows
+    assert per * rows == global_batch_size, f"data width {rows} must divide the global batch {global_batch_size}"
+    return slice(row * per, (row + 1) * per)
+
+
+def hybrid_layout(rank: int, candidate: int) -> tuple:
+    """(data row, seed block) of a rank in a D x C world."""
+    return divmod(rank, candidate)
+
+
+def seed_block(block: int, candidate: int, num_seed: int) -> slice:
+    """The seeds of block `block` of `candidate`: a contiguous 1/C."""
+    if num_seed % candidate:
+        raise ValueError(f"num_seed {num_seed} must divide by the candidate axis size {candidate}")
+    per = num_seed // candidate
+    return slice(block * per, (block + 1) * per)
+
+
+def column_group(group, candidate: int):
+    """The process group of this rank's seed-block column: one rank of each
+    data row, so its ranks hold every scene of the global batch once.  A
+    collective: every rank of the default group builds every column's
+    group, in the same order (`torch.distributed.new_group`).  None when
+    the world is one data row (the rank holds the whole batch)."""
+    world = dist.get_world_size(group)
+    rows = world // candidate
+    if rows == 1:
+        return None
+    mine = None
+    for c in range(candidate):
+        ranks = [dist.get_global_rank(group, d * candidate + c) for d in range(rows)]
+        g = dist.new_group(ranks)
+        if hybrid_layout(dist.get_rank(group), candidate)[1] == c:
+            mine = g
+    return mine

@@ -4,9 +4,12 @@ Counterpart of `scripts/multiproc_check.py`:
 
   parent:   the single-process reference: the compact two-phase training
             loop on a deterministic global batch of GLOBAL_BATCH scenes;
-  children: PROCESSES ranks of one process group (spawned here), each with
-            its half of the same global batch, the same loop through
-            `Trainer(group=)`.
+  children: the ranks of one process group (spawned here), each with its
+            data row's share of the same global batch, the same loop
+            through `Trainer(group=, candidate=)`: by default two data rows
+            of one rank (data-parallel), with `--layout DxC` D rows of C
+            ranks, each rank running stage 2 on one of C seed blocks
+            (hybrid data x candidate training).
 
 Compared: the loss and gradients of a probe at the initial weights
 (`grads_compact`, no state change), the losses of STEPS steps, and the
@@ -29,11 +32,14 @@ crop kernels on the card and the check would see the kernels' rounding
 beside the reduction order.  With two layers both take the crop group and
 the generic MLP on every device.
 
-Prints one JSON verdict line.  Ranks go on cuda:0..PROCESSES-1 when the
-host has that many cards, else all on cuda:0, which needs `--backend gloo`
-(NCCL takes one rank a card).
+Every rank's parameters and BN running stats after the steps must also be
+bitwise equal to rank 0's (`ranks_equal`).
 
-    python -m graspnet_tpu_torch.scripts.multiproc_check --device cpu
+Prints one JSON verdict line.  Rank r goes on cuda:(r mod the host's
+cards): with fewer cards than ranks several share one, which needs
+`--backend gloo` (NCCL takes one rank a card).
+
+    python -m graspnet_tpu_torch.scripts.multiproc_check --device cpu [--layout 2x2]
     python -m graspnet_tpu_torch.scripts.multiproc_check --device cuda --backend gloo
 """
 
@@ -46,13 +52,13 @@ import os
 import socket
 import sys
 import tempfile
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-GLOBAL_BATCH = 2  # scenes a step, one a rank
-PROCESSES = 2
+GLOBAL_BATCH = 2  # scenes a step
+LAYOUT = (2, 1)  # (data rows, seed blocks): one scene a rank, data-parallel
 STEPS = 2
 SAFETY = 16.0
 EPS32 = 2.0 ** -24
@@ -111,12 +117,12 @@ def build_batch(cfg, step: int, lo: int, hi: int, order: int = 1):
     return batch
 
 
-def run_train(cfg, device, group, lo: int, hi: int, order: int = 1) -> dict:
+def run_train(cfg, device, group, lo: int, hi: int, order: int = 1, candidate: int = 1) -> dict:
     """The gradient probe and STEPS compact steps on scenes [lo, hi);
     returns numpy results by name."""
     from graspnet_tpu_torch.train.trainer import TrainConfig, Trainer
 
-    trainer = Trainer(cfg, TrainConfig(), seed=0, device=device, group=group)
+    trainer = Trainer(cfg, TrainConfig(), seed=0, device=device, group=group, candidate=candidate)
     trainer.set_epoch(0)
     loss0, grads0 = trainer.grads_compact(build_batch(cfg, 0, lo, hi, order))
     losses = [float(trainer.step_compact(build_batch(cfg, s, lo, hi, order))[0]) for s in range(STEPS)]
@@ -135,7 +141,7 @@ def rank_device(device: str, rank: int) -> torch.device:
 
 
 def _child(rank: int, coordinator: str, device: str, backend: Optional[str], out: str,
-           tamper: Optional[Callable[[], None]]) -> None:
+           tamper: Optional[Callable[[], None]], layout: Tuple[int, int]) -> None:
     import torch.distributed as dist
 
     from graspnet_tpu_torch.parallel import distributed
@@ -143,18 +149,22 @@ def _child(rank: int, coordinator: str, device: str, backend: Optional[str], out
     torch.set_num_threads(1)
     if tamper is not None:
         tamper()
-    distributed.initialize(coordinator, PROCESSES, rank, backend=backend, device=device)
+    rows, candidate = layout
+    distributed.initialize(coordinator, rows * candidate, rank, backend=backend, device=device)
     try:
-        sl = distributed.process_local_batch_slice(GLOBAL_BATCH)
-        res = run_train(check_config(), rank_device(device, rank), dist.group.WORLD, sl.start, sl.stop)
-        if rank == 0:
-            np.savez(out, **res)
+        sl = distributed.process_local_batch_slice(GLOBAL_BATCH, candidate)
+        res = run_train(check_config(), rank_device(device, rank), dist.group.WORLD, sl.start, sl.stop,
+                        candidate=candidate)
+        np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
     finally:
         dist.destroy_process_group()
 
 
-def run_ranks(device: str, backend: Optional[str], tamper: Optional[Callable[[], None]] = None) -> dict:
-    """The PROCESSES-rank run; rank 0's results.  `tamper`: a picklable
+def run_ranks(device: str, backend: Optional[str], tamper: Optional[Callable[[], None]] = None,
+              layout: Tuple[int, int] = LAYOUT) -> dict:
+    """The run of `layout` = (data rows, seed blocks) ranks; rank 0's
+    results, with `ranks_equal`: whether every rank ends with rank 0's
+    parameters and BN running stats, bit for bit.  `tamper`: a picklable
     function each rank calls first (the tests' stand-ins for a wrong
     reduction)."""
     from graspnet_tpu_torch.ops.cuda import build
@@ -163,12 +173,18 @@ def run_ranks(device: str, backend: Optional[str], tamper: Optional[Callable[[],
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
+    processes = layout[0] * layout[1]
     with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "ranks.npz")
-        torch.multiprocessing.spawn(_child, args=(f"127.0.0.1:{port}", device, backend, out, tamper),
-                                    nprocs=PROCESSES, join=True)
-        with np.load(out) as f:
-            return dict(f)
+        torch.multiprocessing.spawn(_child, args=(f"127.0.0.1:{port}", device, backend, tmp, tamper, layout),
+                                    nprocs=processes, join=True)
+        ranks = []
+        for r in range(processes):
+            with np.load(os.path.join(tmp, f"rank{r}.npz")) as f:
+                ranks.append(dict(f))
+    out = ranks[0]
+    out["ranks_equal"] = np.bool_(all(np.array_equal(out[k], other[k]) for other in ranks[1:]
+                                      for k in out if k.startswith("p:")))
+    return out
 
 
 def reference(device: str) -> tuple:
@@ -210,8 +226,10 @@ def verdict(ref: dict, rev: dict, got: dict) -> dict:
     losses_ok = bool(np.all(np.abs(ref["losses"] - got["losses"])
                             <= SAFETY * np.maximum(np.abs(ref["losses"] - rev["losses"]),
                                                    EPS32 * np.abs(ref["losses"])) + 1e-9))
+    ranks_equal = bool(got.get("ranks_equal", True))
     return {
-        "ok": bool(g_ok and p_ok and bn_ok and loss0_ok and losses_ok),
+        "ok": bool(g_ok and p_ok and bn_ok and loss0_ok and losses_ok and ranks_equal),
+        "ranks_equal": ranks_equal,
         "loss0_ok": bool(loss0_ok),
         "losses_ok": losses_ok,
         "grads_ok": bool(g_ok),
@@ -234,7 +252,6 @@ def verdict(ref: dict, rev: dict, got: dict) -> dict:
         "safety_factor": SAFETY,
         "ref_losses": [float(x) for x in ref["losses"]],
         "mp_losses": [float(x) for x in got["losses"]],
-        "processes": PROCESSES,
         "global_batch": GLOBAL_BATCH,
     }
 
@@ -244,16 +261,24 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
                    help="the ranks' backend (default: nccl on CUDA, gloo on the CPU)")
+    p.add_argument("--layout", default="x".join(map(str, LAYOUT)),
+                   help="DxC: D data rows of C ranks, one seed block each (default 2x1: data-parallel)")
     args = p.parse_args(argv)
     from graspnet_tpu_torch.device import resolve_device
 
     resolve_device(args.device, "multiproc_check")
+    layout = tuple(int(x) for x in args.layout.split("x"))
+    if len(layout) != 2 or GLOBAL_BATCH % layout[0] or check_config().num_seed % layout[1]:
+        p.error(f"--layout {args.layout}: D must divide the global batch {GLOBAL_BATCH} and C the "
+                f"{check_config().num_seed} seeds")
     ref, rev = reference(args.device)
-    got = run_ranks(args.device, args.backend)
+    got = run_ranks(args.device, args.backend, layout=layout)
     out = verdict(ref, rev, got)
     out["device"] = args.device
     out["backend"] = args.backend or ("nccl" if torch.device(args.device).type == "cuda" else "gloo")
-    out["devices_distinct"] = len({str(rank_device(args.device, r)) for r in range(PROCESSES)})
+    out["layout"] = list(layout)
+    out["processes"] = layout[0] * layout[1]
+    out["devices_distinct"] = len({str(rank_device(args.device, r)) for r in range(out["processes"])})
     print(json.dumps(out), flush=True)
     return 0 if out["ok"] else 1
 

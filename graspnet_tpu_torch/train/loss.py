@@ -88,8 +88,9 @@ def compute_view_loss(end_points: Dict[str, Any], cfg: GraspNetConfig, group=Non
 
 
 def compute_grasp_loss(end_points: Dict[str, Any], cfg: GraspNetConfig, group=None):
-    """Stage-2 losses at the matched view (loss.py:67-126)."""
-    obj_mask = _seed_labels(end_points) > 0  # (B, Ns)
+    """Stage-2 losses at the matched view (loss.py:67-126), over the seeds
+    of `end_points["seed_block"]` when the forward ran stage 2 on a block."""
+    obj_mask = _seed_labels(end_points)[:, end_points.get("seed_block", slice(None))] > 0  # (B, Ns)
     grasp_label = end_points["batch_grasp_label"]  # (B, Ns, A, D)
 
     # best angle per (seed, depth) from the label; argmax picks the first max
@@ -142,14 +143,20 @@ def compute_grasp_loss(end_points: Dict[str, Any], cfg: GraspNetConfig, group=No
     return loss, metrics
 
 
-def get_loss(end_points: Dict[str, Any], cfg: GraspNetConfig, group=None):
+def get_loss(end_points: Dict[str, Any], cfg: GraspNetConfig, group=None, replicas: int = 1):
     """Total loss = objectness + view + 0.2 * grasp (loss.py:129-143).
 
     `group`: a process group of the data-parallel ranks.  With more than
     one rank the returned loss is this rank's share of the global loss (its
     numerators over the global denominators; backward it, then sum the
     gradients over the ranks), and the metrics are the global values,
-    "loss/overall_loss" the global loss."""
+    "loss/overall_loss" the global loss.
+
+    `replicas`: how many ranks of the group repeat each scene's stage-1
+    terms (hybrid training's C seed blocks, each rank holding one block of
+    its data row's stage 2).  Their denominators count every repeat, so
+    each rank's stage-1 share is 1/replicas of its scenes' and the shares
+    sum to the global loss; only the pure count metric is divided here."""
     if world_size(group) == 1:
         group = None
     obj_loss, m1 = compute_objectness_loss(end_points, group)
@@ -171,4 +178,6 @@ def get_loss(end_points: Dict[str, Any], cfg: GraspNetConfig, group=None):
         flat = torch.stack([metrics[k].detach().float() for k in names])
         dist.all_reduce(flat, group=group)
         metrics = {k: v.to(metrics[k].dtype) for k, v in zip(names, flat)}
+        if replicas > 1:
+            metrics["stage1_pos_view_pred_count"] = metrics["stage1_pos_view_pred_count"] // replicas
     return loss, metrics

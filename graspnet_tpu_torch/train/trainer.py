@@ -24,8 +24,24 @@ K7 kernel (`nn.layers.set_process_group`); the loss takes the global
 denominators (`train/loss.py`) and the gradients are summed over the ranks
 before Adam; the compact path's `label_u_max` is the global max and its
 top views stay rank-local.  The ranks then hold equal weights after every
-step.  A one-rank group takes the one-process arithmetic bitwise.  Hybrid
-data x candidate training is not ported (ROADMAP queue 1).
+step.  A one-rank group takes the one-process arithmetic bitwise.
+
+Hybrid data x candidate training (`candidate=C`, the JAX trainer on a 2-D
+('data', 'candidate') mesh, `trainer.py:142-165`): the group's D x C ranks
+are laid out as `parallel/distributed.py::hybrid_layout` says, rank r on
+data row r // C and seed block r % C.  Every rank of a row runs the
+backbone and the approach net on its row's scenes at every seed, then
+CloudCrop, the heads and the grasp loss on its block of seeds only
+(`GraspNet.forward(seed_block=)`).  The reductions: the stage-1 BatchNorms
+take their statistics over the rank's column group (one rank a data row:
+every scene once), the stage-2 BatchNorms over the whole group (every
+(scene, seed) once); the loss denominators, u_max and the gradient sum span
+the whole group, where each scene's stage-1 terms are repeated C times in
+numerator and denominator alike, so every rank's share is exact and the
+shares sum to the global loss (`train/loss.py`, `replicas`).  Taking the
+stage-1 statistics over the whole group would also give the exact mean and
+variance, but its row count, and so the unbiased variance folded into the
+running stats, would be C times too large.
 """
 
 from __future__ import annotations
@@ -42,6 +58,7 @@ from graspnet_tpu_torch.config import GraspNetConfig
 from graspnet_tpu_torch.device import resolve_device
 from graspnet_tpu_torch.models import GraspNet, init_weights
 from graspnet_tpu_torch.nn.layers import bn_update_running, set_process_group, shared_mlp_update_stats, world_size
+from graspnet_tpu_torch.parallel.distributed import column_group, hybrid_layout, seed_block
 from graspnet_tpu_torch.train.label_pipeline import matched_scene_labels, static_scene_labels
 from graspnet_tpu_torch.train.loss import get_loss
 
@@ -103,11 +120,15 @@ class Trainer:
         seed: int = 0,
         device: str | torch.device = "cuda",
         group=None,
+        candidate: int = 1,
     ):
         """`params`: a GraspNet state dict (e.g. from
         `checkpoint.params_from_jax`); None draws seeded random weights.
         `group`: the data-parallel process group this rank trains in (None:
-        one process); its first rank's weights win."""
+        one process); its first rank's weights win.  `candidate`: the seed
+        blocks C of hybrid training; the group then holds D x C ranks and
+        this rank trains its data row's scenes and its block's stage 2.
+        Building a hybrid trainer is a collective (the column groups)."""
         self.cfg = cfg
         self.tc = tc
         self.device = resolve_device(device, "Trainer")
@@ -124,6 +145,15 @@ class Trainer:
                 for t in self.model.state_dict().values():
                     dist.broadcast(t, src=src, group=group)
             set_process_group(self.model, group if world_size(group) > 1 else None)
+        self.candidate = candidate
+        self.seed_block = None
+        if candidate > 1:
+            if group is None or world_size(group) % candidate:
+                raise ValueError(f"hybrid training with {candidate} seed blocks needs a group of D x {candidate} ranks")
+            self.seed_block = seed_block(hybrid_layout(dist.get_rank(group), candidate)[1], candidate, cfg.num_seed)
+            stage1 = column_group(group, candidate)
+            set_process_group(self.model.backbone, stage1)
+            set_process_group(self.model.approach, stage1)
         self.opt = torch.optim.Adam(
             self.model.parameters(), lr=tc.learning_rate, betas=(0.9, 0.999), eps=1e-8,
             weight_decay=tc.weight_decay,
@@ -184,9 +214,9 @@ class Trainer:
     def _forward_loss(self, device_batch: Dict[str, Any], train: bool):
         """(loss, metrics, end_points); in a group of several ranks the loss
         is this rank's share and the metrics the global values."""
-        ep = self.model(device_batch["point_clouds"], train, labels=device_batch)
+        ep = self.model(device_batch["point_clouds"], train, labels=device_batch, seed_block=self.seed_block)
         ep["objectness_label"] = device_batch["objectness_label"]
-        loss, metrics = get_loss(ep, self.cfg, self.group)
+        loss, metrics = get_loss(ep, self.cfg, self.group, self.candidate)
         return loss, metrics, ep
 
     def _global_loss(self, loss, metrics):

@@ -5,8 +5,9 @@ kernel when imported; with JAX blocked, a tiny serving call, a tiny
 training step, the training CLI's loop over a synthetic dataset and the
 timing entry points and the eval dump loop (`apps/test.py`, dump and AP)
 run on the CPU, loading no library but the host label library; so does a
-tiny micro-batched `GraspService.compute()` with the collision filter, and
-a tiny candidate-sharded pipeline on the CPU repeated twice."""
+tiny micro-batched `GraspService.compute()` with the collision filter, a
+tiny candidate-sharded pipeline on the CPU repeated twice, and the MSG
+modules' forward."""
 
 import os
 import re
@@ -57,7 +58,8 @@ new = {"graspnet_tpu_torch.utils.timing", "graspnet_tpu_torch.scripts.bench",
        "graspnet_tpu_torch.apps.generate_tolerance", "graspnet_tpu_torch.parallel",
        "graspnet_tpu_torch.parallel.mesh", "graspnet_tpu_torch.parallel.distributed",
        "graspnet_tpu_torch.parallel.candidate", "graspnet_tpu_torch.scripts.multiproc_check",
-       "graspnet_tpu_torch.scripts.bench_scaling", "graspnet_tpu_torch.scripts.fleet_projection"}
+       "graspnet_tpu_torch.scripts.bench_scaling", "graspnet_tpu_torch.scripts.fleet_projection",
+       "graspnet_tpu_torch.models.msg", "graspnet_tpu_torch.scripts.verify_checkpoint"}
 assert new <= set(walked), new - set(walked)
 import chip_smoke
 from graspnet_tpu_torch.apps import GraspPipeline
@@ -69,6 +71,13 @@ assert gg.grasp_group_array.shape[1] == 17
 from graspnet_tpu_torch.parallel import make_mesh
 pm = GraspPipeline(cfg=GraspNetConfig.tiny(), device="cpu", mesh=make_mesh(2, ("candidate",), devices=["cpu"] * 2))
 assert pm.get_grasps_topk(np.random.default_rng(0).uniform(-0.3, 0.3, (512, 3)).astype(np.float32)).grasp_group_array.shape[1] == 17
+import torch
+from graspnet_tpu_torch.models.msg import LFPModuleMSG, SAModuleMSG
+xyz = torch.from_numpy(np.random.default_rng(2).uniform(-0.3, 0.3, (1, 256, 3)).astype(np.float32))
+with torch.no_grad():
+    new_xyz, feat, _, _ = SAModuleMSG([(8, 16), (8, 16)], in_dim=0, npoint=32, radii=(0.1, 0.2), nsamples=(8, 16))(xyz)
+    up, _ = LFPModuleMSG([(8,)], (8,), in_dim=32, skip_dim=0, radii=(0.2,), nsamples=(8,))(xyz, new_xyz, None, feat)
+assert feat.shape == (1, 32, 32) and up.shape == (1, 256, 8)
 from graspnet_tpu_torch.apps.service import GraspService, ServiceConfig
 svc = GraspService(ServiceConfig(model_cfg=GraspNetConfig.tiny(), depth_min=0.0, depth_max=10.0, device="cpu",
                                  max_batch=2))

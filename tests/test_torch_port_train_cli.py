@@ -128,17 +128,23 @@ def test_sigterm_writes_the_preemption_checkpoint_and_returns(root, tmp_path, mo
     assert not any(r["prefix"] == "eval" for r in map(json.loads, open(tmp_path / "metrics.jsonl")))
 
 
-@pytest.mark.parametrize("flags", [["--n_devices", "3"], ["--candidate_devices", "4"], ["--n_devices", "0"]])
+@pytest.mark.parametrize("flags", [["--n_devices", "3"], ["--candidate_devices", "3"], ["--n_devices", "0"]])
 def test_multi_card_and_profile_flags_raise(root, tmp_path, flags, capsys):
     """Multi-device flags the CLI cannot run are argparse errors: a rank
     count that does not divide the global batch of 2 (the JAX message),
-    hybrid training (not ported), no rank.  (--profile_dir was one until
-    the CLI traced steps with it: test_profile_dir_writes_a_trace; two
-    ranks train: tests/test_torch_port_parallel_train.py.)"""
+    seed blocks that do not divide tiny()'s 64 seeds (the JAX trainer's
+    assertion, `graspnet_tpu/train/trainer.py:157-160`), no rank.
+    (--profile_dir was one until the CLI traced steps with it:
+    test_profile_dir_writes_a_trace; two ranks train:
+    tests/test_torch_port_parallel_train.py; hybrid ranks:
+    tests/test_torch_port_hybrid_train.py.)"""
     with pytest.raises(SystemExit):
         cli.main(argv(root, tmp_path, *flags))
     err = capsys.readouterr().err
-    assert {"3": "must divide the global batch", "4": "hybrid", "0": "at least one"}[flags[1]] in err
+    want = {"--n_devices 3": "process count 3 must divide the global batch 2",
+            "--candidate_devices 3": "num_seed 64 must divide by the candidate axis size 3",
+            "--n_devices 0": "at least one"}
+    assert want[" ".join(flags)] in err
 
 
 def test_profile_dir_writes_a_trace(root, tmp_path):
