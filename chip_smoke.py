@@ -58,7 +58,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
      K10's kernels by name (phase profile_query_sa), in which K9's three
      calls launch K4's scan and its MLP three times each and nothing else;
   8. train_cli: the training entry point.  The build seconds of the host
-     label library (csrc/host.cpp, g++) and the scatter kernel
+     label library (csrc/host.cpp, g++) and the scatter kernels
      (csrc/scatter.cu); the FPS seed chain of two 20000-point scenes on the
      host library and on fps_numpy, indices equal, ms/scene each; five
      Trainer.step calls from one seed twice, losses, parameters and Adam
@@ -66,10 +66,16 @@ Phases (each prints one JSON line; any failure exits non-zero):
      (CUBLAS_WORKSPACE_CONFIG, which only that process sets), five steps
      with the default algorithms and five under
      torch.use_deterministic_algorithms(True), which raises at any op that
-     is still non-deterministic, bitwise equal; the scatter-add kernel at each of a step's
-     five calls (captured from a step) against its plain version, bitwise
-     against the CPU's sequential sum, within 1e-6 x max(1, scale) of a
-     float64 sum, and bitwise repeatable; then
+     is still non-deterministic, bitwise equal; the scatter-add's two
+     kernels at each of a step's five calls (captured from a step): the
+     plan kernel's perm, starts and work order bitwise the plain plan's (and
+     at five edge cases: a ragged chunk, one row, one filled row, B=1 x
+     n=20000, dropped indices), the segment sum against its plain version,
+     bitwise against the CPU's sequential sum, within 1e-6 x max(1, scale)
+     of a float64 sum, and bitwise repeatable; the plan, the sum and
+     torch.index_add under one torch.profiler window (device ms by kernel,
+     device operations a call) beside each loop's host and event time;
+     then
      scripts/bench_train_pipeline.py's run in-process: one epoch of the
      CLI's loop (apps/train.py::train) with 4 loader worker threads over a
      SyntheticGraspNetDataset at its production shape, the eval pass and the
@@ -730,7 +736,7 @@ def main_path_phase(cfg, pipe, clouds):
     expected = {"fps_chain": 1, "ball_query": 3, "sa1_fused": 1, "crop_fused": 1,
                 "crop_group": 0, "crop_mlp_train": 0, "crop_mlp_train_backward": 0,
                 "cylinder_query_multi": 0, "sa_feat_fused": 0, "multi_query": 0,
-                "scatter_add_rows": 0}
+                "scatter_add_rows": 0, "scatter_plan": 0}
 
     def drive(fn):
         """Run one batched forward; every kernel must launch once for it."""
@@ -1130,9 +1136,10 @@ def train_phase(cfg, clouds: np.ndarray):
             raise AssertionError(f"launch counts {got}, expected {expected}")
         return out, got
 
-    # scatter_add_rows: the backward of SA2-4's feature grouping and FP1-2's interpolation
+    # scatter_add_rows: the backward of SA2-4's feature grouping and FP1-2's interpolation;
+    # scatter_plan: its plan, made in those gathers' forwards
     step_counts = {"ball_query": 4, "crop_group": 1, "crop_mlp_train": 1, "crop_mlp_train_backward": 1,
-                   "scatter_add_rows": 5}
+                   "scatter_add_rows": 5, "scatter_plan": 5}
     tr = Trainer(cfg, TrainConfig(), seed=TRAIN_SEED)
     tr.set_epoch(0)
     dev_full = tr.put(full)
@@ -1335,13 +1342,18 @@ def capture_scatter_calls(cfg, full):
 
 
 def check_scatter_call(g, idx, n, plan):
-    """The scatter-add kernel at one call: bitwise repeatable, bitwise the
-    CPU's sequential sum (the same adds in the same order) and within
+    """The scatter-add's two kernels at one call: the plan (made by the
+    plan kernel in the gather's forward) bitwise the plain plan's on the
+    card and on the CPU; the sum bitwise repeatable, bitwise the CPU's
+    sequential sum (the same adds in the same order) and within
     SCATTER_F64_TOL x max(1, scale) of a float64 sum.  Returns (the
     kernel's sum, |kernel - plain on the card|, its error from float64, the
     scale)."""
     from graspnet_tpu_torch.ops import scatter as ksc
 
+    for want in (ksc.scatter_plan_plain(idx, n), ksc.scatter_plan_plain(idx.cpu(), n)):
+        if not all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(plan, want)):
+            raise AssertionError(f"scatter_plan at {tuple(idx.shape)} -> {n} differs from the plain plan")
     got = ksc.scatter_add_rows(g, idx, n, plan)
     again = ksc.scatter_add_rows(g, idx, n, plan)
     plain = ksc.scatter_add_rows_plain(g, idx, n)
@@ -1357,28 +1369,108 @@ def check_scatter_call(g, idx, n, plan):
     return got, (got - plain).abs().max().item(), err64, scale
 
 
-def scatter_kernel_row(cfg, full) -> dict:
-    """The scatter-add kernel at each call of a step (`check_scatter_call`);
-    times of the step's calls together."""
+def scatter_plan_edges() -> list:
+    """The plan kernel at its edges, bitwise the plain plan on the CPU: a
+    ragged last chunk, every key in one row, every row empty but one, B=1 x
+    n=20000 (its histograms in global memory) and indices n, -1, 2n and
+    -2^40 in every scene (dropped: they sort last)."""
+    from graspnet_tpu_torch.ops import scatter as ksc
+
+    rng = np.random.default_rng(DATA_SEED)
+    one_row = np.full((2, 5000), -1)
+    one_row[1] = 5
+    dropped = rng.integers(0, 64, (3, 1500))
+    dropped[:, ::5], dropped[:, 1::7], dropped[:, 2::11], dropped[:, 3::13] = 64, -1, 128, -(2**40)
+    cases = {"ragged": (rng.integers(0, 40, (3, 4099)), 40), "one_row": (one_row, 9),
+             "one_row_filled": (np.full((1, 777), 3), 100), "b1_n20000": (rng.integers(0, 20000, (1, 30000)), 20000),
+             "dropped": (dropped, 64)}
+    out = []
+    for name, (idx, n) in cases.items():
+        cpu = torch.from_numpy(np.asarray(idx, np.int64))
+        got, want = ksc.scatter_plan(cpu.cuda(), n), ksc.scatter_plan_plain(cpu, n)
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(got, want)):
+            raise AssertionError(f"scatter_plan at the edge case {name} differs from the plain plan")
+        out.append({"case": name, "shape": list(idx.shape), "n": n, "in_range": int(want[1][-1])})
+    return out
+
+
+def scatter_profile_split(calls, reps: int = 10) -> dict:
+    """Host and device time of a step's scatter-add calls (`calls`, from
+    `capture_scatter_calls`), for the plan (`scatter_plan`), the segment sum
+    (`scatter_add_rows` on the captured plans) and torch.index_add on the
+    same rows, all in one torch.profiler window, split by kernel name (the
+    plan kernel's, the sum kernel's, the rest torch.index_add's): device ms
+    per step by kernel and device operations (kernels, memsets, copies) per
+    call; then, unprofiled, the host's ms per step to enqueue each loop and
+    the loop's CUDA-event ms per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from graspnet_tpu_torch.ops import scatter as ksc
+
+    flat = [(g.reshape(-1, g.shape[2]), (idx + n * torch.arange(g.shape[0], device=idx.device)[:, None]).reshape(-1),
+             torch.zeros(g.shape[0] * n, g.shape[2], device=g.device)) for g, idx, n, _ in calls]
+    loops = {"plan": lambda: [ksc.scatter_plan(i, n) for _, i, n, _ in calls],
+             "sum": lambda: [ksc.scatter_add_rows(g, i, n, p) for g, i, n, p in calls],
+             "index_add": lambda: [torch.index_add(z, 0, r, g2) for g2, r, z in flat]}
+    names = {"plan": "scatter_plan_kernel", "sum": "segment_sum_kernel"}
+    for fn in loops.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn in loops.values():
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    out = {k: {"device_ms_per_step_by_kernel": {}, "device_ops_per_call": 0.0} for k in loops}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0) or 0
+        if dev_us > 0 and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            which = next((k for k, part in names.items() if part in ev.key), "index_add")
+            out[which]["device_ms_per_step_by_kernel"][ev.key[:80]] = dev_us / reps / 1e3
+            out[which]["device_ops_per_call"] += ev.count / reps / len(calls)
+    for name, fn in loops.items():
+        by_kernel = out[name]["device_ms_per_step_by_kernel"]
+        out[name]["device_ms_per_step"] = sum(by_kernel.values()) if by_kernel else "not measured"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out[name]["host_enqueue_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize()
+        out[name]["event_ms_per_step"] = cuda_ms(fn, 20)
+    log(phase="scatter_profile_split", reps=reps, **out)
+    return out
+
+
+def scatter_kernel_rows(cfg, full) -> list:
+    """The scatter-add's plan and sum kernels at each call of a step
+    (`check_scatter_call`) and the plan at its edges
+    (`scatter_plan_edges`); times of the step's calls together, and their
+    profiler split (`scatter_profile_split`).  Returns the sum's and the
+    plan's rows."""
     from graspnet_tpu_torch.ops import scatter as ksc
 
     calls = capture_scatter_calls(cfg, full)
     if len(calls) != 5:
         raise AssertionError(f"a step made {len(calls)} scatter-add calls, expected 5")
-    shapes, err_plain, nbytes, adds = [], 0.0, 0, 0
+    shapes, err_plain, nbytes, adds, plan_bytes = [], 0.0, 0, 0, 0
     for g, idx, n, plan in calls:
         _, err, err64, scale = check_scatter_call(g, idx, n, plan)
         err_plain = max(err_plain, err)
         b, k, c = g.shape
         nbytes += g.numel() * 4 + idx.numel() * 8 + b * n * c * 4
         adds += g.numel()
+        plan_bytes += idx.numel() * (8 + 4) + (2 * b * n + 1) * 4  # idx read; perm, starts, order written
         segs = plan[1][1:] - plan[1][:-1]
         shapes.append({"g": [b, k, c], "n": n, "err_f64": err64, "scale": scale,
                        "longest_segment": int(segs.max()), "empty_rows": int((segs == 0).sum())})
+    edges = scatter_plan_edges()
     flat = [(g.reshape(-1, g.shape[2]), (idx + n * torch.arange(g.shape[0], device=idx.device)[:, None]).reshape(-1),
              torch.zeros(g.shape[0] * n, g.shape[2], device=g.device)) for g, idx, n, _ in calls]
+    keys = [ksc._keys(idx, n) for _, idx, n, _ in calls]
+    bounds = [torch.arange(g.shape[0] * n + 1, device=g.device) for g, _, n, _ in calls]
     t_bound, by = bound(nbytes, adds)
-    row = dict(
+    sum_row = dict(
         name="scatter_add_rows", route="cuda", source="graspnet_tpu_torch/csrc/scatter.cu",
         replaces="no TPU kernel: graspnet_tpu/ops/scatter.py:28 (scatter_add_rows) is XLA",
         max_abs_err=err_plain,
@@ -1387,15 +1479,30 @@ def scatter_kernel_row(cfg, full) -> dict:
         bound_ms=t_bound, bound_by=by,
         library_ms=cuda_ms(lambda: [torch.index_add(z, 0, r, g2) for g2, r, z in flat], 20),
     )
-    plan_ms = cuda_ms(lambda: [ksc.scatter_plan(i, n) for _, i, n, _ in calls], 20)
-    log(phase="scatter_kernel", calls=shapes, plan_ms_per_step=plan_ms, bitwise_cpu_sum=True,
-        repeatable=True, f64_tol=SCATTER_F64_TOL, **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
-    return row
+    t_plan, plan_by = bound(plan_bytes)
+    plan_row = dict(
+        name="scatter_plan", route="cuda", source="graspnet_tpu_torch/csrc/scatter.cu",
+        replaces="no TPU kernel: the plan of the XLA scatter_add_rows' port (graspnet_tpu/ops/scatter.py:28)",
+        max_abs_err=0.0,  # perm and starts bitwise the plain plan's (check_scatter_call)
+        ms=cuda_ms(lambda: [ksc.scatter_plan(i, n) for _, i, n, _ in calls], 20),
+        plain_ms=cuda_ms(lambda: [ksc.scatter_plan_plain(i, n) for _, i, n, _ in calls], 20),
+        bound_ms=t_plan, bound_by=plan_by,
+        # the library's stable sort and search on the same keys
+        library_ms=cuda_ms(lambda: [torch.searchsorted(torch.sort(kk, stable=True)[0], bb)
+                                    for kk, bb in zip(keys, bounds)], 20),
+    )
+    split = scatter_profile_split(calls)
+    log(phase="scatter_kernel", calls=shapes, plan_edges=edges, bitwise_plain_plan=True, bitwise_cpu_sum=True,
+        repeatable=True, f64_tol=SCATTER_F64_TOL,
+        sum={k: sum_row[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        plan={k: plan_row[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        device_ms_per_step={k: v["device_ms_per_step"] for k, v in split.items()})
+    return [sum_row, plan_row]
 
 
 def train_cli_phase(cfg, clouds: np.ndarray, full):
     """Phase 8: the training entry point on the card.  Returns the scatter
-    kernel's row and the phase's timings."""
+    kernels' rows and the phase's timings."""
     from graspnet_tpu_torch.apps import train as cli_train
     from graspnet_tpu_torch.ops import cuda as kernels
     from graspnet_tpu_torch.ops.cuda import build
@@ -1409,7 +1516,7 @@ def train_cli_phase(cfg, clouds: np.ndarray, full):
     log(phase="train_cli_seed_chain", **chain)
     rep = repeatability_phase(cfg, full)
     log(phase="train_cli_repeatable", **rep)
-    row = scatter_kernel_row(cfg, full)
+    scatter_rows = scatter_kernel_rows(cfg, full)
 
     slope.reset(TOOL_K_LO, TOOL_K_HI)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_cli_") as log_dir:
@@ -1419,6 +1526,7 @@ def train_cli_phase(cfg, clouds: np.ndarray, full):
         s, e = result["train_steps"], 1  # train steps (run() checks them), eval batches
         expected = {**{k: 0 for k in kernels.launches()}, "ball_query": 4 * s + 6 * e, "crop_group": s,
                     "crop_mlp_train": s, "crop_mlp_train_backward": s, "scatter_add_rows": 5 * s,
+                    "scatter_plan": 5 * s,
                     "sa1_fused": 2 * e, "crop_fused": e}
         if result["launches"] != expected:
             raise AssertionError(f"CLI loop launches {result['launches']}, expected {expected}")
@@ -1443,7 +1551,7 @@ def train_cli_phase(cfg, clouds: np.ndarray, full):
                   seed_chain_ms_per_scene_library=statistics.mean(chain["host_library_ms_per_scene"]),
                   seed_chain_ms_per_scene_numpy=statistics.mean(chain["fps_numpy_ms_per_scene"]))
     log(phase="train_cli_timing", **timing)
-    return row, timing
+    return scatter_rows, timing
 
 
 def collision_phase(pipe) -> dict:
@@ -1552,6 +1660,7 @@ def learnability_phase() -> dict:
     steps, forwards = result["steps"], 6  # 2 dumps x (warm-up + 2 test frames)
     expected = {**{k: 0 for k in launches}, "ball_query": 4 * steps + 3 * forwards, "crop_group": steps,
                 "crop_mlp_train": steps, "crop_mlp_train_backward": steps, "scatter_add_rows": 5 * steps,
+                "scatter_plan": 5 * steps,
                 "fps_chain": forwards, "sa1_fused": forwards, "crop_fused": forwards}
     log(phase="learnability", launches=launches,
         **{k: v for k, v in result.items() if k not in ("trajectory", "dataset_root", "checkpoint_path")},
@@ -1851,7 +1960,7 @@ def crop_routes_phase(clouds: np.ndarray):
     l_card, g_card = card.grads_compact(compact)
     torch.cuda.synchronize()
     step_launches = kernels.launches()
-    expected_step = {**zero, "ball_query": 4, "crop_group": 1, "scatter_add_rows": 5}
+    expected_step = {**zero, "ball_query": 4, "crop_group": 1, "scatter_add_rows": 5, "scatter_plan": 5}
     if step_launches != expected_step:
         raise AssertionError(f"crop_routes train: launches {step_launches}, expected {expected_step}")
     l_cpu, g_cpu = cpu.grads_compact(compact)
@@ -2066,7 +2175,8 @@ def ddp_train_phase(cfg, full: dict, compact: dict) -> dict:
     rank_launches = [json.loads(str(r["launches"])) for r in ranks]
     for r, counts in enumerate(rank_launches):
         for what, c in counts.items():
-            if c["crop_mlp_train"] or c["crop_mlp_train_backward"] or not c["crop_group"] or not c["scatter_add_rows"]:
+            if c["crop_mlp_train"] or c["crop_mlp_train_backward"] or not c["crop_group"] or not c["scatter_add_rows"] \
+                    or c["scatter_plan"] != c["scatter_add_rows"]:
                 raise AssertionError(f"rank {r} {what}: launches {c} (K7 must stay off at world size 2)")
     if float(ranks[0]["step_loss"]) != float(ranks[1]["step_loss"]):
         raise AssertionError("the ranks report different global losses")
@@ -2209,7 +2319,8 @@ def hybrid_train_phase(cfg, compact: dict) -> dict:
             launches = [json.loads(str(r["launches"])) for r in ranks]
             for r, counts in enumerate(launches):
                 c = counts["step"]
-                want = {**{k: 0 for k in c}, "ball_query": 4, "crop_group": 1, "scatter_add_rows": 5}
+                want = {**{k: 0 for k in c}, "ball_query": 4, "crop_group": 1, "scatter_add_rows": 5,
+                        "scatter_plan": 5}
                 if c != want:
                     raise AssertionError(f"hybrid {name} rank {r} step: launches {c}, expected {want}")
             found[name] = dict(card_vs_b2_step=grads, ranks_bitwise_equal=True, state_tensors=len(states),
@@ -2412,8 +2523,8 @@ def main() -> int:
     crop_mlp = init_weights(GraspNet(cfg), TRAIN_SEED).crop.mlp.to(dev)
     rows += train_kernel_phase(cfg, crop_mlp, cloud_b)
     train_launches, train_timing, full, compact = train_phase(cfg, clouds[:B_KERNELS])
-    scatter_row, cli_timing = train_cli_phase(cfg, clouds[:B_KERNELS], full)
-    rows.append(scatter_row)
+    scatter_rows, cli_timing = train_cli_phase(cfg, clouds[:B_KERNELS], full)
+    rows += scatter_rows
     train_timing.update(cli_timing)
     ddp_launches = ddp_train_phase(cfg, full, compact)
     hybrid_launches = hybrid_train_phase(cfg, compact)

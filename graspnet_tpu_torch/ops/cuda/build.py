@@ -63,9 +63,15 @@ def on_device(device: torch.device) -> Iterator[int]:
     and yield the handle of its current stream.  The C launchers launch on
     the current device and set its shared memory limits there, so a tensor
     on cuda:1 reached from a thread whose current device is cuda:0 would
-    otherwise be launched on with another device's stream."""
-    with torch.cuda.device(device):
-        yield torch.cuda.current_stream(device).cuda_stream
+    otherwise be launched on with another device's stream.  Through the
+    calls beneath `torch.cuda.device` and `current_stream`: their Python
+    objects cost most of a small kernel's host time a launch."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    prev = torch.cuda._exchange_device(index)
+    try:
+        yield torch._C._cuda_getCurrentRawStream(index)
+    finally:
+        torch.cuda._maybe_exchange_device(prev)
 
 
 def _nvcc() -> str:

@@ -260,7 +260,7 @@ def test_tiny_pipeline_card_matches_cpu_and_counts_launches(dev):
     assert kernels.launches() == {"fps_chain": 1, "ball_query": 3, "sa1_fused": 1, "crop_fused": 1,
                                   "crop_group": 0, "crop_mlp_train": 0, "crop_mlp_train_backward": 0,
                                   "cylinder_query_multi": 0, "sa_feat_fused": 0, "multi_query": 0,
-                                  "scatter_add_rows": 0}
+                                  "scatter_add_rows": 0, "scatter_plan": 0}
     for g, w in zip(got, cpu.get_grasps_topk_batch(clouds)):
         g, w = g.grasp_group_array, w.grasp_group_array
         assert g.shape == w.shape
@@ -707,10 +707,61 @@ def test_scatter_add_rows_rejects_what_it_does_not_take(dev):
     from graspnet_tpu_torch.ops import scatter as ksc
 
     g = torch.zeros(1, 4, 8, device=dev)
+    idx = torch.zeros(1, 4, dtype=torch.int64, device=dev)
     with pytest.raises(ValueError):
-        ksc.scatter_add_rows(g.double(), torch.zeros(1, 4, dtype=torch.int64, device=dev), 2)
+        ksc.scatter_add_rows(g.double(), idx, 2)
     with pytest.raises(ValueError):
-        ksc.scatter_add_rows(g, torch.zeros(1, 4, dtype=torch.int32, device=dev), 2)
+        ksc.scatter_add_rows(g, idx.int(), 2)
+    with pytest.raises(ValueError):
+        ksc.scatter_plan(idx.int(), 2)
+    perm, starts, order = ksc.scatter_plan(idx, 2)
+    with pytest.raises(ValueError):  # an int64 plan
+        ksc.scatter_add_rows(g, idx, 2, (perm.long(), starts.long(), order))
+    with pytest.raises(ValueError):  # no work order
+        ksc.scatter_add_rows(g, idx, 2, (perm, starts, order[:1]))
+
+
+def _plan_cases():
+    from tests.test_torch_port_scatter_plan import EDGE_CASES, STEP_CALLS
+
+    return [("step", name) for name in STEP_CALLS] + [("edge", name) for name in EDGE_CASES]
+
+
+@pytest.mark.parametrize("kind,name", _plan_cases())
+def test_scatter_plan_kernel_is_bitwise_the_plain_plan(dev, kind, name):
+    """The counting-sort plan kernel at a B=2 step's five calls (first-hit
+    padded and three-NN indices, tests/test_torch_port_scatter_plan.py) and
+    at its edges (a ragged chunk, one row, B=1 x n=20000 through the global
+    histograms, dropped indices): perm, starts and the work order bitwise
+    the plain version's on the card and on the CPU, one launch, repeatable;
+    the sum over the kernel's plan bitwise the CPU's sequential sum."""
+    from graspnet_tpu_torch.ops import scatter as ksc
+    from tests.test_torch_port_scatter_plan import edge_idx, step_idx
+
+    idx, n = step_idx(name) if kind == "step" else edge_idx(name)
+    cpu = torch.from_numpy(idx)
+    card = cpu.to(dev)
+    before = ksc.scatter_plan.launches
+    plan = ksc.scatter_plan(card, n)
+    assert ksc.scatter_plan.launches == before + 1
+    for want in (ksc.scatter_plan_plain(cpu, n), ksc.scatter_plan_plain(card, n), ksc.scatter_plan(card, n)):
+        assert all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(plan, want))
+    g = torch.from_numpy(np.random.default_rng(1).standard_normal((*idx.shape, 40)).astype(np.float32))
+    got = ksc.scatter_add_rows(g.to(dev), card, n, plan)
+    assert torch.equal(got.cpu(), ksc.scatter_add_rows_plain(g, cpu, n))
+
+
+def test_scatter_add_rows_walks_segments_longer_than_a_round(dev):
+    """Segments of 1, 31, 32, 33, 64, 65 and 1000 sources (a round is 32
+    rows in flight) at C = 256 and a ragged C = 70: bitwise the CPU's sum."""
+    from graspnet_tpu_torch.ops import scatter as ksc
+
+    lengths = (1, 31, 32, 33, 64, 65, 1000)
+    idx = torch.from_numpy(np.repeat(np.arange(len(lengths)) * 2, lengths)[None])  # odd rows empty
+    for c in (256, 70):
+        g = torch.from_numpy(np.random.default_rng(c).standard_normal((1, idx.shape[1], c)).astype(np.float32))
+        got = ksc.scatter_add_rows(g.to(dev), idx.to(dev), 2 * len(lengths))
+        assert torch.equal(got.cpu(), ksc.scatter_add_rows_plain(g, idx, 2 * len(lengths)))
 
 
 def test_gather_gradients_repeat_bitwise_on_the_card(dev):

@@ -187,6 +187,7 @@ knn = importlib.import_module("graspnet_tpu_torch.ops.knn")
 assert query.gather_rows is sampling.gather_rows is scatter.gather_rows
 assert knn.three_interpolate is scatter.three_interpolate
 assert cuda.scatter_add_rows is scatter.scatter_add_rows and scatter.scatter_add_rows in cuda.WRAPPERS
+assert cuda.scatter_plan is scatter.scatter_plan and scatter.scatter_plan in cuda.WRAPPERS
 print("ok")
 """
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},

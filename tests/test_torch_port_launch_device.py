@@ -111,6 +111,7 @@ LAUNCHERS = {
         [card(np.ones((2, w), np.float32)) for w in (8, 8, 16)], 1e-5),
     "scatter_add_rows": lambda x, c, r: scatter.scatter_add_rows(
         card(np.ones((1, 6, 4), np.float32)), card(np.array([[0, 2, 2, 1, 0, 3]])), 5),
+    "scatter_plan": lambda x, c, r: scatter.scatter_plan(card(np.array([[0, 2, 2, 1, 0, 3]])), 5),
 }
 
 
@@ -134,22 +135,19 @@ def test_the_launchers_cover_every_wrapper():
 
 
 def test_on_device_makes_the_device_current_and_yields_its_stream(monkeypatch):
-    """The helper itself, with torch.cuda's device switch and stream
-    recorded (no card here)."""
+    """The helper itself, with torch's device exchange and raw-stream query
+    recorded (no card here): the device is current while the launcher runs
+    and the one before it is restored after, also when the launcher raises."""
     seen = []
-
-    @contextlib.contextmanager
-    def device(d):
-        seen.append(("enter", d))
-        yield
-        seen.append(("exit", d))
-
-    class Stream:
-        cuda_stream = 1234
-
-    monkeypatch.setattr(torch.cuda, "device", device)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda d: seen.append(("stream", d)) or Stream())
+    monkeypatch.setattr(torch.cuda, "_exchange_device", lambda i: seen.append(("enter", i)) or 0)
+    monkeypatch.setattr(torch.cuda, "_maybe_exchange_device", lambda i: seen.append(("exit", i)) or 1)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda i: seen.append(("stream", i)) or 1234,
+                        raising=False)
     dev = torch.device("cuda", 1)
     with build.on_device(dev) as stream:
-        assert stream == 1234 and seen == [("enter", dev), ("stream", dev)]
-    assert seen[-1] == ("exit", dev)
+        assert stream == 1234 and seen == [("enter", 1), ("stream", 1)]
+    assert seen[-1] == ("exit", 0)
+    with pytest.raises(RuntimeError):
+        with build.on_device(dev):
+            raise RuntimeError("launch failed")
+    assert seen[-1] == ("exit", 0)

@@ -8,7 +8,9 @@
   of the JAX functions (`graspnet_tpu/ops/sampling.py:76`,
   `ops/query.py:196`, `ops/knn.py:98`) within 1e-6 x max(1, scale): the
   JAX backward sums by one-hot matmuls, the port's in index order.
-* `scatter_add_rows` against the JAX function at the same tolerance.
+* `scatter_add_rows` against the JAX function at the same tolerance, and
+  with indices outside [0, n), which the JAX function drops: they add to no
+  row of any scene.
 * The kernel's plan on the CPU: `scatter_plan`'s sorted segments walked in
   order from 0.0 (what `csrc/scatter.cu` does a warp per row) are bitwise
   the plain version's sequential `index_add_`, so the kernel's sums can be
@@ -121,6 +123,30 @@ def test_scatter_add_rows_matches_jax(b, k, n, c):
     assert_close_scaled(got.numpy(), want)
 
 
+@pytest.mark.parametrize("case", ["minus_one", "n", "every_scene"])
+def test_out_of_range_indices_drop_as_in_jax(case):
+    """An index outside [0, n) adds to no row: not to the next scene's row
+    0 (idx = n) nor to the previous scene's last row (idx = -1)."""
+    if case == "every_scene":
+        rng = np.random.default_rng(5)
+        n = 6
+        idx = rng.integers(0, n, (3, 40))
+        idx[:, 3], idx[:, 17], idx[:, 31] = n, -1, 2 * n
+        g = rng.standard_normal((3, 40, 5)).astype(np.float32)
+    else:
+        n = 3
+        idx = np.array({"minus_one": [[0, 1, 2, 2], [0, 0, 1, -1]], "n": [[0, 1, 3, 2], [0, 0, 1, 1]]}[case])
+        g = np.ones((2, 4, 1), np.float32)
+    want = np.asarray(jscatter_add_rows(jnp.asarray(g), jnp.asarray(idx, jnp.int32), n))
+    for fn in (scatter_add_rows, scatter_add_rows_plain):
+        got = fn(torch.from_numpy(g), torch.from_numpy(idx), n).numpy()
+        assert_close_scaled(got, want)
+    if case != "every_scene":  # sums of ones: exact
+        np.testing.assert_array_equal(scatter_add_rows(torch.from_numpy(g), torch.from_numpy(idx), n).numpy(), want)
+    _, starts, _ = scatter_plan(torch.from_numpy(idx), n)
+    assert starts[-1] == ((idx >= 0) & (idx < n)).sum()
+
+
 def walk_plan(g, perm, starts, rows, c):
     """csrc/scatter.cu's arithmetic in numpy: each output row sums its
     sorted segment in order, starting from 0.0, one float32 add at a time."""
@@ -140,7 +166,7 @@ def test_kernel_plan_is_bitwise_the_plain_version(b, k, n, c):
     g = rng.standard_normal((b, k, c)).astype(np.float32) * np.float32(1e3) ** rng.integers(-2, 3, (b, k, 1))
     idx = colliding_idx(rng, b, k, n)
     gt, it = torch.from_numpy(g.astype(np.float32)), torch.from_numpy(idx)
-    perm, starts = scatter_plan(it, n)
+    perm, starts, _ = scatter_plan(it, n)
     assert starts[0] == 0 and starts[-1] == b * k and (starts[1:] >= starts[:-1]).all()
     keys = (it + n * torch.arange(b)[:, None]).reshape(-1)
     for r in range(b * n):  # each segment lists its source rows in ascending order
@@ -163,5 +189,5 @@ def test_cpu_backward_launches_no_kernel():
     kernels.reset_launches()
     pts = torch.randn(2, 30, 8, requires_grad=True)
     ops.group_points(pts, torch.randint(0, 30, (2, 5, 4))).sum().backward()
-    assert kernels.launches()["scatter_add_rows"] == 0
+    assert kernels.launches()["scatter_add_rows"] == kernels.launches()["scatter_plan"] == 0
     assert pts.grad.shape == pts.shape

@@ -126,6 +126,33 @@ def test_ab_ball_kernels_needs_a_card():
             ab_ball_kernels.main(["--trees", "."])
 
 
+def test_ab_scatter_needs_a_card_and_captures_a_steps_calls():
+    """The side-by-side scatter-add timer measures CUDA kernels only:
+    without a card it exits before it starts any run.  The calls it times
+    are the five gathers that make a plan in a training-mode backbone
+    forward: SA2-4's grouping and FP1-2's interpolation, with their input's
+    channels and rows."""
+    from graspnet_tpu_torch.config import GraspNetConfig
+    from graspnet_tpu_torch.models import GraspNet, init_weights
+    from graspnet_tpu_torch.ops import scatter
+    from graspnet_tpu_torch.scripts import ab_scatter
+
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="needs a card"):
+            ab_scatter.main(["--trees", "."])
+    cfg = GraspNetConfig.tiny()
+    backbone = init_weights(GraspNet(cfg), 0).backbone
+    cloud = torch.rand(2, cfg.num_point, 3, generator=torch.Generator().manual_seed(0)) * 0.6 - 0.3
+    calls = ab_scatter.capture_calls(scatter, backbone, cloud)
+    assert scatter._plan is not None and len(calls) == 5
+    want_n = [cfg.sa1.npoint, cfg.sa2.npoint, cfg.sa3.npoint, cfg.sa4.npoint, cfg.sa3.npoint]
+    assert [n for _, _, n in calls] == want_n
+    for (c, idx, n), sa in zip(calls[:3], (cfg.sa2, cfg.sa3, cfg.sa4)):
+        assert idx.shape == (2, sa.npoint * sa.nsample) and 0 <= int(idx.min()) and int(idx.max()) < n
+    for c, idx, n in calls[3:]:
+        assert idx.shape[1] % 3 == 0
+
+
 def test_ab_crop_scan_needs_a_card_and_reads_ptxas():
     """The side-by-side K5/K6/K8 scan timer measures CUDA kernels only:
     without a card it exits before it starts any run.  Its ptxas reader
