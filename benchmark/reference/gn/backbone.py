@@ -1,0 +1,122 @@
+"""The PointNet++ backbone (four set-abstraction and two feature-propagation
+stages): a frozen copy of the port's `models/backbone.py`, its kernels
+replaced by the plain versions of `ops.py`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from . import ops
+from .config import GraspNetConfig, SAConfig
+from .layers import SharedMLP, fold_bn_eval, folded_mlp
+from .ops import ball_query, fps_chain, sa1_fused
+
+
+class SAStage(nn.Module):
+    def __init__(self, sa: SAConfig, eps: float):
+        super().__init__()
+        self.cfg = sa
+        self.mlp = SharedMLP(sa.mlp, eps)
+
+    def forward(self, xyz, features, inds, train: bool = False, qidx=None):
+        """xyz (B, N, 3), features (B, N, C) | None, FPS inds (B, npoint),
+        optional ball-query indices (B, npoint, nsample) -> new_xyz
+        (B, npoint, 3), pooled (B, npoint, mlp[-1]), batch stats (train
+        only), the query indices (train only)."""
+        sa = self.cfg
+        new_xyz = ops.gather_points(xyz, inds)
+        if features is None and not train and sa.normalize_xyz and len(self.mlp) == 3:
+            folded = fold_bn_eval(self.mlp)
+            return new_xyz, sa1_fused(xyz, new_xyz, folded, sa.radius, sa.nsample), None, None
+        idx = qidx if qidx is not None else ball_query(xyz, new_xyz, sa.radius, sa.nsample)
+        grouped = ops.group_points(xyz, idx) - new_xyz[:, :, None, :]
+        if sa.normalize_xyz:
+            grouped = grouped / sa.radius
+        if features is not None:
+            grouped = torch.cat([grouped, ops.group_points(features, idx)], dim=-1)
+        if not train:
+            return new_xyz, torch.amax(folded_mlp(fold_bn_eval(self.mlp), grouped), dim=2), None, None
+        out, stats = self.mlp.forward_train(grouped)
+        return new_xyz, torch.amax(out, dim=2), stats, idx
+
+
+class FPStage(nn.Module):
+    def __init__(self, dims, eps: float):
+        super().__init__()
+        self.mlp = SharedMLP(dims, eps)
+
+    def forward(self, unknown_xyz, known_xyz, unknown_feat, known_feat, train: bool = False):
+        """3-NN inverse-distance interpolation + skip concat + MLP ->
+        (features, batch stats in train mode, else None)."""
+        dist, idx = ops.three_nn(unknown_xyz, known_xyz)
+        recip = 1.0 / (dist + 1e-8)
+        norm = recip[..., 0:1] + recip[..., 1:2] + recip[..., 2:3]
+        interp = ops.three_interpolate(known_feat, idx, recip / norm)
+        feat = torch.cat([interp, unknown_feat], dim=-1)
+        if train:
+            return self.mlp.forward_train(feat)
+        return self.mlp(feat), None
+
+
+class Backbone(nn.Module):
+    def __init__(self, cfg: GraspNetConfig):
+        super().__init__()
+        self.cfg = cfg
+        eps = cfg.bn_eps
+        self.sa1 = SAStage(cfg.sa1, eps)
+        self.sa2 = SAStage(cfg.sa2, eps)
+        self.sa3 = SAStage(cfg.sa3, eps)
+        self.sa4 = SAStage(cfg.sa4, eps)
+        self.fp1 = FPStage(cfg.fp1_mlp, eps)
+        self.fp2 = FPStage(cfg.fp2_mlp, eps)
+
+    def forward(
+        self,
+        pointcloud: torch.Tensor,
+        train: bool = False,
+        sa_inds: Optional[Dict[str, torch.Tensor]] = None,
+        sa_query_idx: Optional[Dict[str, torch.Tensor]] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+        """pointcloud (B, N, 3 + input_feature_dim) -> seed_features (B, num_seed, C),
+        seed_xyz (B, num_seed, 3), end_points.
+
+        `sa_inds`: the FPS chain {"sa1".."sa4"}, each (B, npoint) int64
+        indices into the previous stage's points; `sa_query_idx`: ball-query
+        indices per stage (both parameter-independent, so a pre-pass may
+        compute them once for the step)."""
+        cfg = self.cfg
+        xyz = pointcloud[..., :3].contiguous()
+        features = pointcloud[..., 3:] if pointcloud.shape[-1] > 3 else None
+        if sa_inds:
+            inds = [sa_inds[k] for k in ("sa1", "sa2", "sa3", "sa4")]
+        else:
+            inds = fps_chain(xyz, (cfg.sa1.npoint, cfg.sa2.npoint, cfg.sa3.npoint, cfg.sa4.npoint))
+        i1, i2, i3, i4 = inds
+        q = sa_query_idx or {}
+        stats, qidx = {}, {}
+        sa1_xyz, sa1_feat, stats["sa1"], qidx["sa1"] = self.sa1(xyz, features, i1, train, q.get("sa1"))
+        sa2_xyz, sa2_feat, stats["sa2"], qidx["sa2"] = self.sa2(sa1_xyz, sa1_feat, i2, train, q.get("sa2"))
+        sa3_xyz, sa3_feat, stats["sa3"], qidx["sa3"] = self.sa3(sa2_xyz, sa2_feat, i3, train, q.get("sa3"))
+        sa4_xyz, sa4_feat, stats["sa4"], qidx["sa4"] = self.sa4(sa3_xyz, sa3_feat, i4, train, q.get("sa4"))
+        fp1_feat, stats["fp1"] = self.fp1(sa3_xyz, sa4_xyz, sa3_feat, sa4_feat, train)
+        fp2_feat, stats["fp2"] = self.fp2(sa2_xyz, sa3_xyz, sa2_feat, fp1_feat, train)
+        num_seed = sa2_xyz.shape[1]
+        end_points = {
+            "input_xyz": xyz,
+            "input_features": features,
+            "sa1_xyz": sa1_xyz,
+            "sa1_inds": i1,
+            "sa2_xyz": sa2_xyz,
+            "fp2_features": fp2_feat,
+            "fp2_xyz": sa2_xyz,
+            # seed indices into the original cloud (reference backbone.py:127-129)
+            "fp2_inds": i1[:, :num_seed],
+        }
+        if train:
+            end_points["sa_query_idx"] = qidx
+            end_points["bn_stats/backbone"] = stats
+        return fp2_feat, sa2_xyz, end_points
