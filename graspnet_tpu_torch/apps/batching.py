@@ -28,6 +28,13 @@ global device buffers in `csrc/*.cu`), the lazy build holds a lock
 (`ops/cuda/build.py`), and a kernel's dynamic shared memory limit only
 grows, under a lock (`csrc/smem_limit.cuh`): so concurrent dispatches from
 these threads and from per-request callers are safe.
+
+Each request gets back, with its grasps, its own wait in the queue
+(`batcher.queue`, recorded on its thread), its batch's size, and its
+batch's infer and collision seconds, as `GraspPipeline` times them (the
+dispatch's start through the rows' fetch; the filter).  The batch's spans
+on the two threads (`batcher.dispatch`, `batcher.finish`) take the trace
+id of its first request.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from graspnet_tpu_torch.postproc import GraspGroup
+from graspnet_tpu_torch.utils.tracing import current_trace, record_interval, span
 
 
 def _buckets_for(max_batch: int) -> List[int]:
@@ -53,12 +61,14 @@ def _buckets_for(max_batch: int) -> List[int]:
 
 
 class _Item:
-    __slots__ = ("sampled", "scene_ds", "future")
+    __slots__ = ("sampled", "scene_ds", "future", "trace", "queued_ns", "dispatched_ns")
 
     def __init__(self, sampled, scene_ds):
         self.sampled = sampled
         self.scene_ds = scene_ds
         self.future: Future = Future()
+        self.trace = current_trace()
+        self.queued_ns = self.dispatched_ns = time.perf_counter_ns()
 
 
 class MicroBatcher:
@@ -137,7 +147,10 @@ class MicroBatcher:
         scene_cloud_downsampled: Optional[np.ndarray] = None,
         timeout: Optional[float] = None,
     ):
-        """Blocking: returns this request's (collision-filtered) GraspGroup.
+        """Blocking: returns this request's (collision-filtered) GraspGroup
+        and its timings: `queue`, the seconds from this call to its batch's
+        dispatch; `batch`, the batch's size; `infer` and `collision`, the
+        batch's seconds (see the module's docstring).
 
         ``scene_cloud_downsampled`` must already be voxel-downsampled at
         ``voxel_size`` (callers downsample on their own request thread, so
@@ -153,7 +166,9 @@ class MicroBatcher:
             if self._closed:
                 raise RuntimeError("MicroBatcher is closed")
             self._q.put(item)
-        return item.future.result(timeout=timeout)
+        gg, timings = item.future.result(timeout=timeout)
+        record_interval("batcher.queue", item.queued_ns, item.dispatched_ns, batch=timings["batch"])
+        return gg, {"queue": (item.dispatched_ns - item.queued_ns) * 1e-9, **timings}
 
     def close(self):
         """Stop the worker; pending requests still complete first."""
@@ -223,20 +238,22 @@ class MicroBatcher:
     def _dispatch_batch(self, batch: Sequence[_Item]):
         bs = next(b for b in self.buckets if b >= len(batch))
         clouds = np.stack([it.sampled for it in batch] + [batch[-1].sampled] * (bs - len(batch)))
-        return self.pipe.dispatch_grasps_batch(clouds)
+        return self.pipe.dispatch_grasps_batch(clouds, {"batch": len(batch), "collision": 0.0})
 
     def _finish_batch(self, batch: Sequence[_Item], refs):
+        """The batch's filtered groups and its timings: the dict its
+        dispatch handed the pipeline (the handle's last item)."""
+        timings = refs[-1]
         ggs = self.pipe.finish_grasps_batch(refs)[: len(batch)]
-        if self.collision_thresh > 0:
-            idx = [i for i, it in enumerate(batch) if it.scene_ds is not None]
-            if idx:
-                filtered = self.pipe.collision_filter_batch(
-                    [ggs[i] for i in idx], [batch[i].scene_ds for i in idx], self.collision_thresh,
-                    self.voxel_size, self.approach_dist, pre_downsampled=True,
-                )
-                for i, gg in zip(idx, filtered):
-                    ggs[i] = gg
-        return ggs
+        idx = [i for i, it in enumerate(batch) if it.scene_ds is not None] if self.collision_thresh > 0 else []
+        if idx:
+            filtered = self.pipe.collision_filter_batch(
+                [ggs[i] for i in idx], [batch[i].scene_ds for i in idx], self.collision_thresh,
+                self.voxel_size, self.approach_dist, pre_downsampled=True, timings=timings,
+            )
+            for i, gg in zip(idx, filtered):
+                ggs[i] = gg
+        return ggs, timings
 
     def _loop(self):
         while True:
@@ -244,8 +261,12 @@ class MicroBatcher:
             if batch is None:
                 self._q2.put(None)  # propagate shutdown to the finisher
                 return
+            now = time.perf_counter_ns()
+            for it in batch:
+                it.dispatched_ns = now
             try:
-                refs = self._dispatch_batch(batch)
+                with span("batcher.dispatch", trace=batch[0].trace, batch=len(batch)):
+                    refs = self._dispatch_batch(batch)
             except Exception as e:  # noqa: BLE001 — deliver to the callers, keep serving
                 for it in batch:
                     if not it.future.done():
@@ -261,7 +282,8 @@ class MicroBatcher:
                 return
             batch, refs = got
             try:
-                ggs = self._finish_batch(batch, refs)
+                with span("batcher.finish", trace=batch[0].trace, batch=len(batch)):
+                    ggs, timings = self._finish_batch(batch, refs)
             except Exception as e:  # noqa: BLE001 — deliver to the callers, keep serving
                 for it in batch:
                     if not it.future.done():
@@ -269,4 +291,4 @@ class MicroBatcher:
                 continue
             self.frames += len(batch)
             for it, gg in zip(batch, ggs):
-                it.future.set_result(gg)
+                it.future.set_result((gg, timings))

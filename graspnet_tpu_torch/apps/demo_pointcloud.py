@@ -68,9 +68,10 @@ def main(argv: Optional[Sequence[str]] = None):
     pipe = GraspPipeline(cfg=cfg, checkpoint_path=args.checkpoint_path, device=args.device)
     print(f"warm-up: {pipe.warmup(collision_thresh=args.collision_thresh, top_k=args.top_k):.1f}s")
     sampled = pipe.sample_cloud(cloud)
+    timings = {}
     gg = pipe.run(sampled, scene_cloud=cloud, collision_thresh=args.collision_thresh,
-                  voxel_size=args.voxel_size, top_k=args.top_k)
-    print(f"grasps: {len(gg)} (infer {pipe.timings.infer_s * 1000:.1f}ms)")
+                  voxel_size=args.voxel_size, top_k=args.top_k, timings=timings)
+    print(f"grasps: {len(gg)} (infer {timings['infer'] * 1000:.1f}ms)")
     if len(gg):
         print("best grasp pose:\n", gg[0].to_matrix())
     if args.dump:

@@ -80,11 +80,12 @@ def main(argv: Optional[Sequence[str]] = None):
     sampled = pipe.sample_cloud(scene_cloud)
     from graspnet_tpu_torch.utils.tracing import device_trace
 
+    timings = {"collision": 0.0}
     with device_trace(args.profile_dir):
         gg = pipe.run(sampled, scene_cloud=scene_cloud, collision_thresh=args.collision_thresh,
-                      voxel_size=args.voxel_size, top_k=args.top_k)
-    print(f"grasps: {len(gg)}  infer: {pipe.timings.infer_s * 1000:.1f}ms  "
-          f"collision: {pipe.timings.collision_s * 1000:.1f}ms")
+                      voxel_size=args.voxel_size, top_k=args.top_k, timings=timings)
+    print(f"grasps: {len(gg)}  infer: {timings['infer'] * 1000:.1f}ms  "
+          f"collision: {timings['collision'] * 1000:.1f}ms")
     for g in gg[:5].grasp_group_array:
         print(f"  score={g[0]:+.4f} width={g[1]:.3f} depth={g[3]:.3f} center=({g[13]:+.3f},{g[14]:+.3f},{g[15]:+.3f})")
     if len(gg):

@@ -12,7 +12,6 @@ against.  The collision filter counts on the pipeline's device
 
 from __future__ import annotations
 
-import dataclasses
 import time
 from typing import Dict, Optional
 
@@ -25,12 +24,7 @@ from graspnet_tpu_torch.device import resolve_device
 from graspnet_tpu_torch.models import GraspNet, init_weights, pred_decode
 from graspnet_tpu_torch.postproc import GraspGroup, ModelFreeCollisionDetector, detect_batch
 from graspnet_tpu_torch.postproc.nms import nms_top_k
-
-
-@dataclasses.dataclass
-class PipelineTimings:
-    infer_s: float = 0.0
-    collision_s: float = 0.0
+from graspnet_tpu_torch.utils.tracing import span
 
 
 class GraspPipeline:
@@ -78,7 +72,6 @@ class GraspPipeline:
         else:
             model.load_state_dict(params, strict=True)
         self.model = model.to(self.device).eval().requires_grad_(False)
-        self.timings = PipelineTimings()
         self.mesh = mesh
         self._sharded = None
         self._data_axis_size = 1  # the batch sizes the sharded decode takes
@@ -157,26 +150,33 @@ class GraspPipeline:
             )
         return cloud[idxs]
 
-    def get_grasps(self, cloud_sampled: np.ndarray) -> GraspGroup:
+    def get_grasps(self, cloud_sampled: np.ndarray, timings: Optional[dict] = None) -> GraspGroup:
         """Run the network on a (num_point, 3) cloud, return decoded grasps."""
-        return self.get_grasps_batch(np.asarray(cloud_sampled)[None])[0]
+        return self.get_grasps_batch(np.asarray(cloud_sampled)[None], timings)[0]
 
-    def get_grasps_batch(self, clouds: np.ndarray) -> list:
+    def get_grasps_batch(self, clouds: np.ndarray, timings: Optional[dict] = None) -> list:
         """(B, num_point, 3) -> list of B GraspGroups (objectness-valid rows)."""
-        return self.finish_grasps_batch(self.dispatch_grasps_batch(clouds))
+        return self.finish_grasps_batch(self.dispatch_grasps_batch(clouds, timings))
 
-    def dispatch_grasps_batch(self, clouds: np.ndarray):
-        """Enqueue the decode program and return a handle; the kernels run
-        asynchronously on the current CUDA stream."""
-        t0 = time.perf_counter()
-        return self._infer(self._cloud(clouds)), t0
+    def dispatch_grasps_batch(self, clouds: np.ndarray, timings: Optional[dict] = None):
+        """Enqueue the decode program; the kernels run asynchronously on
+        the current CUDA stream.  Returns the handle `finish_grasps_batch`
+        takes: the device rows, the dispatch's start and `timings`, a dict
+        that gets the batch's `infer` seconds, the dispatch's start through
+        the rows' arrival on the host, when the handle is finished, and the
+        seconds of the `pipeline.dispatch` and `pipeline.fetch` spans."""
+        with span("pipeline.dispatch", into=timings) as s:
+            rows = self._infer(self._cloud(clouds))
+        return rows, s.start_ns, timings
 
     def finish_grasps_batch(self, handle) -> list:
-        """Blocking half: fetch the rows, build per-frame groups."""
-        (grasps, valid), t0 = handle
-        grasps, valid = grasps.cpu().numpy(), valid.cpu().numpy()
-        self.timings.infer_s = time.perf_counter() - t0
-        return [GraspGroup(g[v]) for g, v in zip(grasps, valid)]
+        """Blocking half: fetch the rows (the wait on the device), build
+        per-frame groups."""
+        (grasps, valid), start_ns, timings = handle
+        with span("pipeline.fetch", into=timings):
+            grasps, valid = grasps.cpu().numpy(), valid.cpu().numpy()
+            _since(timings, "infer", start_ns)
+            return [GraspGroup(g[v]) for g, v in zip(grasps, valid)]
 
     def collision_filter(
         self,
@@ -185,12 +185,15 @@ class GraspPipeline:
         collision_thresh: float = 0.01,
         voxel_size: float = 0.01,
         approach_dist: float = 0.05,
+        timings: Optional[dict] = None,
     ) -> GraspGroup:
-        """The grasps of gg that do not collide with the (raw) scene cloud."""
-        t0 = time.perf_counter()
-        detector = ModelFreeCollisionDetector(scene_cloud, voxel_size=voxel_size, device=self.device)
-        mask = detector.detect(gg, approach_dist=approach_dist, collision_thresh=collision_thresh)
-        self.timings.collision_s = time.perf_counter() - t0
+        """The grasps of gg that do not collide with the (raw) scene cloud.
+        A `timings` dict gets the filter's `collision` seconds, the
+        downsample through the mask, and those of its spans."""
+        start_ns = time.perf_counter_ns()
+        detector = ModelFreeCollisionDetector(scene_cloud, voxel_size=voxel_size, device=self.device, timings=timings)
+        mask = detector.detect(gg, approach_dist=approach_dist, collision_thresh=collision_thresh, timings=timings)
+        _since(timings, "collision", start_ns)
         return gg[~mask]
 
     def collision_filter_batch(
@@ -201,27 +204,30 @@ class GraspPipeline:
         voxel_size: float = 0.01,
         approach_dist: float = 0.05,
         pre_downsampled: bool = False,
+        timings: Optional[dict] = None,
     ):
         """`collision_filter` for a batch of frames in one device round
         trip (`detect_batch`), mask-identical frame by frame."""
-        t0 = time.perf_counter()
+        start_ns = time.perf_counter_ns()
         masks = detect_batch(scene_clouds, ggs, voxel_size=voxel_size, approach_dist=approach_dist,
                              collision_thresh=collision_thresh, pre_downsampled=pre_downsampled,
-                             device=self.device)
-        self.timings.collision_s = time.perf_counter() - t0
+                             device=self.device, timings=timings)
+        _since(timings, "collision", start_ns)
         return [gg[~m] for gg, m in zip(ggs, masks)]
 
-    def get_grasps_topk(self, cloud_sampled: np.ndarray, top_k: int = 50) -> GraspGroup:
+    def get_grasps_topk(self, cloud_sampled: np.ndarray, top_k: int = 50,
+                        timings: Optional[dict] = None) -> GraspGroup:
         """Serving path: NMS + top-K on the device; ships (K, 17) rows."""
-        return self.get_grasps_topk_batch(np.asarray(cloud_sampled)[None], top_k)[0]
+        return self.get_grasps_topk_batch(np.asarray(cloud_sampled)[None], top_k, timings)[0]
 
-    def get_grasps_topk_batch(self, clouds: np.ndarray, top_k: int = 50) -> list:
+    def get_grasps_topk_batch(self, clouds: np.ndarray, top_k: int = 50, timings: Optional[dict] = None) -> list:
         """(B, num_point, 3) -> B top-K GraspGroups from one device program."""
-        t0 = time.perf_counter()
-        rows, vmask = self._infer_topk(self._cloud(clouds), top_k=top_k)
-        rows, vmask = rows.cpu().numpy(), vmask.cpu().numpy()
-        self.timings.infer_s = time.perf_counter() - t0
-        return [GraspGroup(r[v]) for r, v in zip(rows, vmask)]
+        with span("pipeline.dispatch", into=timings) as dispatch:
+            rows, vmask = self._infer_topk(self._cloud(clouds), top_k=top_k)
+        with span("pipeline.fetch", into=timings):
+            rows, vmask = rows.cpu().numpy(), vmask.cpu().numpy()
+            _since(timings, "infer", dispatch.start_ns)
+            return [GraspGroup(r[v]) for r, v in zip(rows, vmask)]
 
     def run(
         self,
@@ -231,19 +237,30 @@ class GraspPipeline:
         nms: bool = True,
         top_k: int = 50,
         voxel_size: float = 0.01,
+        timings: Optional[dict] = None,
     ) -> GraspGroup:
         """Full frame pipeline; collision_thresh <= 0 skips the filter
         (-1 disables it, the reference convention), which then tests the
-        decoded grasps against `scene_cloud` (the raw cloud)."""
+        decoded grasps against `scene_cloud` (the raw cloud).  A `timings`
+        dict gets this call's `infer` seconds and, when the filter runs,
+        its `collision` seconds, and the seconds of the spans under them by
+        name (`pipeline.dispatch`, `pipeline.fetch`, `collision.downsample`,
+        `collision.detect`)."""
         if collision_thresh <= 0 and nms and top_k:
             # nothing between decode and NMS: the fused program ships (K, 17) rows
-            return self.get_grasps_topk(cloud_sampled, top_k=top_k)
-        gg = self.get_grasps(cloud_sampled)
+            return self.get_grasps_topk(cloud_sampled, top_k=top_k, timings=timings)
+        gg = self.get_grasps(cloud_sampled, timings)
         if collision_thresh > 0 and scene_cloud is not None:
-            gg = self.collision_filter(gg, scene_cloud, collision_thresh, voxel_size)
+            gg = self.collision_filter(gg, scene_cloud, collision_thresh, voxel_size, timings=timings)
         gg = gg.sort_by_score()
         if nms:
             gg = gg.nms()
         if top_k:
             gg = gg[:top_k]
         return gg
+
+
+def _since(timings: Optional[dict], key: str, start_ns: int) -> None:
+    """Write the seconds since `start_ns` under `key` of a caller's timings."""
+    if timings is not None:
+        timings[key] = (time.perf_counter_ns() - start_ns) * 1e-9

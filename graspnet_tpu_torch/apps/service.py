@@ -15,7 +15,10 @@ Here that core is `GraspService` (plain python, fully testable), wrapped by:
 
 The service runs on the card unless `ServiceConfig.device` asks for the
 CPU.  `candidate_devices` and `data_devices` above 1 shard the network over
-a mesh of cards (`parallel/`), as the JAX service does.
+a mesh of cards (`parallel/`), as the JAX service does.  Each reply carries
+its own request's timings (`GraspService.compute`), and each request runs
+under a `service.compute` span whose trace id is the request's number
+(`utils/tracing.py`).
 
     python -m graspnet_tpu_torch.apps.service --port 9876 [--checkpoint_path CKPT]
 """
@@ -24,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import socketserver
 import threading
@@ -35,6 +39,7 @@ from graspnet_tpu_torch import native
 from graspnet_tpu_torch.apps.pipeline import GraspPipeline
 from graspnet_tpu_torch.config import GraspNetConfig
 from graspnet_tpu_torch.postproc import GraspGroup
+from graspnet_tpu_torch.utils.tracing import span
 from graspnet_tpu_torch.utils.transforms import apply_rotation_offsets, matrix_to_quaternion, quaternion_to_matrix
 
 @dataclasses.dataclass
@@ -101,11 +106,12 @@ class GraspService:
 
     def __init__(self, cfg: ServiceConfig = ServiceConfig()):
         self.cfg = cfg
+        self._requests = itertools.count()  # the trace ids of the requests' spans
         model_cfg = cfg.model_cfg or GraspNetConfig(num_point=cfg.num_point)
         self.pipe = GraspPipeline(cfg=model_cfg, checkpoint_path=cfg.checkpoint_path, device=cfg.device,
                                   mesh=cfg.mesh())
-        # warm the program compute() runs (top_k=0 there: the service
-        # filters before truncating, so run() takes the raw decode path)
+        # warm the program compute() runs: the raw decode (the service
+        # filters before truncating, so it never takes the fused top-K)
         self.batcher = None
         if cfg.max_batch > 1:
             from graspnet_tpu_torch.apps.batching import MicroBatcher
@@ -158,40 +164,64 @@ class GraspService:
         mask_points: Optional[np.ndarray] = None,
         world_from_camera: Optional[np.ndarray] = None,
     ) -> dict:
-        """Full request: cloud (N,3) in camera frame -> best grasp + group."""
+        """Full request: cloud (N,3) in camera frame -> best grasp + group.
+
+        The reply's `timings_ms` are this request's own: `infer`, from the
+        decode's dispatch through the fetch of its rows; `collision`, the
+        collision filter (the raw cloud's voxel downsample through the
+        masks; 0 when the filter is off).  Micro-batched (`max_batch` > 1),
+        `infer` and `collision` are the request's batch's (`collision`
+        then leaves out the downsample, which runs on the request's own
+        thread before it queues), `timings_ms.queue` is the wait from the
+        request's hand-over to the batcher to its batch's dispatch, and
+        the reply's `batch` is that batch's size: the operator's reading
+        of queue time and occupancy.  `timings_ms` also holds the ms of
+        the request's spans by name (`utils/tracing.py`): its own
+        `service.sample`, `collision.downsample` and `service.select`, and
+        the `pipeline.dispatch`, `pipeline.fetch` and `collision.detect`
+        of its decode and filter (its batch's, micro-batched)."""
         c = self.cfg
-        z = cloud[:, 2]
-        cloud = cloud[(z >= c.depth_min) & (z <= c.depth_max)]
-        # reference demo.py:459 rejects frames with < 10% of num_point valid
-        if len(cloud) < max(100, self.pipe.cfg.num_point // 10):
-            return {"ok": False, "error": "not enough points in depth range"}
-        sampled = self.pipe.sample_cloud(cloud)
-        if self.batcher is not None:
-            # micro-batched path: downsample on THIS request thread (host
-            # work parallelizes across concurrent requests), then coalesce
-            # the device work with concurrent requests.  Result-identical
-            # to the per-request path below (tests/test_torch_port_service.py)
-            ds = native.voxel_downsample(cloud, c.voxel_size) if c.collision_thresh > 0 else None
-            gg = self.batcher.submit(sampled, ds)
-            gg = gg.sort_by_score().nms()
-        else:
-            gg = self.pipe.run(
-                sampled,
-                scene_cloud=cloud,
-                collision_thresh=c.collision_thresh,
-                voxel_size=c.voxel_size,
-                top_k=0,  # filter before truncating
-            )
-        if mask_points is not None:
-            gg = self.filter_by_mask_proximity(gg, mask_points, c.seg_proximity_thresh)
-        if world_from_camera is not None and c.max_world_z_for_approach is not None:
-            gg = self.filter_by_world_approach(gg, world_from_camera, c.max_world_z_for_approach)
-        gg = gg.sort_by_score()[: c.top_k]
-        if len(gg) == 0:
-            return {"ok": False, "error": "no valid grasp"}
+        timings = {"collision": 0.0}
+        with span("service.compute", trace=next(self._requests)):
+            with span("service.sample", into=timings):
+                z = cloud[:, 2]
+                cloud = cloud[(z >= c.depth_min) & (z <= c.depth_max)]
+                # reference demo.py:459 rejects frames with < 10% of num_point valid
+                if len(cloud) < max(100, self.pipe.cfg.num_point // 10):
+                    return {"ok": False, "error": "not enough points in depth range"}
+                sampled = self.pipe.sample_cloud(cloud)
+            if self.batcher is not None:
+                # micro-batched path: downsample on THIS request thread (host
+                # work parallelizes across concurrent requests), then coalesce
+                # the device work with concurrent requests.  Result-identical
+                # to the per-request path (tests/test_torch_port_service.py)
+                ds = None
+                if c.collision_thresh > 0:
+                    with span("collision.downsample", into=timings):
+                        ds = native.voxel_downsample(cloud, c.voxel_size)
+                gg, batched = self.batcher.submit(sampled, ds)
+                timings.update(batched)
+            else:
+                gg = self.pipe.run(sampled, scene_cloud=cloud, collision_thresh=c.collision_thresh,
+                                   voxel_size=c.voxel_size, nms=False, top_k=0,  # NMS and top-K below
+                                   timings=timings)
+            with span("service.select", into=timings) as select:
+                select.count(rows=len(gg))  # rows into NMS
+                gg = gg.sort_by_score().nms()
+                if mask_points is not None:
+                    gg = self.filter_by_mask_proximity(gg, mask_points, c.seg_proximity_thresh)
+                if world_from_camera is not None and c.max_world_z_for_approach is not None:
+                    gg = self.filter_by_world_approach(gg, world_from_camera, c.max_world_z_for_approach)
+                gg = gg.sort_by_score()[: c.top_k]
+            if len(gg) == 0:
+                return {"ok": False, "error": "no valid grasp"}
+            with span("service.reply"):
+                return self._reply(gg, timings)
+
+    def _reply(self, gg: GraspGroup, timings: dict) -> dict:
         best = gg[0]
         tf_pose = apply_rotation_offsets(best.to_matrix(), self.cfg.tf_rotation_offsets)
-        return {
+        reply = {
             "ok": True,
             "best_pose": best.to_matrix().tolist(),
             "tf_pose": tf_pose.tolist(),
@@ -199,11 +229,11 @@ class GraspService:
             "best_width": best.width,
             "num_grasps": len(gg),
             "grasps": gg.grasp_group_array.tolist(),
-            "timings_ms": {
-                "infer": self.pipe.timings.infer_s * 1000,
-                "collision": self.pipe.timings.collision_s * 1000,
-            },
+            "timings_ms": {k: v * 1000 for k, v in timings.items() if k != "batch"},
         }
+        if "batch" in timings:
+            reply["batch"] = timings["batch"]
+        return reply
 
 
 # --------------------------------------------------- ROS message helpers ----

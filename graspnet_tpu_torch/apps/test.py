@@ -14,7 +14,9 @@ Runs on CUDA unless `--device cpu` is passed.  `--devices N` shards each
 batch of N x `--batch_size` frames over a data mesh of the cards
 cuda:0..N-1 (`parallel/`; the CPU repeated with `--device cpu`); more cards
 than the host has is an argparse error.  `--profile_dir` writes a
-torch.profiler trace of the inference loop (`utils/tracing.py`).
+torch.profiler trace of the inference loop (`utils/tracing.py`).  The
+loop's stages are `eval.<stage>` spans, recorded while it runs; their
+means are its progress report and `inference`'s `stages_ms`.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import argparse
 import concurrent.futures as cf
 import os
 import time
-from typing import Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,7 +35,9 @@ from graspnet_tpu_torch.apps.pipeline import GraspPipeline
 from graspnet_tpu_torch.config import GraspNetConfig
 from graspnet_tpu_torch.data.dataset import SPLITS, GraspNetDataset
 from graspnet_tpu_torch.eval.ap import GraspNetEval, summarize
-from graspnet_tpu_torch.utils.tracing import StageTimer, device_trace
+from graspnet_tpu_torch.utils.tracing import device_trace, recording, span
+
+STAGE = "eval."  # the loop's stage spans: data, net, fetch, downsample, collision, dump
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -73,9 +77,33 @@ def make_eval_mesh(args):
     return make_mesh(n, devices=["cpu"] * n if getattr(args, "device", "cuda") == "cpu" else None)
 
 
+class StageMeans:
+    """The mean seconds of the loop's stage spans (`eval.<stage>`), folded
+    in from a recording as it drains: `data` (a batch's frames read),
+    `net` (a batch stacked and dispatched), `fetch` (its rows fetched),
+    `downsample` (a frame's raw cloud read and downsampled), `collision`
+    (a batch's filter), `dump` (a frame's file written)."""
+
+    def __init__(self):
+        self.totals: Dict[str, List[float]] = {}
+
+    def fold(self, spans) -> None:
+        for s in spans:
+            if s.name.startswith(STAGE):
+                t = self.totals.setdefault(s.name[len(STAGE):], [0.0, 0])
+                t[0] += s.seconds
+                t[1] += 1
+
+    def summary(self) -> Dict[str, float]:
+        return {k: total / n for k, (total, n) in self.totals.items()}
+
+    def report(self) -> str:
+        return "  ".join(f"{k}={v * 1000:.1f}ms" for k, v in sorted(self.summary().items()))
+
+
 def inference(args, cfg: GraspNetConfig, dataset=None) -> dict:
     """Dump grasps for a split; returns {total_s, ms_per_frame, frames,
-    compile_s, stages_ms}.
+    compile_s, stages_ms} (`StageMeans`).
 
     `dataset` lets `scripts/bench_test_app.py` run this loop over synthetic
     frames.  Frames are read ahead on a thread pool; each batch is enqueued
@@ -105,32 +133,32 @@ def inference(args, cfg: GraspNetConfig, dataset=None) -> dict:
                       "frames may be decoded twice")
         else:
             dataset._frame_cache_cap = max(dataset._frame_cache_cap, want)
-    timer = StageTimer()
+    stages = StageMeans()
     collide = args.collision_thresh > 0
 
     def downsample_frame(i):
-        with timer.stage("collision"):
+        with span(STAGE + "downsample"):
             return native.voxel_downsample(dataset.get_raw_cloud(i), args.voxel_size)
 
     def postproc_batch(ids, handle, ds_futs):
         # the rows are fetched here, so this batch's device time and copy
         # overlap the main thread's work on the next batch
-        with timer.stage("fetch"):
+        with span(STAGE + "fetch"):
             ggs = pipe.finish_grasps_batch(handle)[: len(ids)]
         if collide:
             ds = [f.result() for f in ds_futs]
-            with timer.stage("collision"):
+            with span(STAGE + "collision"):
                 ggs = pipe.collision_filter_batch(ggs, ds, args.collision_thresh, args.voxel_size,
                                                   pre_downsampled=True)
         for i, gg in zip(ids, ggs):
-            with timer.stage("dump"):
+            with span(STAGE + "dump"):
                 scene, frame = dataset.frames[i]
                 save_dir = os.path.join(args.dump_dir, scene, args.camera)
                 os.makedirs(save_dir, exist_ok=True)
                 gg.save_npy(os.path.join(save_dir, f"{frame:04d}.npy"))
 
     tic = time.time()
-    with cf.ThreadPoolExecutor(max_workers=max(4, bs)) as pool, \
+    with recording() as rec, cf.ThreadPoolExecutor(max_workers=max(4, bs)) as pool, \
             cf.ThreadPoolExecutor(max_workers=4) as post_pool, \
             cf.ThreadPoolExecutor(max_workers=2) as batch_pool:
         futures = {i: pool.submit(dataset.get_data, i) for i in range(min(2 * bs, n))}
@@ -142,10 +170,10 @@ def inference(args, cfg: GraspNetConfig, dataset=None) -> dict:
                     for j in range(start + 2 * bs, min(start + 3 * bs, n)):
                         if j not in futures:
                             futures[j] = pool.submit(dataset.get_data, j)
-                    with timer.stage("data"):
+                    with span(STAGE + "data"):
                         samples = [futures.pop(i).result() for i in ids]
                     ds_futs = [post_pool.submit(downsample_frame, i) for i in ids] if collide else []
-                    with timer.stage("net"):
+                    with span(STAGE + "net"):
                         clouds = np.stack([s["point_clouds"] for s in samples])
                         if len(ids) < bs:  # the tail batch, padded to the warmed-up shape and the mesh
                             clouds = np.concatenate([clouds, np.repeat(clouds[-1:], bs - len(ids), axis=0)])
@@ -159,21 +187,23 @@ def inference(args, cfg: GraspNetConfig, dataset=None) -> dict:
                         fut.result()
                     done = ids[-1] + 1
                     if done % 100 < bs:
+                        stages.fold(rec.drain())
                         print(f"{done}/{n} frames, {(time.time() - tic) / done * 1000:.1f} ms/frame  "
-                              f"[{timer.report()}]", flush=True)
+                              f"[{stages.report()}]", flush=True)
                 for fut in post_futures:
                     fut.result()  # every dump written
         finally:
             for fut in futures.values():
                 fut.cancel()
+        stages.fold(rec.drain())
     total_s = time.time() - tic
-    print(f"inference done: {total_s:.1f}s total  [{timer.report()}]", flush=True)
+    print(f"inference done: {total_s:.1f}s total  [{stages.report()}]", flush=True)
     return {
         "total_s": total_s,
         "ms_per_frame": total_s / max(n, 1) * 1000,
         "frames": n,
         "compile_s": compile_s,
-        "stages_ms": {k: v * 1000 for k, v in timer.summary().items()},
+        "stages_ms": {k: v * 1000 for k, v in stages.summary().items()},
     }
 
 

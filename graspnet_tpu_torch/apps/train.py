@@ -33,7 +33,8 @@ cuda:r); rank r loads data row r // C's shard of each batch and runs stage
 D x C ranks on the host's cards (the JAX CLI's default; one row on the
 CPU).  C must divide the model's seeds.
 `--profile_dir` writes a torch.profiler trace of five steps of the first
-epoch (`utils/tracing.py`); `--debug_nans` turns on
+epoch (`utils/tracing.py`), in which each step's spans label the host's
+time (`train`'s docstring); `--debug_nans` turns on
 `torch.autograd.set_detect_anomaly`.
 """
 
@@ -56,7 +57,7 @@ from graspnet_tpu_torch.data.dataset import DataLoader, GraspNetDataset, load_gr
 from graspnet_tpu_torch.parallel import distributed
 from graspnet_tpu_torch.train.trainer import TrainConfig, Trainer
 from graspnet_tpu_torch.utils.logging import MetricLogger
-from graspnet_tpu_torch.utils.tracing import device_trace
+from graspnet_tpu_torch.utils.tracing import device_trace, span
 
 CHECKPOINT = "checkpoint.pt"  # in log_dir
 PROFILE_FIRST_STEP, PROFILE_STEPS = 10, 5  # --profile_dir's window: past the first steps' allocations
@@ -197,7 +198,14 @@ def train(
     global batch (`graspnet_tpu/apps/train.py:199-208`), the ranks stop together
     when any of them is asked to, and rank 0 writes the checkpoints.
     Returns `step_end_s`, the host clock after each train step's metrics
-    were read (the step is done then), and `epochs_done`."""
+    were read (the step is done then), and `epochs_done`.
+
+    Each iteration of the train loop is a `train.step` span, whose trace
+    id is the step's number (1 for the run's first), holding
+    `train.enqueue` (the step's launches), `train.loader_wait` (the wait
+    on the loader for the next batch), `train.prepare` (its preparation
+    for the card) and `train.read_metrics` (the first host read of the
+    step's results, where the host waits for the card)."""
     tc = trainer.tc
     compact = label_mode == "compact"
     feed = trainer.prepare if compact else trainer.put
@@ -235,20 +243,26 @@ def train(
                 elif traced and step == first + PROFILE_STEPS:
                     profile.close()
                     logger.log(f"trace of steps {first}-{step - 1} saved to {profile_dir}")
-                _, metrics = trainer.step_prepared(pending) if compact else trainer.step(pending)
-                try:
-                    pending = feed(next(it))
-                except StopIteration:
-                    pending = None
-                logger.accumulate(metrics)  # reads this step's results
-                step_end_s.append(time.perf_counter())
-                step += 1
-                if step % log_every == 0:
-                    logger.flush("train", epoch * len(train_loader) + step)
-                if stop():
-                    save_state(trainer, log_dir, epoch - 1, logger)
-                    logger.log("preemption checkpoint written; exiting")
-                    return {"step_end_s": step_end_s, "epochs_done": epochs_done}
+                with span("train.step", trace=epoch * len(train_loader) + step + 1):
+                    with span("train.enqueue"):
+                        _, metrics = trainer.step_prepared(pending) if compact else trainer.step(pending)
+                    try:
+                        with span("train.loader_wait"):
+                            batch = next(it)
+                        with span("train.prepare"):
+                            pending = feed(batch)
+                    except StopIteration:
+                        pending = None
+                    with span("train.read_metrics"):
+                        logger.accumulate(metrics)  # reads this step's results
+                    step_end_s.append(time.perf_counter())
+                    step += 1
+                    if step % log_every == 0:
+                        logger.flush("train", epoch * len(train_loader) + step)
+                    if stop():
+                        save_state(trainer, log_dir, epoch - 1, logger)
+                        logger.log("preemption checkpoint written; exiting")
+                        return {"step_end_s": step_end_s, "epochs_done": epochs_done}
             if traced and step < first + PROFILE_STEPS:  # the epoch ended inside the window
                 profile.close()
                 logger.log(f"trace of steps {first}-{step - 1} saved to {profile_dir}")

@@ -37,6 +37,7 @@ from graspnet_tpu_torch.data.camera import (
     transform_point_cloud_np,
 )
 from graspnet_tpu_torch.train import label_pipeline as lp
+from graspnet_tpu_torch.utils.tracing import span
 
 SPLITS = {
     "train": range(0, 100),
@@ -298,7 +299,13 @@ class GraspNetDataset:
         return stats
 
     def get_data_label(self, index: int) -> Dict[str, Any]:
-        """Training sample with padded labels + precomputed FPS seed chain."""
+        """Training sample with padded labels + precomputed FPS seed chain,
+        under a `data.get_data_label` span whose trace id is the frame's
+        index."""
+        with span("data.get_data_label", trace=index):
+            return self._data_label(index)
+
+    def _data_label(self, index: int) -> Dict[str, Any]:
         scene, frame = self.frames[index]
         cloud, seg, meta = self._load_frame(scene, frame)
         obj_idxs = meta["cls_indexes"].flatten().astype(np.int32)

@@ -23,13 +23,14 @@ threshold test are numpy on the host, as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from graspnet_tpu_torch import native
 from graspnet_tpu_torch.device import resolve_device
+from graspnet_tpu_torch.utils.tracing import span
 
 FINGER_WIDTH = 0.01
 FINGER_LENGTH = 0.06
@@ -187,6 +188,7 @@ def detect_batch(
     collision_thresh: float = 0.05,
     pre_downsampled: bool = False,
     device: str | torch.device = "cuda",
+    timings: Optional[dict] = None,
 ):
     """Per-frame collision masks for a whole batch in one device round trip,
     mask-identical to `ModelFreeCollisionDetector(cloud).detect(gg)` per
@@ -197,6 +199,8 @@ def detect_batch(
         the host library), or downsampled ones when pre_downsampled=True.
       grasp_groups: list of GraspGroup, one per cloud.
       device: where the counts run (the card unless "cpu").
+      timings: a dict that gets the seconds of the `collision.downsample`
+        and `collision.detect` spans.
 
     Returns a list of (mi,) bool collision masks, one per frame.
     """
@@ -213,11 +217,13 @@ def detect_batch(
     if pre_downsampled:
         ds = [np.asarray(c, np.float32) for c in scene_clouds]
     else:
-        ds = [native.voxel_downsample(c, voxel_size) for c in scene_clouds]
-    pts, rows = _pack(ds, arrays, device)
-    global_iou, _, _ = _collision_counts_rows_batch(pts, rows, approach_dist=max(approach_dist, FINGER_WIDTH),
-                                                    voxel_size=voxel_size)
-    global_iou = global_iou.cpu().numpy()
+        with span("collision.downsample", into=timings):
+            ds = [native.voxel_downsample(c, voxel_size) for c in scene_clouds]
+    with span("collision.detect", into=timings):
+        pts, rows = _pack(ds, arrays, device)
+        global_iou, _, _ = _collision_counts_rows_batch(pts, rows, approach_dist=max(approach_dist, FINGER_WIDTH),
+                                                        voxel_size=voxel_size)
+        global_iou = global_iou.cpu().numpy()
     return [global_iou[i, : ms[i]] > collision_thresh for i in range(b)]
 
 
@@ -225,14 +231,18 @@ class ModelFreeCollisionDetector:
     """The reference detector (collision_detector.py:10): the scene is
     voxel-downsampled once on the host library, then `detect` counts each
     grasp group's collisions on `device` (the card unless "cpu") with the
-    blocked scan."""
+    blocked scan.  A `timings` dict, given to the constructor or to
+    `detect`, gets the seconds of the `collision.downsample` and
+    `collision.detect` spans."""
 
-    def __init__(self, scene_points: np.ndarray, voxel_size: float = 0.005, device: str | torch.device = "cuda"):
+    def __init__(self, scene_points: np.ndarray, voxel_size: float = 0.005, device: str | torch.device = "cuda",
+                 timings: Optional[dict] = None):
         self.voxel_size = voxel_size
         self.finger_width = FINGER_WIDTH
         self.finger_length = FINGER_LENGTH
         self.device = resolve_device(device, "ModelFreeCollisionDetector")
-        self.scene_points = native.voxel_downsample(np.asarray(scene_points), voxel_size)
+        with span("collision.downsample", into=timings):
+            self.scene_points = native.voxel_downsample(np.asarray(scene_points), voxel_size)
 
     def detect(
         self,
@@ -242,6 +252,7 @@ class ModelFreeCollisionDetector:
         return_empty_grasp: bool = False,
         empty_thresh: float = 0.01,
         return_ious: bool = False,
+        timings: Optional[dict] = None,
     ):
         """The collision mask; with return_empty_grasp also the mask of
         grasps with too few points between the jaws, with return_ious also
@@ -258,10 +269,11 @@ class ModelFreeCollisionDetector:
             if return_ious:
                 ret.append([np.zeros((0,)) for _ in range(5)])
             return ret
-        pts, rows = _pack([self.scene_points], [g], self.device)
-        out = _collision_counts_rows_batch(pts, rows, approach_dist=max(approach_dist, FINGER_WIDTH),
-                                           voxel_size=float(self.voxel_size))
-        global_iou, part_ious, inner_count = (x[0].cpu().numpy() for x in out)
+        with span("collision.detect", into=timings):
+            pts, rows = _pack([self.scene_points], [g], self.device)
+            out = _collision_counts_rows_batch(pts, rows, approach_dist=max(approach_dist, FINGER_WIDTH),
+                                               voxel_size=float(self.voxel_size))
+            global_iou, part_ious, inner_count = (x[0].cpu().numpy() for x in out)
         collision_mask = global_iou > collision_thresh
         if not (return_empty_grasp or return_ious):
             return collision_mask

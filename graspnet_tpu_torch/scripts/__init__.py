@@ -7,5 +7,5 @@ CLI's loop), `bench_test_app` (the eval loop) and `bench_service` (the
 service under concurrent requests, max_batch 1 and 8) run on the card at
 `GraspNetConfig()` by default, and at `GraspNetConfig.tiny()` on the CPU
 with `--device cpu --tiny`, for the tests; `bench_eval_frame` times the
-host evaluator; the gates `overfit_gate` and `learnability_gate` take
-`--device`."""
+host evaluator; `span_cost` times one span of `utils/tracing.py` on the
+host; the gates `overfit_gate` and `learnability_gate` take `--device`."""

@@ -116,6 +116,16 @@ def test_bench_prints_one_json_line_with_bench_py_keys():
     assert len(got["observed_spread"]["frames_per_s_runs"]) == 2 and got["value"] > 0
 
 
+def test_span_cost_prints_the_three_costs(capsys):
+    """The span cost script's three readings, in ns a span, on a short loop
+    (the times are the host's and only checked to be positive)."""
+    from graspnet_tpu_torch.scripts import span_cost
+
+    assert span_cost.main(["--n", "500", "--repeats", "2"]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got["spans"] == 500 and all(got[k] > 0 for k in ("off_ns", "on_ns", "profiler_ns"))
+
+
 def test_ab_ball_kernels_needs_a_card():
     """The side-by-side K3/K4 timer measures CUDA kernels only: without a
     card it exits before it starts any run, and prints no timing."""

@@ -308,7 +308,7 @@ class TestMicroBatcher:
             assert mb.frames == 6 and mb.dispatches >= 2
             kept = 0
             for i in range(6):
-                got = results[i].sort_by_score().nms()
+                got = results[i][0].sort_by_score().nms()
                 want = pipe.run(sampled[i], scene_cloud=clouds[i], collision_thresh=0.01, top_k=0)
                 np.testing.assert_allclose(got.grasp_group_array, want.grasp_group_array, rtol=0, atol=ATOL)
                 kept += len(want)
@@ -336,18 +336,18 @@ class TestMicroBatcher:
         orig = getattr(pipe, stage)
         calls = {"n": 0}
 
-        def boom(arg):
+        def boom(*args):
             calls["n"] += 1
             if calls["n"] == 1:
                 raise ValueError(f"injected {stage} failure")
-            return orig(arg)
+            return orig(*args)
 
         monkeypatch.setattr(pipe, stage, boom)
         try:
             good = pipe.sample_cloud(scene_cloud(rng))
             with pytest.raises(ValueError, match="injected"):
                 mb.submit(good, timeout=WAIT_S)
-            gg = mb.submit(good, timeout=WAIT_S)
+            gg, _ = mb.submit(good, timeout=WAIT_S)
             assert gg.grasp_group_array.shape[1] == 17
         finally:
             mb.close()
@@ -364,7 +364,7 @@ class TestMicroBatcher:
         """Grad mode is thread-local: the rows the batcher's threads deliver
         come from inference-mode forwards and no-grad collision counts."""
         handle = pipe.dispatch_grasps_batch(np.stack([pipe.sample_cloud(scene_cloud(rng))]))
-        (grasps, valid), _ = handle
+        (grasps, valid), *_ = handle
         assert not grasps.requires_grad and grasps.grad_fn is None
         pipe.finish_grasps_batch(handle)
 

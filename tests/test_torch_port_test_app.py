@@ -11,8 +11,8 @@ on the CPU.
   `evaluate` gives the same AP to 2 decimals.
 * The CLI: one card (`--devices` other than 1 is an argparse error), the
   card by default, `--profile_dir` writes a trace.
-* `utils/tracing.py`: the stage timer under contending threads, the
-  trace's labelled scopes.
+* `utils/tracing.py` as the loop uses it: the stage means from spans
+  recorded on contending threads, the spans in a profiler's trace.
 * The scripts at `--device cpu --tiny`: `bench_test_app` (every frame
   dumped, no kernel launched on the CPU), `overfit_gate` (its CPU twin
   converges), `train_stage_times`; `bench_eval_frame`'s timing on a small
@@ -39,7 +39,7 @@ from graspnet_tpu_torch.apps import test as app
 from graspnet_tpu_torch.config import GraspNetConfig
 from graspnet_tpu_torch.ops import cuda as kernels
 from graspnet_tpu_torch.scripts import bench_eval_frame, bench_test_app, overfit_gate, train_stage_times
-from graspnet_tpu_torch.utils.tracing import TRACE_FILE, StageTimer, device_trace, stage_scope
+from graspnet_tpu_torch.utils.tracing import TRACE_FILE, device_trace, recording, span
 
 from tests.mini_dataset import make_mini_dataset
 from tests.test_checkpoint import params_to_reference_state_dict
@@ -95,7 +95,7 @@ def test_dump_matches_the_jax_loop(loop):
     _, ours, ref, stats = loop
     files = _dumped(ours.dump_dir)
     assert files == _dumped(ref.dump_dir) and len(files) == 5
-    assert stats["frames"] == 5 and set(stats["stages_ms"]) == {"data", "net", "fetch", "collision", "dump"}
+    assert stats["frames"] == 5 and set(stats["stages_ms"]) == {"data", "net", "fetch", "downsample", "collision", "dump"}
     rows = 0
     for rel in files:
         got, want = np.load(os.path.join(ours.dump_dir, rel)), np.load(os.path.join(ref.dump_dir, rel))
@@ -153,35 +153,38 @@ def test_the_loop_runs_on_the_card_by_default(loop, tmp_path):
 
 
 def test_stage_timer_under_contending_threads():
-    """No update is lost when threads add to one stage at once."""
-    timer, n_threads, n = StageTimer(), 16, 300
+    """No stage span is lost when threads record one stage at once, and
+    the loop's stage means count each (other spans are left out)."""
+    stages, n_threads, n = app.StageMeans(), 16, 300
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
         def work():
             for _ in range(n):
-                with timer.stage("s"):
+                with span(app.STAGE + "s"), span("pipeline.fetch"):
                     pass
-        threads = [threading.Thread(target=work) for _ in range(n_threads)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=60)
-        assert not any(t.is_alive() for t in threads)
+        with recording() as rec:
+            threads = [threading.Thread(target=work) for _ in range(n_threads)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+            assert not any(t.is_alive() for t in threads)
+            stages.fold(rec.drain())
     finally:
         sys.setswitchinterval(old)
-    assert timer.counts["s"] == n_threads * n
-    assert "s=" in timer.report() and timer.summary()["s"] >= 0
+    assert stages.totals["s"][1] == n_threads * n and set(stages.totals) == {"s"}
+    assert "s=" in stages.report() and stages.summary()["s"] >= 0
 
 
 def test_device_trace_holds_the_stage_scopes(tmp_path):
     with device_trace(None):  # no directory: nothing traced
         pass
     with device_trace(str(tmp_path)):
-        with stage_scope("my_stage"):
+        with span(app.STAGE + "net"):
             torch.ones(8).sum()
     names = {e.get("name") for e in json.loads((tmp_path / TRACE_FILE).read_text())["traceEvents"]}
-    assert "my_stage" in names
+    assert app.STAGE + "net" in names
 
 
 def test_bench_test_app_tiny(tmp_path):
@@ -189,7 +192,7 @@ def test_bench_test_app_tiny(tmp_path):
     r = bench_test_app.run(cfg, torch.device("cpu"), str(tmp_path), frames=5, batch_sizes=(1, 2), cloud_points=4000)
     assert [row["batch_size"] for row in r["per_batch_size"]] == [1, 2]
     for row in r["per_batch_size"]:
-        assert row["ms_per_frame"] > 0 and set(row["stages_ms"]) == {"data", "net", "fetch", "collision", "dump"}
+        assert row["ms_per_frame"] > 0 and set(row["stages_ms"]) == {"data", "net", "fetch", "downsample", "collision", "dump"}
         assert set(row["launches"].values()) == {0}  # the CPU path launches no kernel
         assert row["device_idle_share"] == "not measured"
     assert r["backend"] == "cpu" and r["gpu"] is None and len(_dumped(str(tmp_path / "dump_b2"))) == 5
