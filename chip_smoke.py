@@ -91,11 +91,16 @@ Phases (each prints one JSON line; any failure exits non-zero):
      time finite and > 0, K8 launched by profile_stages and
      crop_train_breakdown, K9 three times per bench_crop_kernels call of
      its stages, K10 by profile_stages — and bench's JSON line;
- 10. collision: the collision filter (postproc/collision.py, plain torch)
-     after one GraspNetConfig() forward at B=2 on tabletop frames sampled
-     from 250k-point raw clouds: detect_batch on the card against the same
-     call on the CPU with the same rows and downsampled points, masks and
-     IoUs equal, and its ms per frame;
+ 10. collision: the collision filter (postproc/collision.py) after one
+     GraspNetConfig() forward at B=2 on tabletop frames sampled from
+     250k-point raw clouds: detect_batch on the card against the same call
+     on the CPU with the same rows, on the host library's downsampled
+     points and on the raw clouds (downsampled by the voxel kernel on the
+     card), masks and IoUs equal, and its ms per frame both ways; the
+     voxel kernel (csrc/voxel.cu) on the raw clouds bitwise its plain
+     version on the CPU and repeatable, its event time against the plain
+     version on the card, its bytes' bound and the host library (phase
+     voxel_kernel, a row of the kernels line);
  11. test_app: the eval loop (apps/test.py::inference) through
      scripts/bench_test_app.py's run at GraspNetConfig(), batch 1 and 4,
      over 200 synthetic frames of 250k-point raw clouds with the collision
@@ -117,7 +122,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
      collision filter off and on, a TCP round trip equal to the in-process
      reply, and scripts/bench_service.py's run at max_batch 1 and 8 (16
      clients, collision on): requests/s and each dispatch's launches (K1 1,
-     K3 1, K4 3, K5 1);
+     K3 1, K4 3, K5 1, and the voxel kernel 1 at max_batch 1); then
+     max_batch 8 with the request threads' downsample on the host library
+     and on the voxel kernel, alternating, two runs each: requests/s;
  15. service_success (inside phase 12's directory): the same at the gate's
      tiny config with its trained checkpoint and learnable-scene requests,
      ok > 0 asserted in each mode;
@@ -145,7 +152,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
      scaling); the service with candidate_devices=2 against one device;
  21. the kernels line (launches per serving forward, per training step,
      per tool run, per eval batch, per feature-input forward, per service
-     dispatch, per crop-routes forward and probe, per parallel_infer run,
+     dispatch at max_batch 1 and 8, per crop-routes forward and probe, per parallel_infer run,
      per one-rank NCCL step, per rank's step of the two-rank run, per
      rank's step of the 2 x 2 hybrid run, per MSG forward and per
      verify_checkpoint run), printed after phase 24, the nvidia-smi line,
@@ -736,7 +743,7 @@ def main_path_phase(cfg, pipe, clouds):
     expected = {"fps_chain": 1, "ball_query": 3, "sa1_fused": 1, "crop_fused": 1,
                 "crop_group": 0, "crop_mlp_train": 0, "crop_mlp_train_backward": 0,
                 "cylinder_query_multi": 0, "sa_feat_fused": 0, "multi_query": 0,
-                "scatter_add_rows": 0, "scatter_plan": 0}
+                "scatter_add_rows": 0, "scatter_plan": 0, "voxel_downsample": 0}
 
     def drive(fn):
         """Run one batched forward; every kernel must launch once for it."""
@@ -1554,13 +1561,55 @@ def train_cli_phase(cfg, clouds: np.ndarray, full):
     return scatter_rows, timing
 
 
+def voxel_kernel_row(raw: list) -> dict:
+    """The voxel downsample (`csrc/voxel.cu`) on the raw 250k-point clouds
+    at COLLISION_VOXEL: the card's rows bitwise the plain version's on the
+    CPU and the same on a second call; event times of the kernel route
+    (launch and the cell count's read) and of the plain version on the
+    card, the bytes' bound (the points in, the centroids out), and the
+    host library's host time on the same clouds."""
+    from graspnet_tpu_torch import native
+    from graspnet_tpu_torch.ops import voxel as kv
+
+    xs = [torch.from_numpy(c).cuda() for c in raw]
+    voxels = []
+    for c, x in zip(raw, xs):
+        got = kv.voxel_downsample(x, COLLISION_VOXEL)
+        want = kv.voxel_downsample_plain(torch.from_numpy(c), COLLISION_VOXEL)
+        if not torch.equal(got.cpu(), want) or not torch.equal(kv.voxel_downsample(x, COLLISION_VOXEL), got):
+            raise AssertionError(f"voxel_downsample on the card: {len(got)} rows, not bitwise the plain "
+                                 f"version's {len(want)} or not repeatable")
+        voxels.append(len(got))
+    library = []
+    for i in range(20):
+        t0 = time.perf_counter()
+        native.voxel_downsample(raw[i % len(raw)], COLLISION_VOXEL)
+        library.append((time.perf_counter() - t0) * 1e3)
+    n_mean, k_mean = statistics.mean(len(c) for c in raw), statistics.mean(voxels)
+    t_bound, by = bound((n_mean + k_mean) * 12)
+    row = dict(
+        name="voxel_downsample", route="cuda", source="graspnet_tpu_torch/csrc/voxel.cu",
+        replaces="no TPU kernel: the host library's gn_voxel_downsample (graspnet_tpu/native)",
+        max_abs_err=0.0,  # bitwise the plain version's rows, in order
+        ms=statistics.median(cuda_ms(lambda x=x: kv.voxel_downsample(x, COLLISION_VOXEL), 20) for x in xs),
+        plain_ms=statistics.median(cuda_ms(lambda x=x: kv.voxel_downsample_plain(x, COLLISION_VOXEL), 5) for x in xs),
+        bound_ms=t_bound, bound_by=by, library_ms=statistics.median(library),
+    )
+    log(phase="voxel_kernel", points=[len(c) for c in raw], voxels=voxels, bitwise_plain=True, repeatable=True,
+        **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
+    return row
+
+
 def collision_phase(pipe) -> dict:
-    """Phase 10: the collision filter (`postproc/collision.py`, plain torch)
-    on the card against the same call on the CPU: one GraspNetConfig()
-    forward at B=2 on tabletop frames sampled from 250k-point raw clouds,
-    the raw clouds voxel-downsampled once on the host library, then
-    detect_batch with the same rows and points on both devices.  Masks
-    and IoUs must be equal."""
+    """Phase 10: the collision filter (`postproc/collision.py`) on the card
+    against the same call on the CPU: one GraspNetConfig() forward at B=2
+    on tabletop frames sampled from 250k-point raw clouds, then
+    detect_batch on the raw clouds (each frame downsampled on its device:
+    the `csrc/voxel.cu` kernel on the card, the host library on the CPU)
+    and on the clouds the host library downsampled once (the eval loop's
+    and the batcher's input), with the same rows on both devices.  Masks
+    and IoUs must be equal.  Returns its numbers and, under "row", the
+    voxel kernel's row of the kernels line (`voxel_kernel_row`)."""
     from graspnet_tpu_torch import native
     from graspnet_tpu_torch.postproc.collision import FINGER_WIDTH, _collision_counts_rows_batch, _pack, detect_batch
     from graspnet_tpu_torch.utils.synthetic import tabletop_cloud
@@ -1571,32 +1620,39 @@ def collision_phase(pipe) -> dict:
     t0 = time.perf_counter()
     ds = [native.voxel_downsample(c, COLLISION_VOXEL) for c in raw]
     downsample_ms = (time.perf_counter() - t0) * 1e3 / len(raw)
-    kw = dict(voxel_size=COLLISION_VOXEL, approach_dist=COLLISION_APPROACH, collision_thresh=COLLISION_THRESH,
-              pre_downsampled=True)
-    card = detect_batch(ds, ggs, device="cuda", **kw)
+    kw = dict(voxel_size=COLLISION_VOXEL, approach_dist=COLLISION_APPROACH, collision_thresh=COLLISION_THRESH)
+    card = detect_batch(ds, ggs, device="cuda", pre_downsampled=True, **kw)
     t0 = time.perf_counter()
-    cpu = detect_batch(ds, ggs, device="cpu", **kw)
+    cpu = detect_batch(ds, ggs, device="cpu", pre_downsampled=True, **kw)
     cpu_ms = (time.perf_counter() - t0) * 1e3 / len(raw)
     differing = int(sum((a != b).sum() for a, b in zip(card, cpu)))
+    card_raw = detect_batch(raw, ggs, device="cuda", **kw)
+    differing_raw = int(sum((a != b).sum() for a, b in zip(card_raw, cpu)))
     ious = []
     for dev in ("cuda", "cpu"):
         pts, rows = _pack(ds, [g.grasp_group_array for g in ggs], torch.device(dev))
         ious.append(_collision_counts_rows_batch(pts, rows, approach_dist=max(COLLISION_APPROACH, FINGER_WIDTH),
                                                  voxel_size=COLLISION_VOXEL)[0].cpu().numpy())
     iou_equal = bool(np.array_equal(ious[0], ious[1], equal_nan=True))
-    times = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        detect_batch(ds, ggs, device="cuda", **kw)
-        times.append((time.perf_counter() - t0) * 1e3 / len(raw))
+
+    def per_frame_ms(clouds, pre_downsampled):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            detect_batch(clouds, ggs, device="cuda", pre_downsampled=pre_downsampled, **kw)
+            times.append((time.perf_counter() - t0) * 1e3 / len(raw))
+        return statistics.median(times)
+
     out = dict(b=len(raw), raw_points=RAW_CLOUD_POINTS, voxel=COLLISION_VOXEL, voxels=[len(d) for d in ds],
                grasps=[len(g) for g in ggs], colliding=[int(m.sum()) for m in card], differing_grasps=differing,
-               iou_bitwise_equal=iou_equal, ms_per_frame=statistics.median(times), cpu_ms_per_frame=cpu_ms,
-               downsample_ms_per_frame=downsample_ms)
+               differing_grasps_raw=differing_raw, iou_bitwise_equal=iou_equal,
+               ms_per_frame=per_frame_ms(ds, True), ms_per_frame_raw=per_frame_ms(raw, False),
+               cpu_ms_per_frame=cpu_ms, downsample_ms_per_frame=downsample_ms)
     log(phase="collision", **out)
-    if differing or not iou_equal or not sum(len(g) for g in ggs):
-        raise AssertionError(f"collision masks: {differing} grasps differ card vs CPU, IoUs equal {iou_equal}")
-    return out
+    if differing or differing_raw or not iou_equal or not sum(len(g) for g in ggs):
+        raise AssertionError(f"collision masks: {differing} grasps differ card vs CPU ({differing_raw} from raw "
+                             f"clouds), IoUs equal {iou_equal}")
+    return {**out, "row": voxel_kernel_row(raw)}
 
 
 def test_app_phase(cfg) -> dict:
@@ -1749,8 +1805,17 @@ def service_phase(ckpt: str) -> dict:
     ephemeral port (a 30k-point request) equal to the in-process reply;
     then bench_service.run: SERVICE_REQUESTS requests from SERVICE_CLIENTS
     threads at max_batch 1 and 8 with the filter on, each dispatch
-    launching K1 1, K3 1, K4 3 and K5 1."""
+    launching K1 1, K3 1, K4 3 and K5 1, and at max_batch 1 the voxel
+    downsample once (the request's detector on the card; the batcher's
+    request threads downsample on the host library).  Last, max_batch 8
+    twice more each way, alternating: the request threads on the host
+    library, and on the voxel kernel with its rows fetched back
+    (`batcher_kernel_route`), for what the batcher would gain from it."""
     import socket
+    from unittest import mock
+
+    from graspnet_tpu_torch import native
+    from graspnet_tpu_torch.ops.voxel import voxel_downsample
 
     from graspnet_tpu_torch.apps.service import GraspService, ServiceConfig, serve_tcp
     from graspnet_tpu_torch.ops import cuda as kernels
@@ -1796,15 +1861,32 @@ def service_phase(ckpt: str) -> dict:
     result = bench_service.run(requests, SERVICE_CLIENTS, COLLISION_THRESH, checkpoint_path=ckpt, device="cuda")
     per_dispatch = {**{k: 0 for k in kernels.launches()}, "fps_chain": 1, "ball_query": 3, "sa1_fused": 1,
                     "crop_fused": 1}
+    expected = {1: {**per_dispatch, "voxel_downsample": 1}, 8: per_dispatch}
     for mode in result["modes"]:
-        if mode["launches_per_dispatch"] != per_dispatch:
+        if mode["launches_per_dispatch"] != expected[mode["max_batch"]]:
             raise AssertionError(f"service max_batch={mode['max_batch']}: launches per dispatch "
-                                 f"{mode['launches_per_dispatch']}, expected {per_dispatch}")
+                                 f"{mode['launches_per_dispatch']}, expected {expected[mode['max_batch']]}")
+
+    def on_card(cloud, voxel):
+        return voxel_downsample(torch.from_numpy(np.ascontiguousarray(cloud, np.float32)).cuda(), voxel).cpu().numpy()
+
+    routes = {"host_library": [], "kernel": []}
+    for _ in range(2):
+        for route in routes:
+            with mock.patch.object(native, "voxel_downsample", on_card) if route == "kernel" else \
+                    contextlib.nullcontext():
+                mode = bench_service.run_mode(8, requests, SERVICE_CLIENTS, COLLISION_THRESH, checkpoint_path=ckpt,
+                                              device="cuda")
+            if mode["ok"] != result["modes"][1]["ok"]:
+                raise AssertionError(f"max_batch 8, {route}: {mode['ok']} ok replies, "
+                                     f"{result['modes'][1]['ok']} on the host library")
+            routes[route].append(mode["requests_per_s"])
     log(phase="service", card_vs_cpu=compared, requests=SERVICE_REQUESTS, clients=SERVICE_CLIENTS,
         raw_points=RAW_CLOUD_POINTS, collision_thresh=COLLISION_THRESH, bench=result,
+        batcher_kernel_route={f"requests_per_s_b8_{k}": v for k, v in routes.items()},
         phase_s=time.perf_counter() - t_phase)
     b1, b8 = result["modes"]
-    return {"launches_per_dispatch": per_dispatch, "service_requests_per_s_b1": b1["requests_per_s"],
+    return {"launches_per_dispatch": expected, "service_requests_per_s_b1": b1["requests_per_s"],
             "service_requests_per_s_b8": b8["requests_per_s"], "service_ms_per_request_b1": b1["ms_per_request_sustained"],
             "service_ms_per_request_b8": b8["ms_per_request_sustained"], "service_dispatches_b8": b8["device_dispatches"]}
 
@@ -2536,6 +2618,7 @@ def main() -> int:
     tool_launches, tool_records = tools_phase()
     eval_pipe = GraspPipeline(cfg=cfg, seed=WEIGHT_SEED)
     collision = collision_phase(eval_pipe)
+    rows.append(collision.pop("row"))
     del eval_pipe
     eval_timing = test_app_phase(cfg)
     eval_launches = eval_timing.pop("launches_per_batch")
@@ -2545,14 +2628,14 @@ def main() -> int:
         ckpt = os.path.join(wdir, f"seed{WEIGHT_SEED}.pt")  # seed 1: the service's replies carry grasps
         checkpoint.save(ckpt, init_weights(GraspNet(cfg), WEIGHT_SEED).state_dict())
         service = service_phase(ckpt)
-        service_launches = service.pop("launches_per_dispatch")
+        service_b1_launches, service_b8_launches = service.pop("launches_per_dispatch").values()
         demos = demos_phase(ckpt)
         parallel = parallel_infer_phase(clouds, ckpt)
         parallel_launches = parallel.pop("launches")
     gate = learnability_phase()
     # the counts read after one serving forward, one training step, one tool
     # run, one eval batch, one feature-input forward, one service dispatch
-    # (the same at max_batch 1 and at the MicroBatcher's bucket of 8), the
+    # at max_batch 1 and one at the MicroBatcher's bucket of 8, the
     # two-layer crop MLP's forward and training probe, the three mesh
     # forwards of parallel_infer together, the one-rank NCCL step, one
     # rank's step of the two-rank run and of the 2 x 2 hybrid run, one MSG
@@ -2560,7 +2643,8 @@ def main() -> int:
     columns = {"launches_per_forward": launches, "launches_per_train_step": train_launches,
                "launches_per_tool_run": tool_launches, "launches_per_eval_batch": eval_launches,
                "launches_per_feature_forward": feature_launches,
-               "launches_per_service_dispatch": service_launches,
+               "launches_per_service_dispatch_b1": service_b1_launches,
+               "launches_per_service_dispatch_b8": service_b8_launches,
                "launches_per_crop_routes_forward": route_forward_launches,
                "launches_per_crop_routes_probe": route_step_launches,
                "launches_per_parallel_infer": parallel_launches,

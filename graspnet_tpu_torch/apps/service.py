@@ -168,8 +168,9 @@ class GraspService:
 
         The reply's `timings_ms` are this request's own: `infer`, from the
         decode's dispatch through the fetch of its rows; `collision`, the
-        collision filter (the raw cloud's voxel downsample through the
-        masks; 0 when the filter is off).  Micro-batched (`max_batch` > 1),
+        collision filter (the raw cloud's voxel downsample, on the card
+        when the service runs there, through the masks; 0 when the filter
+        is off).  Micro-batched (`max_batch` > 1),
         `infer` and `collision` are the request's batch's (`collision`
         then leaves out the downsample, which runs on the request's own
         thread before it queues), `timings_ms.queue` is the wait from the
@@ -197,8 +198,9 @@ class GraspService:
                 # to the per-request path (tests/test_torch_port_service.py)
                 ds = None
                 if c.collision_thresh > 0:
-                    with span("collision.downsample", into=timings):
+                    with span("collision.downsample", into=timings) as s:
                         ds = native.voxel_downsample(cloud, c.voxel_size)
+                        s.count(points=len(cloud), voxels=len(ds))
                 gg, batched = self.batcher.submit(sampled, ds)
                 timings.update(batched)
             else:

@@ -2,10 +2,11 @@
 
 Mirrors `graspnet_tpu/ops/pallas/`.  The wrappers of the deterministic
 scatter-add, the gathers' backward (XLA in the JAX package), and of its
-plan live beside the gathers in `ops/scatter.py` and are counted here with
-the others.  Each wrapper launches its kernel for a CUDA tensor and runs
-the plain PyTorch version beside it for a CPU tensor; each counts its
-launches in an integer attribute `launches`.
+plan live beside the gathers in `ops/scatter.py`, and that of the voxel
+downsample (the host library's in the JAX package) in `ops/voxel.py`; all
+are counted here with the others.  Each wrapper launches its kernel for a
+CUDA tensor and runs the plain PyTorch version beside it for a CPU tensor;
+each counts its launches in an integer attribute `launches`.
 """
 
 from graspnet_tpu_torch.ops.cuda.crop import crop_fused, crop_group, sa1_fused, sa_feat_fused
@@ -13,10 +14,11 @@ from graspnet_tpu_torch.ops.cuda.fps import fps_chain
 from graspnet_tpu_torch.ops.cuda.mlp_train import crop_mlp_train, crop_mlp_train_backward
 from graspnet_tpu_torch.ops.cuda.query import ball_query, cylinder_query_multi, multi_query
 from graspnet_tpu_torch.ops.scatter import scatter_add_rows, scatter_plan
+from graspnet_tpu_torch.ops.voxel import voxel_downsample
 
 WRAPPERS = (fps_chain, ball_query, sa1_fused, crop_fused, crop_group, crop_mlp_train,
             crop_mlp_train_backward, cylinder_query_multi, sa_feat_fused, multi_query,
-            scatter_add_rows, scatter_plan)
+            scatter_add_rows, scatter_plan, voxel_downsample)
 
 
 def reset_launches() -> None:
@@ -31,4 +33,4 @@ def launches() -> dict:
 __all__ = ["WRAPPERS", "ball_query", "crop_fused", "crop_group", "crop_mlp_train",
            "crop_mlp_train_backward", "cylinder_query_multi", "fps_chain", "launches",
            "multi_query", "reset_launches", "sa1_fused", "sa_feat_fused", "scatter_add_rows",
-           "scatter_plan"]
+           "scatter_plan", "voxel_downsample"]

@@ -19,6 +19,14 @@ float32 products and sums in index order, so the card and the CPU compute
 the same bits; divisions by a constant divide by a tensor, since a CUDA
 division by a host scalar multiplies by its reciprocal.  The IoUs and the
 threshold test are numpy on the host, as in the JAX package.
+
+The raw scene's voxel downsample follows the device: on the card it is the
+`csrc/voxel.cu` kernel (`ops/voxel.py`), the capture crossing the bus in
+one copy and the downsampled scene staying there for the scan; on the CPU
+it is the host library's (`native.voxel_downsample`).  Both give the same
+rows, in another order, and the counts do not depend on the order.  Clouds
+a caller hands over already downsampled (the eval loop's and the
+`MicroBatcher`'s, spread over host threads) stay numpy and are packed.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch
 
 from graspnet_tpu_torch import native
 from graspnet_tpu_torch.device import resolve_device
+from graspnet_tpu_torch.ops.voxel import voxel_downsample
 from graspnet_tpu_torch.utils.tracing import span
 
 FINGER_WIDTH = 0.01
@@ -163,20 +172,41 @@ def _collision_counts_rows_batch(pts: torch.Tensor, rows: torch.Tensor, *, appro
         approach_dist=approach_dist, voxel_size=voxel_size, block=block)
 
 
+def _downsample(cloud, voxel_size: float, device: torch.device):
+    """A raw (N, 3) cloud's voxel downsample: the kernel for the card, whose
+    (K, 3) result stays there; the host library's numpy rows for the CPU."""
+    cloud = np.ascontiguousarray(cloud, dtype=np.float32)
+    if device.type == "cuda":
+        return voxel_downsample(torch.from_numpy(cloud).to(device), voxel_size)
+    return native.voxel_downsample(cloud, voxel_size)
+
+
 def _pack(clouds, arrays, device: torch.device):
     """Per-frame (Ni, 3) clouds and (Mi, 17) rows -> (B, max N, 3) points
     padded with NaN and (B, max M, 17) rows padded with identity rotations,
-    on `device`.  No bucketing: the JAX package rounds the shapes up to
-    multiples of 8192 and 256 for XLA's compile cache only; the masks are
-    integer counts and do not depend on the padding."""
+    on `device`.  Clouds already on the device are padded there (one frame
+    needs none); numpy clouds go over in one copy.  No bucketing: the JAX
+    package rounds the shapes up to multiples of 8192 and 256 for XLA's
+    compile cache only; the masks are integer counts and do not depend on
+    the padding."""
     b = len(arrays)
-    pts = np.full((b, max(len(c) for c in clouds), 3), np.nan, np.float32)
     rows = np.zeros((b, max(len(a) for a in arrays), 17), np.float32)
     rows[:, :, 4:13] = np.eye(3, dtype=np.float32).reshape(9)
-    for i, (c, a) in enumerate(zip(clouds, arrays)):
-        pts[i, : len(c)] = c
+    for i, a in enumerate(arrays):
         rows[i, : len(a)] = a
-    return torch.from_numpy(pts).to(device), torch.from_numpy(rows).to(device)
+    rows = torch.from_numpy(rows).to(device)
+    n = max(len(c) for c in clouds)
+    if isinstance(clouds[0], torch.Tensor):
+        if b == 1:
+            return clouds[0][None], rows
+        pts = torch.full((b, n, 3), float("nan"), dtype=torch.float32, device=device)
+        for i, c in enumerate(clouds):
+            pts[i, : len(c)] = c
+        return pts, rows
+    pts = np.full((b, n, 3), np.nan, np.float32)
+    for i, c in enumerate(clouds):
+        pts[i, : len(c)] = c
+    return torch.from_numpy(pts).to(device), rows
 
 
 def detect_batch(
@@ -195,12 +225,16 @@ def detect_batch(
     frame.
 
     Args:
-      scene_clouds: list of (Ni, 3) raw clouds (voxel-downsampled here on
-        the host library), or downsampled ones when pre_downsampled=True.
+      scene_clouds: list of (Ni, 3) raw clouds, voxel-downsampled here
+        frame by frame on `device` (the kernel on the card, the host
+        library on the CPU), or numpy clouds already downsampled when
+        pre_downsampled=True.
       grasp_groups: list of GraspGroup, one per cloud.
-      device: where the counts run (the card unless "cpu").
+      device: where the downsample and the counts run (the card unless
+        "cpu").
       timings: a dict that gets the seconds of the `collision.downsample`
-        and `collision.detect` spans.
+        span (which counts the raw `points` and the `voxels` kept) and the
+        `collision.detect` span.
 
     Returns a list of (mi,) bool collision masks, one per frame.
     """
@@ -217,8 +251,9 @@ def detect_batch(
     if pre_downsampled:
         ds = [np.asarray(c, np.float32) for c in scene_clouds]
     else:
-        with span("collision.downsample", into=timings):
-            ds = [native.voxel_downsample(c, voxel_size) for c in scene_clouds]
+        with span("collision.downsample", into=timings) as s:
+            ds = [_downsample(c, voxel_size, device) for c in scene_clouds]
+            s.count(points=sum(len(c) for c in scene_clouds), voxels=sum(len(d) for d in ds))
     with span("collision.detect", into=timings):
         pts, rows = _pack(ds, arrays, device)
         global_iou, _, _ = _collision_counts_rows_batch(pts, rows, approach_dist=max(approach_dist, FINGER_WIDTH),
@@ -229,11 +264,14 @@ def detect_batch(
 
 class ModelFreeCollisionDetector:
     """The reference detector (collision_detector.py:10): the scene is
-    voxel-downsampled once on the host library, then `detect` counts each
-    grasp group's collisions on `device` (the card unless "cpu") with the
-    blocked scan.  A `timings` dict, given to the constructor or to
-    `detect`, gets the seconds of the `collision.downsample` and
-    `collision.detect` spans."""
+    voxel-downsampled once on `device` (the card unless "cpu"), then
+    `detect` counts each grasp group's collisions there with the blocked
+    scan.  On the card the downsample is the `csrc/voxel.cu` kernel and
+    `scene_points` is the (K, 3) tensor it leaves on the card; on the CPU
+    it is the host library's, and `scene_points` a numpy array.  A
+    `timings` dict, given to the constructor or to `detect`, gets the
+    seconds of the `collision.downsample` span (which counts the raw
+    `points` and the `voxels` kept) and the `collision.detect` span."""
 
     def __init__(self, scene_points: np.ndarray, voxel_size: float = 0.005, device: str | torch.device = "cuda",
                  timings: Optional[dict] = None):
@@ -241,8 +279,9 @@ class ModelFreeCollisionDetector:
         self.finger_width = FINGER_WIDTH
         self.finger_length = FINGER_LENGTH
         self.device = resolve_device(device, "ModelFreeCollisionDetector")
-        with span("collision.downsample", into=timings):
-            self.scene_points = native.voxel_downsample(np.asarray(scene_points), voxel_size)
+        with span("collision.downsample", into=timings) as s:
+            self.scene_points = _downsample(scene_points, voxel_size, self.device)
+            s.count(points=len(scene_points), voxels=len(self.scene_points))
 
     def detect(
         self,

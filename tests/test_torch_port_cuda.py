@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from graspnet_tpu_torch import native
 from graspnet_tpu_torch.config import GraspNetConfig
 from graspnet_tpu_torch.models import geometry
 from graspnet_tpu_torch.ops import cuda as kernels
@@ -22,6 +23,13 @@ from graspnet_tpu_torch.ops.cuda import crop as kcrop
 from graspnet_tpu_torch.ops.cuda import fps as kfps
 from graspnet_tpu_torch.ops.cuda import mlp_train as kmlp
 from graspnet_tpu_torch.ops.cuda import query as kquery
+from graspnet_tpu_torch.ops.voxel import voxel_downsample, voxel_downsample_plain
+from graspnet_tpu_torch.postproc import GraspGroup, ModelFreeCollisionDetector, collision, detect_batch
+from graspnet_tpu_torch.utils import tracing
+from graspnet_tpu_torch.utils.synthetic import tabletop_cloud
+
+from tests.test_torch_port_voxel import CASES as VOXEL_CASES
+from tests.test_torch_port_voxel import grasp_rows, sorted_rows
 
 pytestmark = pytest.mark.cuda
 FEATURE_TOL = 1e-4
@@ -260,7 +268,7 @@ def test_tiny_pipeline_card_matches_cpu_and_counts_launches(dev):
     assert kernels.launches() == {"fps_chain": 1, "ball_query": 3, "sa1_fused": 1, "crop_fused": 1,
                                   "crop_group": 0, "crop_mlp_train": 0, "crop_mlp_train_backward": 0,
                                   "cylinder_query_multi": 0, "sa_feat_fused": 0, "multi_query": 0,
-                                  "scatter_add_rows": 0, "scatter_plan": 0}
+                                  "scatter_add_rows": 0, "scatter_plan": 0, "voxel_downsample": 0}
     for g, w in zip(got, cpu.get_grasps_topk_batch(clouds)):
         g, w = g.grasp_group_array, w.grasp_group_array
         assert g.shape == w.shape
@@ -964,3 +972,65 @@ def test_launchers_take_their_tensors_card_from_another_current_device(dev):
     for g, w in zip(got_fps, want_fps):
         assert torch.equal(g.cpu(), w)
     assert torch.equal(got_ball.cpu(), kquery.ball_query_plain(xyz, centres, 0.05, 16))
+
+
+# ------------------------------------------------------ the voxel downsample --
+
+
+@pytest.mark.parametrize("name", sorted(VOXEL_CASES))
+def test_voxel_downsample_is_bitwise_the_host_library(dev, name):
+    """The kernel's rows are the plain version's, bit for bit and in the
+    same order (each cell's first point), the same on a second run, and the
+    host library's as a set; the result stays on the card."""
+    pts, voxel = VOXEL_CASES[name]
+    x = torch.from_numpy(pts).to(dev)
+    got = voxel_downsample(x, voxel)
+    again = voxel_downsample(x, voxel)
+    assert got.is_cuda and got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    want = voxel_downsample_plain(torch.from_numpy(pts), voxel)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    np.testing.assert_array_equal(sorted_rows(got.cpu().numpy()), sorted_rows(native.voxel_downsample(pts, voxel)))
+
+
+def test_collision_filter_downsamples_on_the_card(dev, monkeypatch):
+    """The detector and detect_batch on raw clouds give the CPU path's
+    masks (and the detector its empty-grasp masks and IoUs) with the scene
+    downsampled by the kernel and kept on the card; the host library's
+    downsample is never called there."""
+    rng = np.random.default_rng(30)
+    clouds = [tabletop_cloud(rng, 250000), tabletop_cloud(rng, 120000)]
+    groups = [GraspGroup(grasp_rows(rng, c, 256)) for c in clouds]
+    kw = dict(approach_dist=0.05, collision_thresh=0.01, return_empty_grasp=True, return_ious=True)
+    want = [ModelFreeCollisionDetector(c, voxel_size=0.01, device="cpu").detect(g, **kw)
+            for c, g in zip(clouds, groups)]
+    want_batch = detect_batch(clouds, groups, voxel_size=0.01, approach_dist=0.05, collision_thresh=0.01,
+                              device="cpu")
+
+    def host_library(*args):
+        raise AssertionError("the host library's downsample ran on the card's path")
+
+    monkeypatch.setattr(collision.native, "voxel_downsample", host_library)
+    kernels.reset_launches()
+    for c, g, (mask, empty, ious) in zip(clouds, groups, want):
+        det = ModelFreeCollisionDetector(c, voxel_size=0.01, device=dev)
+        assert det.scene_points.is_cuda
+        got_mask, got_empty, got_ious = det.detect(g, **kw)
+        np.testing.assert_array_equal(got_mask, mask)
+        np.testing.assert_array_equal(got_empty, empty)
+        for a, b in zip(got_ious, ious):
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+    got_batch = detect_batch(clouds, groups, voxel_size=0.01, approach_dist=0.05, collision_thresh=0.01, device=dev)
+    for a, b in zip(got_batch, want_batch):
+        np.testing.assert_array_equal(a, b)
+    assert 0 < sum(m.sum() for m in want_batch) < sum(len(g) for g in groups)  # some collide, some do not
+    assert kernels.launches()["voxel_downsample"] == 4
+
+
+def test_downsample_span_counts_points_and_voxels_on_the_card(dev):
+    cloud = tabletop_cloud(np.random.default_rng(31), 250000)
+    with tracing.recording() as rec:
+        det = ModelFreeCollisionDetector(cloud, voxel_size=0.01, device=dev)
+    spans = [s for s in rec.drain() if s.name == "collision.downsample"]
+    assert [s.counts for s in spans] == [{"points": 250000, "voxels": len(native.voxel_downsample(cloud, 0.01))}]
+    assert len(det.scene_points) == spans[0].counts["voxels"]

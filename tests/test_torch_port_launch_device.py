@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from graspnet_tpu_torch.ops import scatter
+from graspnet_tpu_torch.ops import scatter, voxel
 from graspnet_tpu_torch.ops.cuda import build, crop, fps, mlp_train, query
 
 
@@ -112,6 +112,7 @@ LAUNCHERS = {
     "scatter_add_rows": lambda x, c, r: scatter.scatter_add_rows(
         card(np.ones((1, 6, 4), np.float32)), card(np.array([[0, 2, 2, 1, 0, 3]])), 5),
     "scatter_plan": lambda x, c, r: scatter.scatter_plan(card(np.array([[0, 2, 2, 1, 0, 3]])), 5),
+    "voxel_downsample": lambda x, c, r: voxel.voxel_downsample(x[0], 0.01),
 }
 
 

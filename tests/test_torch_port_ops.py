@@ -251,4 +251,4 @@ def test_cpu_wrappers_do_not_count_launches():
     assert kernels.launches() == {"fps_chain": 0, "ball_query": 0, "sa1_fused": 0, "crop_fused": 0,
                                   "crop_group": 0, "crop_mlp_train": 0, "crop_mlp_train_backward": 0,
                                   "cylinder_query_multi": 0, "sa_feat_fused": 0, "multi_query": 0,
-                                  "scatter_add_rows": 0, "scatter_plan": 0}
+                                  "scatter_add_rows": 0, "scatter_plan": 0, "voxel_downsample": 0}
