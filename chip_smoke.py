@@ -21,7 +21,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
      cylinder scan at the CloudCrop's (K5) shapes, B=2 and B=1; the scan
      shares of SA1 (K3) and K5; FPS (K1) stage
      by stage (the chain cut after 1-4 stages, us per argmax step) and
-     stage 0 on clusters of 1, 2, 4, 8 and 16 CTAs per scene;
+     stage 0 on clusters of 1, 2, 4, 8 and 16 CTAs per scene; and K1 at
+     VoteNet's ScanNet input (B=8 x 40,000 points, 5,000 a CTA, and the
+     proposals' FPS of 1024 seeds), bitwise plain, timed (`fps_votenet`);
   3. main path: GraspPipeline(GraspNetConfig(), seed=1) on the card —
      get_grasps_topk at B=1 and the batched calls at B=4 give (50, 17)
      finite rows, each forward launches FPS 1, ball query 3, SA1 crop 1 and
@@ -154,8 +156,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
      per tool run, per eval batch, per feature-input forward, per service
      dispatch at max_batch 1 and 8, per crop-routes forward and probe, per parallel_infer run,
      per one-rank NCCL step, per rank's step of the two-rank run, per
-     rank's step of the 2 x 2 hybrid run, per MSG forward and per
-     verify_checkpoint run), printed after phase 24, the nvidia-smi line,
+     rank's step of the 2 x 2 hybrid run, per MSG forward, per
+     verify_checkpoint run and per VoteNet batch), printed after phase 24, the nvidia-smi line,
      and last {"ok": true, "device": {...}};
  22. hybrid_train (after phase 17): hybrid data x candidate training on
      the one card: gloo ranks laid out 2 x 2 and 1 x 2 at GraspNetConfig()
@@ -173,7 +175,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
      CPU's, launches FPS 1 and K4 5 a forward;
  24. verify_checkpoint: scripts/verify_checkpoint.py on a fabricated
      reference-layout .tar and a synthetic frame: PASS on the card against
-     the CPU's rows, exit 1 on a golden with one row perturbed.
+     the CPU's rows, exit 1 on a golden with one row perturbed;
+ 25. detection (after phase 13): VoteNet through apps/detect.py's
+     DetectionPipeline at its published widths on a batch of 8 seeded
+     40,000-point room scans: K1 2 and K4 5 launches a batch and nothing
+     else, K4 at SA1 and at the vote aggregation bitwise plain, every box
+     decision equal to the CPU pipeline's, floats within FEATURE_TOL, ms a
+     batch.
 
 Without CUDA it exits with code 2 before printing any result.  The
 deterministic-mode child runs this file with `--deterministic-steps FILE`;
@@ -421,6 +429,44 @@ def fps_stage_phase(cloud_b, npoints, want0):
         stage0_ms_by_cluster_size=sweep, stage0_equals_plain_for_every_cluster_size=True,
         stage0_plain_ms=cuda_ms(lambda: kfps.fps_chain_plain(cloud_b, npoints[:1]), 2),
         stage0_bound_ms=stage0_bound, stage0_bound_by=stage0_by)
+
+
+def fps_votenet_phase() -> dict:
+    """K1 at VoteNet's ScanNet input: B=8 clouds of 40,000 points in a 6 x
+    6 x 2.7 m room, the cascade 2048/1024/512/256 on the default cluster
+    (5,000 points a CTA) and on 16 CTAs, then the proposals' FPS of the
+    1024 seeds to 256; indices bitwise the plain version's, CUDA-event ms
+    of each and the bound of the pair."""
+    from graspnet_tpu_torch.ops.cuda import fps as kfps
+
+    b, n, npoints = 8, 40000, (2048, 1024, 512, 256)
+    rng = np.random.default_rng(DATA_SEED)
+    xyz = torch.from_numpy((rng.uniform(0, 1, (b, n, 3)) * [6.0, 6.0, 2.7] - [3.0, 3.0, 0.0]).astype(np.float32))
+    xyz = xyz.cuda()
+    chain = kfps.fps_chain(xyz, npoints)
+    for c in (0, 16):
+        for g, w in zip(kfps.fps_chain(xyz, npoints, c), kfps.fps_chain_plain(xyz, npoints)):
+            if not torch.equal(g, w):
+                raise AssertionError(f"fps_chain at {n} points on cluster {c} differs from plain")
+    seeds = xyz
+    for idx in chain[:2]:
+        seeds = torch.gather(seeds, 1, idx[..., None].expand(-1, -1, 3))
+    if not torch.equal(kfps.fps_chain(seeds, (256,))[0], kfps.fps_plain(seeds, 256)):
+        raise AssertionError("the proposals' FPS differs from plain")
+    flops, m = 0, n
+    for p in npoints:
+        flops += b * (p - 1) * m * 9
+        m = p
+    flops += b * 255 * 1024 * 9
+    t_bound, by = bound((b * (n + 1024) * 3) * 4 + b * (sum(npoints) + 256) * 8, flops)
+    chain_ms = cuda_ms(lambda: kfps.fps_chain(xyz, npoints), 10)
+    seeds_ms = cuda_ms(lambda: kfps.fps_chain(seeds, (256,)), 10)
+    out = dict(b=b, n=n, npoints=list(npoints), chain_ms=chain_ms,
+               chain_ms_cluster16=cuda_ms(lambda: kfps.fps_chain(xyz, npoints, 16), 10),
+               proposal_fps_ms=seeds_ms, bound_ms=t_bound, bound_by=by,
+               roofline_pct=100 * t_bound / (chain_ms + seeds_ms), equals_plain=True)
+    log(phase="fps_votenet", **out)
+    return out
 
 
 def kernel_phase(cfg, model, cloud_b):
@@ -1781,6 +1827,78 @@ def feature_input_phase() -> dict:
     return out["input_features"]["launches"]
 
 
+def detection_phase() -> dict:
+    """Phase 25: VoteNet at its published widths through
+    DetectionPipeline(VoteNetConfig(), seed-1 weights) on the card, on a
+    batch of 8 of the detection cell's seeded room scans
+    (benchmark/inputs/rooms.py, 40,000 points with the height).  A batch
+    launches K1 2 (the cascade, the proposals' FPS), K4 5 (SA1-4 and the
+    vote aggregation) and nothing else; K4 at SA1 (40,000 points, 2048
+    centres, r 0.2, ns 64) and at the vote aggregation (the 1024 votes,
+    256 centres, r 0.3, ns 16) on the batch's own inputs bitwise its plain
+    version; the rows against the same pipeline on the CPU: every box
+    decision (non-empty, NMS pick, kept, class) equal, the raw channels,
+    corners, obj_prob and per-class scores within FEATURE_TOL x max(1,
+    scale); the batch's ms (host clock, to the rows on the host).  Returns
+    the launches of a batch."""
+    from benchmark.inputs.rooms import room_pool
+    from graspnet_tpu_torch.apps.detect import DetectionPipeline
+    from graspnet_tpu_torch.config import VoteNetConfig
+    from graspnet_tpu_torch.ops import cuda as kernels
+    from graspnet_tpu_torch.ops.cuda import fps as kfps
+    from graspnet_tpu_torch.ops.cuda.query import ball_query, ball_query_plain
+    from graspnet_tpu_torch.postproc import boxes
+
+    t_phase = time.perf_counter()
+    cfg = VoteNetConfig()
+    clouds = room_pool(DATA_SEED + 21, 8, cfg.num_point)
+    card = DetectionPipeline(cfg=cfg, seed=WEIGHT_SEED)
+    card.detect(clouds)  # builds and warms every shape
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    handle = card.dispatch(clouds)
+    got = card.finish(handle)
+    launches = kernels.launches()
+    expected = {**{k: 0 for k in launches}, "fps_chain": 2, "ball_query": 5}
+    if launches != expected:
+        raise AssertionError(f"detection: launches {launches}, expected {expected}")
+    ep = handle.end_points
+    xyz = torch.from_numpy(clouds[..., :3]).cuda().contiguous()
+    sa1_xyz = torch.gather(xyz, 1, kfps.fps_chain(xyz, (cfg.sa1.npoint,))[0][..., None].expand(-1, -1, 3))
+    queries = {"sa1": (xyz, sa1_xyz, cfg.sa1.radius, cfg.sa1.nsample),
+               "vote_aggregation": (ep["vote_xyz"].contiguous(), ep["aggregated_vote_xyz"].contiguous(),
+                                    cfg.vote_radius, cfg.vote_nsample)}
+    for name, args in queries.items():
+        if not torch.equal(ball_query(*args), ball_query_plain(*args)):
+            raise AssertionError(f"detection: K4 at {name} differs from plain")
+    cpu = DetectionPipeline(params={k: v.cpu() for k, v in card.model.state_dict().items()}, cfg=cfg, device="cpu")
+    t0 = time.perf_counter()
+    hc = cpu.dispatch(clouds)
+    want = cpu.finish(hc)
+    cpu_s = time.perf_counter() - t0
+    head_err = feature_err(ep["head"].cpu(), hc.end_points["head"])
+    rows, rows_cpu = np.stack([d.rows for d in got]), np.stack([d.rows for d in want])
+    for col in (boxes.NONEMPTY, boxes.PICKED, boxes.KEPT, boxes.SEM_CLS):
+        if not np.array_equal(rows[..., col], rows_cpu[..., col]):
+            raise AssertionError(f"detection: column {col} differs card vs CPU")
+    floats = np.r_[boxes.LO:boxes.HI + 3, boxes.OBJ_PROB, boxes.SCORES:rows.shape[-1]]
+    rows_err = feature_err(torch.from_numpy(rows[..., floats]), torch.from_numpy(rows_cpu[..., floats]))
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        card.detect(clouds)
+        times.append((time.perf_counter() - t0) * 1e3)
+    nonempty, kept = int(rows[..., boxes.NONEMPTY].sum()), int(rows[..., boxes.KEPT].sum())
+    if not 0 < kept < nonempty:
+        raise AssertionError(f"detection: kept {kept} of {nonempty} non-empty boxes")
+    log(phase="detection", b=len(clouds), n=cfg.num_point, launches=launches, k4_equals_plain=list(queries),
+        decisions_equal=True, head_max_abs_err=head_err, rows_max_abs_err=rows_err,
+        points_count_diffs=int((rows[..., boxes.POINTS] != rows_cpu[..., boxes.POINTS]).sum()),
+        proposals=rows.shape[0] * rows.shape[1], nonempty=nonempty, kept=kept, batch_ms=statistics.median(times),
+        cpu_batch_s=cpu_s, phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def service_reply_diff(card: dict, cpu: dict, atol: float = TOPK_ATOL) -> dict:
     """Card vs CPU replies of GraspService.compute(): `ok` equal; with
     grasps, the rows as compare_topk holds them and best_pose / tf_pose
@@ -2596,10 +2714,12 @@ def main() -> int:
     with torch.inference_mode():
         rows = kernel_phase(cfg, pipe.model, cloud_b)
         rows += query_sa_kernel_phase(cfg, pipe.model, cloud_b)
+        fps_votenet_phase()
     launches, timing = main_path_phase(cfg, pipe, clouds)
     profile_phase(pipe, clouds)
     del pipe
     feature_launches = feature_input_phase()
+    detect_launches = detection_phase()
     from graspnet_tpu_torch.models import GraspNet, init_weights
 
     crop_mlp = init_weights(GraspNet(cfg), TRAIN_SEED).crop.mlp.to(dev)
@@ -2639,7 +2759,7 @@ def main() -> int:
     # two-layer crop MLP's forward and training probe, the three mesh
     # forwards of parallel_infer together, the one-rank NCCL step, one
     # rank's step of the two-rank run and of the 2 x 2 hybrid run, one MSG
-    # forward and one verify_checkpoint run
+    # forward, one verify_checkpoint run and one VoteNet batch
     columns = {"launches_per_forward": launches, "launches_per_train_step": train_launches,
                "launches_per_tool_run": tool_launches, "launches_per_eval_batch": eval_launches,
                "launches_per_feature_forward": feature_launches,
@@ -2652,7 +2772,8 @@ def main() -> int:
                "launches_per_ddp2_rank_step": ddp_launches["rank_step"],
                "launches_per_hybrid_rank_step": hybrid_launches,
                "launches_per_msg_forward": msg_launches,
-               "launches_per_verify_run": verify_launches}
+               "launches_per_verify_run": verify_launches,
+               "launches_per_detect_batch": detect_launches}
     for r in rows:
         for col, counts in columns.items():
             r[col] = counts[r["name"]]

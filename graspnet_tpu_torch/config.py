@@ -1,14 +1,17 @@
 """Central typed configuration.
 
-A field-for-field copy of `graspnet_tpu/config.py` (the port imports nothing
-of the JAX package); `tests/test_torch_port_nn_geometry.py` pins the two
-equal so the hyperparameters cannot drift.  Tests use the scaled-down
-`GraspNetConfig.tiny()` so the whole stack runs quickly on the CPU.
+`GraspNetConfig` is a field-for-field copy of `graspnet_tpu/config.py` (the
+port imports nothing of the JAX package); `tests/test_torch_port_nn_geometry.py`
+pins the two equal so the hyperparameters cannot drift.  `VoteNetConfig`
+(no JAX counterpart) shares its backbone fields, so `models/backbone.py`
+takes either.  Tests use the scaled-down `tiny()` presets so the whole
+stack runs quickly on the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import random
 from typing import Tuple
 
 
@@ -83,4 +86,83 @@ class GraspNetConfig:
             crop_nsample=16,
             crop_mlp=(3, 8, 16, 32),
             head_hidden=16,
+        )
+
+
+def assumed_mean_sizes(seed: int = 21, count: int = 18) -> Tuple[Tuple[float, float, float], ...]:
+    """`count` box sizes (dx, dy, dz) in [0.2, 2.0] m, rounded to the mm,
+    drawn from `seed`: stand-ins for ScanNet's 18 class mean sizes
+    (votenet `scannet/meta_data/scannet_means.npz`, not in the repository).
+    They only scale the size residuals."""
+    rng = random.Random(seed)
+    return tuple(tuple(round(rng.uniform(0.2, 2.0), 3) for _ in range(3)) for _ in range(count))
+
+
+@dataclasses.dataclass(frozen=True)
+class VoteNetConfig:
+    """VoteNet (Qi et al., ICCV 2019) with the ScanNet settings of
+    facebookresearch/votenet's `eval.py --dataset scannet --num_point 40000
+    --cluster_sampling seed_fps --use_3d_nms --use_cls_nms
+    --per_class_proposal`.  The backbone fields are `GraspNetConfig`'s
+    (`Backbone` reads those only)."""
+
+    # ---- input: xyz and the height above the floor ----
+    num_point: int = 40000
+    input_feature_dim: int = 1
+
+    # ---- backbone (votenet models/backbone_module.py: every stage use_xyz, normalize_xyz) ----
+    sa1: SAConfig = SAConfig(2048, 0.2, 64, (4, 64, 64, 128))
+    sa2: SAConfig = SAConfig(1024, 0.4, 32, (131, 128, 128, 256))
+    sa3: SAConfig = SAConfig(512, 0.8, 16, (259, 128, 128, 256))
+    sa4: SAConfig = SAConfig(256, 1.2, 16, (259, 128, 128, 256))
+    fp1_mlp: Tuple[int, ...] = (512, 256, 256)
+    fp2_mlp: Tuple[int, ...] = (512, 256, 256)
+
+    # ---- voting (voting_module.py) and proposals (proposal_module.py, seed_fps) ----
+    vote_factor: int = 1
+    num_proposal: int = 256
+    vote_radius: float = 0.3
+    vote_nsample: int = 16
+    vote_mlp: Tuple[int, ...] = (128, 128, 128)  # after the 3 + seed width input
+
+    # ---- decode (ScannetDatasetConfig) and post-processing (ap_helper.parse_predictions) ----
+    num_class: int = 18
+    num_heading_bin: int = 1
+    num_size_cluster: int = 18
+    mean_size: Tuple[Tuple[float, float, float], ...] = assumed_mean_sizes()
+    min_box_points: int = 5  # remove_empty_box: fewer points inside drop the box
+    nms_iou: float = 0.25  # class-aware 3D NMS, new-type IoU
+    conf_thresh: float = 0.05  # obj_prob above it is reported
+
+    # ---- numerics ----
+    bn_eps: float = 1e-5
+
+    @property
+    def seed_dim(self) -> int:
+        return self.fp2_mlp[-1]
+
+    @property
+    def head_dim(self) -> int:
+        """Channels of a proposal: 2 objectness, 3 centre, 2 per heading bin,
+        4 per size cluster, one per class (97 for ScanNet)."""
+        return 2 + 3 + 2 * self.num_heading_bin + 4 * self.num_size_cluster + self.num_class
+
+    @staticmethod
+    def tiny() -> "VoteNetConfig":
+        """A scaled-down config for fast CPU tests: the published radii,
+        narrower and fewer of everything else; three classes, so that
+        same-class proposals overlap and NMS has work."""
+        return VoteNetConfig(
+            num_point=1024,
+            sa1=SAConfig(256, 0.2, 16, (4, 8, 8, 16)),
+            sa2=SAConfig(128, 0.4, 8, (19, 16, 16, 32)),
+            sa3=SAConfig(32, 0.8, 8, (35, 16, 16, 32)),
+            sa4=SAConfig(16, 1.2, 8, (35, 16, 16, 32)),
+            fp1_mlp=(64, 32, 32),
+            fp2_mlp=(64, 32, 32),
+            num_proposal=64,
+            vote_mlp=(16, 16, 16),
+            num_class=3,
+            num_size_cluster=3,
+            mean_size=assumed_mean_sizes(count=3),
         )

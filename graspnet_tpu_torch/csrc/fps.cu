@@ -55,10 +55,12 @@ namespace {
 constexpr int kDefaultCluster = 8;
 constexpr int kMaxCluster = 16;   // 16 needs the non-portable cluster size
 constexpr int kMaxStages = 8;
-constexpr int kMaxPoints = 24576;
 constexpr int kNarrow = 256;      // threads of the register variant
 constexpr int kWide = 1024;       // threads of the wide variant
 constexpr int kWidePer = 24;      // wide variant: min-distances per thread
+// Stage 0's limit is the slice a CTA holds, not N: ceil(N / C) points, at
+// most kWide x kWidePer (24,576), so the default cluster takes N <= 196,608.
+constexpr int kMaxSlice = kWide * kWidePer;
 constexpr int kNarrowLate = 8;    // later stages: points per thread (<= 2048)
 constexpr int kWideLate = 10;     // (<= 10240)
 
@@ -372,8 +374,8 @@ cudaError_t launch(const float* xyz, int64_t* out, int batch, int n, const Stage
 extern "C" int gn_fps_chain(const float* xyz, int64_t* out, int batch, int n,
                             const int* npoints, int nstage, int cluster, void* stream) {
   const int csize = cluster > 0 ? cluster : kDefaultCluster;
-  if (nstage < 1 || nstage > kMaxStages || n < 1 || n > kMaxPoints || csize > kMaxCluster ||
-      (csize & (csize - 1)) != 0) {
+  if (nstage < 1 || nstage > kMaxStages || n < 1 || csize > kMaxCluster || (csize & (csize - 1)) != 0 ||
+      (n + csize - 1) / csize > kMaxSlice) {
     return (int)cudaErrorInvalidValue;
   }
   Stages st;
@@ -403,7 +405,7 @@ extern "C" int gn_fps_chain(const float* xyz, int64_t* out, int batch, int n,
     } else {
       err = launch<kNarrow, 24, true, kNarrowLate>(xyz, out, batch, n, st, csize, s);
     }
-  } else if (slice <= kWide * kWidePer && st.max_forward <= kWide * kWideLate) {
+  } else if (st.max_forward <= kWide * kWideLate) {
     err = launch<kWide, kWidePer, false, kWideLate>(xyz, out, batch, n, st, csize, s);
   } else {
     return (int)cudaErrorInvalidValue;

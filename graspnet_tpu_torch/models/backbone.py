@@ -19,7 +19,12 @@ mirrors the JAX package's TPU gates, with the CUDA kernels in their place:
     are exported as `end_points["sa_query_idx"]`, with the BN batch stats
     as `end_points["bn_stats/backbone"]`;
   * extra input channels (`input_feature_dim > 0`) enter SA1 as features
-    (backbone.py:171,182); the FPS chain and the crop take xyz only.
+    (backbone.py:171,182); the FPS chain and the crop take xyz only.  SA1
+    with features (VoteNet's height) is the generic path above.
+
+The configuration is a `GraspNetConfig` or a `VoteNetConfig`: the backbone
+reads only the fields the two share (`sa1`-`sa4`, `fp1_mlp`, `fp2_mlp`,
+`bn_eps`).
 
 Each wrapper runs its plain version on a CPU tensor, so the same code serves
 both devices.  Output contract: 256-d features on the num_seed sa2 points;
@@ -34,7 +39,7 @@ import torch
 from torch import nn
 
 from graspnet_tpu_torch import ops
-from graspnet_tpu_torch.config import GraspNetConfig, SAConfig
+from graspnet_tpu_torch.config import GraspNetConfig, SAConfig, VoteNetConfig
 from graspnet_tpu_torch.nn.layers import SharedMLP, fold_bn_eval, folded_mlp
 from graspnet_tpu_torch.ops.cuda import ball_query, fps_chain, sa1_fused
 
@@ -86,7 +91,7 @@ class FPStage(nn.Module):
 
 
 class Backbone(nn.Module):
-    def __init__(self, cfg: GraspNetConfig):
+    def __init__(self, cfg: GraspNetConfig | VoteNetConfig):
         super().__init__()
         self.cfg = cfg
         eps = cfg.bn_eps

@@ -17,10 +17,11 @@ from graspnet_tpu_torch.ops.cuda import build
 
 NEAR_ORIGIN_SQ = 1e-3
 INIT_DIST = 1e10
-MAX_POINTS = 1024 * 24  # threads x min-distances per thread of fps.cu's wide variant
+MAX_SLICE = 1024 * 24  # stage 0's points a CTA: threads x min-distances per thread of fps.cu's wide variant
 MAX_STAGES = 8
 MAX_FORWARD = 1024 * 10  # points a later stage holds in CTA 0's registers
 CLUSTER_SIZES = (1, 2, 4, 8, 16)  # CTAs per scene in stage 0; 0 takes fps.cu's default
+DEFAULT_CLUSTER = 8  # fps.cu's kDefaultCluster
 
 
 def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -77,8 +78,9 @@ def fps_chain(xyz: torch.Tensor, npoints: Sequence[int], cluster: int = 0) -> Tu
     """Cascaded FPS: (B, N, 3) float32 -> one (B, npoint_k) int64 per stage.
 
     CUDA tensor: one launch of the fps.cu kernel for every stage, stage 0 on
-    a cluster of `cluster` CTAs per scene (0: the kernel's default; other
-    sizes are for measuring).  CPU tensor: `fps_chain_plain`.
+    a cluster of `cluster` CTAs per scene (0: the kernel's default of 8;
+    other sizes are for measuring), each CTA holding ceil(N / cluster) <=
+    MAX_SLICE points.  CPU tensor: `fps_chain_plain`.
     """
     npoints = tuple(int(p) for p in npoints)
     if not xyz.is_cuda:
@@ -86,8 +88,8 @@ def fps_chain(xyz: torch.Tensor, npoints: Sequence[int], cluster: int = 0) -> Tu
     b, n, three = xyz.shape
     if three != 3 or xyz.dtype != torch.float32:
         raise ValueError(f"fps_chain takes (B, N, 3) float32, got {tuple(xyz.shape)} {xyz.dtype}")
-    if n > MAX_POINTS or not 1 <= len(npoints) <= MAX_STAGES:
-        raise ValueError(f"fps_chain supports N <= {MAX_POINTS} and 1..{MAX_STAGES} stages")
+    if not 1 <= len(npoints) <= MAX_STAGES:
+        raise ValueError(f"fps_chain supports 1..{MAX_STAGES} stages, got {len(npoints)}")
     prev = n
     for p in npoints:
         if not 1 <= p <= prev:
@@ -97,6 +99,10 @@ def fps_chain(xyz: torch.Tensor, npoints: Sequence[int], cluster: int = 0) -> Tu
         raise ValueError(f"fps_chain forwards at most {MAX_FORWARD} points to a next stage")
     if cluster and cluster not in CLUSTER_SIZES:
         raise ValueError(f"fps_chain cluster must be one of {CLUSTER_SIZES}, got {cluster}")
+    ctas = cluster or DEFAULT_CLUSTER
+    if -(-n // ctas) > MAX_SLICE:
+        raise ValueError(f"fps_chain holds at most {MAX_SLICE} points a CTA: N={n} over a cluster of {ctas} "
+                         f"is {-(-n // ctas)} a CTA")
     xyz = xyz.contiguous()
     out = torch.empty((b, sum(npoints)), dtype=torch.int64, device=xyz.device)
     stages = (ctypes.c_int * len(npoints))(*npoints)

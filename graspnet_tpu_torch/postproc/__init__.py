@@ -1,5 +1,6 @@
 """Grasp containers, NMS (host and device), voxel downsampling, the
-collision filter and gripper meshes."""
+collision filter and gripper meshes; VoteNet's box post-processing is
+`postproc/boxes.py`."""
 
 from graspnet_tpu_torch.postproc.collision import (
     ModelFreeCollisionDetector,

@@ -10,6 +10,7 @@ the thresholds (graspnetAPI's GraspGroup.nms, 0.03 m / 30 degrees).
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -66,6 +67,27 @@ def grasp_nms_plain(
     return np.asarray(keep, dtype=np.int64)
 
 
+def fixpoint(a: torch.Tensor, valid: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """A greedy NMS from its suppression matrix: (..., M, M) `a`, 1 where
+    row j, visited before row i, would drop it, and (..., M) `valid` ->
+    (..., M) keep and the sweeps run.
+
+    The greedy pass is the unique fixpoint of keep_i = valid_i AND NOT
+    OR_j (a_ij AND keep_j), solved by Jacobi sweeps (one batched matvec
+    each) from keep = valid, one `.any()` sync a sweep; a reached fixpoint
+    is the greedy result (hard cap M sweeps).
+    """
+    keep = valid
+    sweeps = 0
+    while sweeps < valid.shape[-1]:
+        new = valid & ~((a @ keep.float()[..., None])[..., 0] > 0)
+        sweeps += 1
+        if not bool((new != keep).any()):
+            break
+        keep = new
+    return keep, sweeps
+
+
 def nms_keep_mask(
     grasps: torch.Tensor,
     valid: torch.Tensor,
@@ -74,12 +96,10 @@ def nms_keep_mask(
 ) -> torch.Tensor:
     """Greedy NMS on the device: (..., Ns, 17), (..., Ns) -> (..., Ns) keep.
 
-    The greedy pass is the unique fixpoint of keep_i = valid_i AND NOT
-    OR_{j before i} (close_ij AND keep_j), solved by Jacobi sweeps (one
-    batched matvec each) as in `graspnet_tpu/postproc/nms.py:66-137`.  The
-    JAX while_loop becomes a Python loop with one `.any()` sync per sweep;
-    a reached fixpoint is the greedy result (hard cap Ns sweeps).
-    `nms_keep_mask.sweeps` records the last call's sweep count.
+    The pair predicate and the visiting order make `fixpoint`'s matrix, as
+    in `graspnet_tpu/postproc/nms.py:66-137`; the JAX while_loop becomes
+    `fixpoint`'s Python loop.  `nms_keep_mask.sweeps` records the last
+    call's sweep count.
     """
     ns = grasps.shape[-2]
     s = grasps[..., 0]
@@ -104,18 +124,7 @@ def nms_keep_mask(
         | ((nan[..., :, None] == nan[..., None, :]) & (idx[None, :] < idx[:, None]))
     )
     prec = (scores[..., None, :] > scores[..., :, None]) | ties
-    a = (close & prec).float()
-
-    keep = valid
-    sweeps = 0
-    while sweeps < ns:
-        sup = (a @ keep.float()[..., None])[..., 0] > 0
-        new = valid & ~sup
-        sweeps += 1
-        if not bool((new != keep).any()):
-            break
-        keep = new
-    nms_keep_mask.sweeps = sweeps
+    keep, nms_keep_mask.sweeps = fixpoint((close & prec).float(), valid)
     return keep
 
 

@@ -83,10 +83,10 @@ def tie_lattice(rng, b, n):
 @pytest.mark.parametrize("b", [1, 4])
 @pytest.mark.parametrize("kind", ["uniform", "lattice"])
 def test_fps_chain_full_size_matches_plain(dev, b, kind):
-    """N = MAX_POINTS (24,576) with the production cascade, every cluster
+    """N = MAX_SLICE (24,576) with the production cascade, every cluster
     size of stage 0 (the default, 1 and 2 on the 1024-thread variant, 4, 16)."""
     rng = np.random.default_rng(b)
-    n = kfps.MAX_POINTS
+    n = kfps.MAX_SLICE
     xyz = (cloud(rng, b, n) if kind == "uniform" else tie_lattice(rng, b, n)).to(dev)
     npoints = (2048, 1024, 512, 256)
     want = kfps.fps_chain_plain(xyz, npoints)
@@ -106,6 +106,28 @@ def test_fps_chain_edge_shapes_match_plain(dev, n, npoints, cluster):
     xyz = tie_lattice(rng, 2, n).to(dev)
     for g, w in zip(kfps.fps_chain(xyz, npoints, cluster), kfps.fps_chain_plain(xyz, npoints)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("cluster", [0, 8, 16, 2])
+@pytest.mark.parametrize("kind", ["uniform", "lattice"])
+def test_fps_chain_at_40000_points_matches_plain(dev, cluster, kind):
+    """VoteNet's ScanNet input, past the N of a single slice: 40,000 points
+    on the default cluster and on 8 CTAs (5,000 points a CTA, the 24-a-thread
+    register variant), on 16 (2,500) and on 2 (20,000, the 1024-thread
+    variant), with VoteNet's cascade."""
+    rng = np.random.default_rng(40000 + cluster)
+    n = 40000
+    xyz = (cloud(rng, 2, n) if kind == "uniform" else tie_lattice(rng, 2, n)).to(dev)
+    npoints = (2048, 1024, 512, 256)
+    for g, w in zip(kfps.fps_chain(xyz, npoints, cluster), kfps.fps_chain_plain(xyz, npoints)):
+        assert torch.equal(g, w), cluster
+
+
+def test_fps_chain_slice_domain_raises(dev):
+    """A cluster whose CTAs would hold more than MAX_SLICE points raises."""
+    xyz = torch.ones((1, 40000, 3), device=dev)
+    with pytest.raises(ValueError, match="points a CTA"):
+        kfps.fps_chain(xyz, (16,), cluster=1)
 
 
 @pytest.mark.parametrize("radius,ns", [(0.1, 32), (0.2, 16), (0.03, 64), (5.0, 8)])
@@ -1034,3 +1056,34 @@ def test_downsample_span_counts_points_and_voxels_on_the_card(dev):
     spans = [s for s in rec.drain() if s.name == "collision.downsample"]
     assert [s.counts for s in spans] == [{"points": 250000, "voxels": len(native.voxel_downsample(cloud, 0.01))}]
     assert len(det.scene_points) == spans[0].counts["voxels"]
+
+
+def test_detection_pipeline_card_matches_cpu(dev):
+    """VoteNet at its published widths (40,000 points, SA1 with the height
+    channel) through `DetectionPipeline` on the card and on the CPU, same
+    seeded weights and two seeded room scans: K1 twice (the cascade and the
+    proposals' FPS) and K4 five times (SA1-4 and the vote aggregation) a
+    batch; the proposals' raw channels within FEATURE_TOL x max(1, scale)
+    and every box decision (non-empty, NMS pick, kept, class) equal."""
+    from benchmark.inputs.rooms import room_pool
+    from graspnet_tpu_torch.apps.detect import DetectionPipeline
+    from graspnet_tpu_torch.config import VoteNetConfig
+    from graspnet_tpu_torch.postproc import boxes
+
+    cfg = VoteNetConfig()
+    clouds = room_pool(21, 2, cfg.num_point)
+    card = DetectionPipeline(cfg=cfg, seed=1, device=dev)
+    cpu = DetectionPipeline(cfg=cfg, seed=1, device="cpu")
+    kernels.reset_launches()
+    h = card.dispatch(clouds)
+    got = card.finish(h)
+    launches = kernels.launches()
+    assert launches == {**{k: 0 for k in launches}, "fps_chain": 2, "ball_query": 5}
+    hc = cpu.dispatch(clouds)
+    want = cpu.finish(hc)
+    head, head_cpu = h.end_points["head"].cpu(), hc.end_points["head"]
+    assert (head - head_cpu).abs().max().item() <= FEATURE_TOL * max(1.0, head_cpu.abs().max().item())
+    for g, w in zip(got, want):
+        for col in (boxes.NONEMPTY, boxes.PICKED, boxes.KEPT, boxes.SEM_CLS):
+            np.testing.assert_array_equal(g.rows[:, col], w.rows[:, col])
+        assert 0 < w.kept.sum() < w.nonempty.sum()

@@ -8,7 +8,7 @@ best thread by (value desc, index asc), and every CTA combines the C CTA
 candidates in rank order by the same rule.  Later stages run on one CTA's
 T threads.  Near-origin points hold -1 and slots past the end -2, so
 neither is picked while a real point is left.  The plan must give the same
-indices for every C, at N from 1 to MAX_POINTS, on lattices whose squares
+indices for every C, at N from 1 to MAX_SLICE, on lattices whose squares
 are exact (multiples of 1/8, so distances tie) and with near-origin points.
 """
 
@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from graspnet_tpu_torch.ops.cuda.fps import INIT_DIST, MAX_POINTS, NEAR_ORIGIN_SQ, fps_chain_plain, fps_plain
+from graspnet_tpu_torch.ops.cuda.fps import INIT_DIST, MAX_SLICE, NEAR_ORIGIN_SQ, fps_chain_plain, fps_plain
 
 THREADS = 256  # threads of a CTA in the register variant
 
@@ -99,7 +99,7 @@ def cloud(kind, n, seed):
     (33, (20, 7, 3), "uniform"),
     (1000, (120, 40, 9), "lattice"),
     (1000, (64,), "uniform"),
-    (MAX_POINTS, (24,), "lattice"),
+    (MAX_SLICE, (24,), "lattice"),
 ])
 def test_cluster_plan_matches_fps_plain(cluster, n, npoints, kind):
     xyz = cloud(kind, n, n + cluster)

@@ -152,3 +152,21 @@ def test_on_device_makes_the_device_current_and_yields_its_stream(monkeypatch):
         with build.on_device(dev):
             raise RuntimeError("launch failed")
     assert seen[-1] == ("exit", 0)
+
+
+@pytest.mark.parametrize("n,cluster,ok", [(40000, 0, True), (40000, 8, True), (40000, 2, True),
+                                          (196608, 0, True), (196609, 0, False), (24577, 1, False),
+                                          (24576, 1, True), (40000, 1, False)])
+def test_fps_chain_domain_is_the_slice_a_cta_holds(state, n, cluster, ok):
+    """The kernel's limit is ceil(N / cluster) <= MAX_SLICE points a CTA
+    (the default cluster is 8), not N: 40,000 points reach the launcher on
+    the default cluster, and a slice past the limit raises before it."""
+    xyz = card(np.ones((1, n, 3), np.float32))
+    if ok:
+        fps.fps_chain(xyz, (16, 4), cluster)
+        assert [fn for fn, _ in state["calls"]] == ["gn_fps_chain"]
+    else:
+        ctas = cluster or fps.DEFAULT_CLUSTER
+        with pytest.raises(ValueError, match=f"at most {fps.MAX_SLICE} points a CTA: N={n} over a cluster of {ctas}"):
+            fps.fps_chain(xyz, (16, 4), cluster)
+        assert state["calls"] == []
