@@ -89,7 +89,11 @@ class GraspPipeline:
                 self._data_axis_size = mesh.shape[names[0]]
 
     # ---- device programs ----
-    def _cloud(self, clouds: np.ndarray) -> torch.Tensor:
+    def _cloud(self, clouds) -> torch.Tensor:
+        """The clouds as float32 on the device: a tensor already there as it
+        is, a numpy batch in one copy."""
+        if isinstance(clouds, torch.Tensor):
+            return clouds.to(self.device, torch.float32)
         return torch.as_tensor(np.asarray(clouds, np.float32)).to(self.device)
 
     @torch.inference_mode()
@@ -138,21 +142,19 @@ class GraspPipeline:
         rows.cpu()
         return time.perf_counter() - t0
 
-    def sample_cloud(self, cloud: np.ndarray, rng: Optional[np.random.Generator] = None) -> np.ndarray:
-        """Random-sample to num_point, padding with replacement when short."""
-        rng = rng or np.random.default_rng(0)
-        n = self.cfg.num_point
-        if len(cloud) >= n:
-            idxs = rng.choice(len(cloud), n, replace=False)
-        else:
-            idxs = np.concatenate(
-                [np.arange(len(cloud)), rng.choice(len(cloud), n - len(cloud), replace=True)]
-            )
+    def sample_cloud(self, cloud, rng: Optional[np.random.Generator] = None):
+        """Random-sample to num_point, padding with replacement when short
+        (`sample_indices`).  A tensor's rows are gathered where it lies, the
+        indices drawn on the host and copied over; numpy rows stay numpy."""
+        idxs = sample_indices(len(cloud), self.cfg.num_point, rng)
+        if isinstance(cloud, torch.Tensor):
+            return cloud.index_select(0, torch.from_numpy(idxs).to(cloud.device))
         return cloud[idxs]
 
-    def get_grasps(self, cloud_sampled: np.ndarray, timings: Optional[dict] = None) -> GraspGroup:
-        """Run the network on a (num_point, 3) cloud, return decoded grasps."""
-        return self.get_grasps_batch(np.asarray(cloud_sampled)[None], timings)[0]
+    def get_grasps(self, cloud_sampled, timings: Optional[dict] = None) -> GraspGroup:
+        """Run the network on a (num_point, 3) cloud, numpy or a tensor
+        (one on the device is not copied again), return decoded grasps."""
+        return self.get_grasps_batch(_one(cloud_sampled), timings)[0]
 
     def get_grasps_batch(self, clouds: np.ndarray, timings: Optional[dict] = None) -> list:
         """(B, num_point, 3) -> list of B GraspGroups (objectness-valid rows)."""
@@ -181,15 +183,16 @@ class GraspPipeline:
     def collision_filter(
         self,
         gg: GraspGroup,
-        scene_cloud: np.ndarray,
+        scene_cloud,
         collision_thresh: float = 0.01,
         voxel_size: float = 0.01,
         approach_dist: float = 0.05,
         timings: Optional[dict] = None,
     ) -> GraspGroup:
-        """The grasps of gg that do not collide with the (raw) scene cloud.
-        A `timings` dict gets the filter's `collision` seconds, the
-        downsample through the mask, and those of its spans."""
+        """The grasps of gg that do not collide with the (raw) scene cloud,
+        numpy or a tensor (`ModelFreeCollisionDetector`).  A `timings` dict
+        gets the filter's `collision` seconds, the downsample through the
+        mask, and those of its spans."""
         start_ns = time.perf_counter_ns()
         detector = ModelFreeCollisionDetector(scene_cloud, voxel_size=voxel_size, device=self.device, timings=timings)
         mask = detector.detect(gg, approach_dist=approach_dist, collision_thresh=collision_thresh, timings=timings)
@@ -215,10 +218,9 @@ class GraspPipeline:
         _since(timings, "collision", start_ns)
         return [gg[~m] for gg, m in zip(ggs, masks)]
 
-    def get_grasps_topk(self, cloud_sampled: np.ndarray, top_k: int = 50,
-                        timings: Optional[dict] = None) -> GraspGroup:
+    def get_grasps_topk(self, cloud_sampled, top_k: int = 50, timings: Optional[dict] = None) -> GraspGroup:
         """Serving path: NMS + top-K on the device; ships (K, 17) rows."""
-        return self.get_grasps_topk_batch(np.asarray(cloud_sampled)[None], top_k, timings)[0]
+        return self.get_grasps_topk_batch(_one(cloud_sampled), top_k, timings)[0]
 
     def get_grasps_topk_batch(self, clouds: np.ndarray, top_k: int = 50, timings: Optional[dict] = None) -> list:
         """(B, num_point, 3) -> B top-K GraspGroups from one device program."""
@@ -231,8 +233,8 @@ class GraspPipeline:
 
     def run(
         self,
-        cloud_sampled: np.ndarray,
-        scene_cloud: Optional[np.ndarray] = None,
+        cloud_sampled,
+        scene_cloud=None,
         collision_thresh: float = -1.0,
         nms: bool = True,
         top_k: int = 50,
@@ -241,10 +243,12 @@ class GraspPipeline:
     ) -> GraspGroup:
         """Full frame pipeline; collision_thresh <= 0 skips the filter
         (-1 disables it, the reference convention), which then tests the
-        decoded grasps against `scene_cloud` (the raw cloud).  A `timings`
-        dict gets this call's `infer` seconds and, when the filter runs,
-        its `collision` seconds, and the seconds of the spans under them by
-        name (`pipeline.dispatch`, `pipeline.fetch`, `collision.downsample`,
+        decoded grasps against `scene_cloud` (the raw cloud).  Either cloud
+        may be numpy or a tensor; a tensor on the device stays there (the
+        service's card route hands over both so).  A `timings` dict gets
+        this call's `infer` seconds and, when the filter runs, its
+        `collision` seconds, and the seconds of the spans under them by name
+        (`pipeline.dispatch`, `pipeline.fetch`, `collision.downsample`,
         `collision.detect`)."""
         if collision_thresh <= 0 and nms and top_k:
             # nothing between decode and NMS: the fused program ships (K, 17) rows
@@ -258,6 +262,21 @@ class GraspPipeline:
         if top_k:
             gg = gg[:top_k]
         return gg
+
+
+def sample_indices(n: int, num_point: int, rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """The rows of an n-point cloud that `sample_cloud` keeps: num_point
+    drawn without replacement, or, when n is short, every row in order and
+    the rest drawn with replacement; from `default_rng(0)` unless `rng`."""
+    rng = rng or np.random.default_rng(0)
+    if n >= num_point:
+        return rng.choice(n, num_point, replace=False)
+    return np.concatenate([np.arange(n), rng.choice(n, num_point - n, replace=True)])
+
+
+def _one(cloud):
+    """A (N, C) cloud as a batch of one, a tensor kept a tensor."""
+    return cloud[None] if isinstance(cloud, torch.Tensor) else np.asarray(cloud)[None]
 
 
 def _since(timings: Optional[dict], key: str, start_ns: int) -> None:

@@ -34,6 +34,7 @@ import threading
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from graspnet_tpu_torch import native
 from graspnet_tpu_torch.apps.pipeline import GraspPipeline
@@ -166,6 +167,15 @@ class GraspService:
     ) -> dict:
         """Full request: cloud (N,3) in camera frame -> best grasp + group.
 
+        On the card at `max_batch` 1 the capture crosses to the card once:
+        the depth window and the sample's gather run there
+        (`depth_window`, `GraspPipeline.sample_cloud`), and the windowed
+        scene and the sampled cloud stay there for the collision filter
+        and the forward.  Micro-batched, or on the CPU, both are numpy on
+        the host.  Either way they are the same rows, bit for bit, and the
+        `service.sample` span counts the capture's `points`, the `window`'s
+        rows and `card` (1 on the card's route, else 0).
+
         The reply's `timings_ms` are this request's own: `infer`, from the
         decode's dispatch through the fetch of its rows; `collision`, the
         collision filter (the raw cloud's voxel downsample, on the card
@@ -184,9 +194,15 @@ class GraspService:
         c = self.cfg
         timings = {"collision": 0.0}
         with span("service.compute", trace=next(self._requests)):
-            with span("service.sample", into=timings):
-                z = cloud[:, 2]
-                cloud = cloud[(z >= c.depth_min) & (z <= c.depth_max)]
+            with span("service.sample", into=timings) as sample:
+                on_card = self.batcher is None and self.pipe.device.type == "cuda"
+                sample.count(points=len(cloud), card=on_card)
+                if on_card:
+                    cloud = depth_window(cloud, c.depth_min, c.depth_max, self.pipe.device)
+                else:
+                    z = cloud[:, 2]
+                    cloud = cloud[(z >= c.depth_min) & (z <= c.depth_max)]
+                sample.count(window=len(cloud))
                 # reference demo.py:459 rejects frames with < 10% of num_point valid
                 if len(cloud) < max(100, self.pipe.cfg.num_point // 10):
                     return {"ok": False, "error": "not enough points in depth range"}
@@ -236,6 +252,21 @@ class GraspService:
         if "batch" in timings:
             reply["batch"] = timings["batch"]
         return reply
+
+
+def depth_window(cloud: np.ndarray, depth_min: float, depth_max: float, device) -> torch.Tensor:
+    """The rows of an (N, 3) capture whose z lies in [depth_min, depth_max],
+    taken on `device` after one copy of the capture there, in capture
+    order: numpy's `cloud[(z >= depth_min) & (z <= depth_max)]`, bit for
+    bit.  The bounds are rounded to the capture's dtype, as numpy compares
+    a float32 array with a Python float (NEP 50); the window is a stable
+    compaction (`nonzero`'s ascending rows, then a gather), and the read of
+    its size is the one wait for the device."""
+    cloud = np.ascontiguousarray(cloud)
+    lo, hi = (float(np.asarray(v, cloud.dtype)) for v in (depth_min, depth_max))
+    pts = torch.from_numpy(cloud).to(device)
+    z = pts[:, 2]
+    return pts.index_select(0, torch.nonzero((z >= lo) & (z <= hi)).squeeze(1))
 
 
 # --------------------------------------------------- ROS message helpers ----

@@ -22,9 +22,11 @@ threshold test are numpy on the host, as in the JAX package.
 
 The raw scene's voxel downsample follows the device: on the card it is the
 `csrc/voxel.cu` kernel (`ops/voxel.py`), the capture crossing the bus in
-one copy and the downsampled scene staying there for the scan; on the CPU
-it is the host library's (`native.voxel_downsample`).  Both give the same
-rows, in another order, and the counts do not depend on the order.  Clouds
+one copy (none when it is handed over as a tensor on the card, as the
+service's card route does) and the downsampled scene staying there for the
+scan; on the CPU it is the host library's (`native.voxel_downsample`).
+Both give the same rows, in another order, and the counts do not depend
+on the order.  Clouds
 a caller hands over already downsampled (the eval loop's and the
 `MicroBatcher`'s, spread over host threads) stay numpy and are packed.
 """
@@ -174,7 +176,13 @@ def _collision_counts_rows_batch(pts: torch.Tensor, rows: torch.Tensor, *, appro
 
 def _downsample(cloud, voxel_size: float, device: torch.device):
     """A raw (N, 3) cloud's voxel downsample: the kernel for the card, whose
-    (K, 3) result stays there; the host library's numpy rows for the CPU."""
+    (K, 3) result stays there; the host library's numpy rows for the CPU.
+    A numpy cloud crosses to the card in one copy, a tensor already there
+    goes straight to the kernel."""
+    if isinstance(cloud, torch.Tensor):
+        if device.type == "cuda":
+            return voxel_downsample(cloud.to(device, torch.float32), voxel_size)
+        cloud = cloud.cpu().numpy()
     cloud = np.ascontiguousarray(cloud, dtype=np.float32)
     if device.type == "cuda":
         return voxel_downsample(torch.from_numpy(cloud).to(device), voxel_size)
@@ -263,17 +271,17 @@ def detect_batch(
 
 
 class ModelFreeCollisionDetector:
-    """The reference detector (collision_detector.py:10): the scene is
-    voxel-downsampled once on `device` (the card unless "cpu"), then
-    `detect` counts each grasp group's collisions there with the blocked
-    scan.  On the card the downsample is the `csrc/voxel.cu` kernel and
+    """The reference detector (collision_detector.py:10): the scene, numpy
+    or a tensor, is voxel-downsampled once on `device` (the card unless
+    "cpu"), then `detect` counts each grasp group's collisions there with
+    the blocked scan.  On the card the downsample is the `csrc/voxel.cu` kernel and
     `scene_points` is the (K, 3) tensor it leaves on the card; on the CPU
     it is the host library's, and `scene_points` a numpy array.  A
     `timings` dict, given to the constructor or to `detect`, gets the
     seconds of the `collision.downsample` span (which counts the raw
     `points` and the `voxels` kept) and the `collision.detect` span."""
 
-    def __init__(self, scene_points: np.ndarray, voxel_size: float = 0.005, device: str | torch.device = "cuda",
+    def __init__(self, scene_points, voxel_size: float = 0.005, device: str | torch.device = "cuda",
                  timings: Optional[dict] = None):
         self.voxel_size = voxel_size
         self.finger_width = FINGER_WIDTH

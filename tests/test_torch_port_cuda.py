@@ -1087,3 +1087,92 @@ def test_detection_pipeline_card_matches_cpu(dev):
         for col in (boxes.NONEMPTY, boxes.PICKED, boxes.KEPT, boxes.SEM_CLS):
             np.testing.assert_array_equal(g.rows[:, col], w.rows[:, col])
         assert 0 < w.kept.sum() < w.nonempty.sum()
+
+
+# ------------------------------------------------- the service's card route --
+
+ROUTE_CASES = {  # (points, z range) of a capture; the window is [0.3, 0.6]
+    "partial": (3000, 0.2, 0.7),  # the bounds' float32 values and their neighbours on the first rows
+    "inside": (3000, 0.35, 0.55),
+    "short": (400, 0.2, 0.7),  # under num_point (512) in the window: the padded draw
+    "rejected": (3000, 0.7, 0.9),  # 4 edge rows in the window, under the 10 % floor
+}
+
+
+def route_capture(rng, n, z_low, z_high):
+    pts = rng.uniform(-0.3, 0.3, (n, 3)).astype(np.float32)
+    pts[:, 2] = rng.uniform(z_low, z_high, n)
+    if z_low < 0.3 or z_high > 0.6:
+        pts[:6, 2] = [v for b in (0.3, 0.6) for v in (np.float32(b), np.nextafter(np.float32(b), np.float32(0)),
+                                                      np.nextafter(np.float32(b), np.float32(1)))]
+    return pts
+
+
+def route_service(max_batch=1):
+    from graspnet_tpu_torch.apps.service import GraspService, ServiceConfig
+
+    # random weights' grasps mostly collide at 0.01: at 0.3 some pass the filter
+    return GraspService(ServiceConfig(model_cfg=GraspNetConfig.tiny(), collision_thresh=0.3, max_batch=max_batch,
+                                      device="cuda"))
+
+
+@pytest.mark.parametrize("case", sorted(ROUTE_CASES))
+def test_service_card_route_is_bitwise_the_host_route(dev, case, monkeypatch):
+    """At max_batch 1 on the card, the windowed scene and the sampled cloud
+    that `compute` hands the filter and the forward are tensors on the card,
+    bitwise the host route's numpy window and sample; the reply's rows are
+    those of the same pipeline run on the host route's clouds, and a
+    capture under the floor gets the host route's error."""
+    svc = route_service()
+    n, z_low, z_high = ROUTE_CASES[case]
+    cloud = route_capture(np.random.default_rng(50), n, z_low, z_high)
+    z = cloud[:, 2]
+    window = cloud[(z >= svc.cfg.depth_min) & (z <= svc.cfg.depth_max)]
+    handed, run = {}, svc.pipe.run
+
+    def spy(cloud_sampled, scene_cloud=None, **kw):
+        handed.update(sampled=cloud_sampled, scene=scene_cloud)
+        return run(cloud_sampled, scene_cloud=scene_cloud, **kw)
+
+    monkeypatch.setattr(svc.pipe, "run", spy)
+    try:
+        reply = svc.compute(cloud)
+        if case == "rejected":
+            assert len(window) == 4 and not handed
+            assert reply == {"ok": False, "error": "not enough points in depth range"}
+            return
+        if case == "short":
+            assert 100 <= len(window) < svc.pipe.cfg.num_point
+        sampled = svc.pipe.sample_cloud(window)
+        for key, want in (("scene", window), ("sampled", sampled)):
+            got = handed[key]
+            assert isinstance(got, torch.Tensor) and got.is_cuda, key
+            assert torch.equal(got.cpu().view(torch.int32), torch.from_numpy(want).view(torch.int32)), key
+        gg = run(sampled, scene_cloud=window, collision_thresh=svc.cfg.collision_thresh,
+                 voxel_size=svc.cfg.voxel_size, nms=False, top_k=0)
+        want = gg.sort_by_score().nms().sort_by_score()[: svc.cfg.top_k].grasp_group_array
+        assert reply["ok"] and len(want) > 0
+        np.testing.assert_array_equal(np.asarray(reply["grasps"], np.float32), want)
+    finally:
+        svc.close()
+
+
+def test_service_sample_span_counts_the_route(dev):
+    """`service.sample` counts card 1 at max_batch 1 and 0 micro-batched,
+    the capture's points and the window's rows; on the card route the
+    filter's downsample takes the window as it lies (its `points` count is
+    the window's)."""
+    cloud = route_capture(np.random.default_rng(51), 3000, 0.2, 0.7)
+    z = cloud[:, 2]
+    kept = int(((z >= np.float32(0.3)) & (z <= np.float32(0.6))).sum())
+    for max_batch, card in ((1, 1), (2, 0)):
+        svc = route_service(max_batch)
+        try:
+            with tracing.recording() as rec:
+                svc.compute(cloud)
+            spans = rec.drain()
+        finally:
+            svc.close()
+        assert [s.counts for s in spans if s.name == "service.sample"] == \
+            [{"points": 3000, "card": card, "window": kept}], max_batch
+        assert [s.counts["points"] for s in spans if s.name == "collision.downsample"] == [kept], max_batch
