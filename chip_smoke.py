@@ -77,23 +77,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
      of a float64 sum, and bitwise repeatable; the plan, the sum and
      torch.index_add under one torch.profiler window (device ms by kernel,
      device operations a call) beside each loop's host and event time;
-     then
-     scripts/bench_train_pipeline.py's run in-process: one epoch of the
-     CLI's loop (apps/train.py::train) with 4 loader worker threads over a
-     SyntheticGraspNetDataset at its production shape, the eval pass and the
-     checkpoint, with the launches of every kernel along it checked, a
-     resume of the checkpoint into a fresh Trainer bitwise equal in
-     parameters and Adam state, the sustained ms/step beside the device
-     step, stage 1, host prep and finalize times, and the device's busy time
-     and idle share over 3 of the loop's steps under torch.profiler, after
-     its warm-up, with the loader threads running;
-  9. tools: the four timing entry points (graspnet_tpu_torch/scripts/)
-     in-process at GraspNetConfig() with short slope windows (2 and 6
-     calls, the fastest of 3 each) — every stage
-     time finite and > 0, K8 launched by profile_stages and
-     crop_train_breakdown, K9 three times per bench_crop_kernels call of
-     its stages, K10 by profile_stages — and bench's JSON line;
- 10. collision: the collision filter (postproc/collision.py) after one
+     then one epoch of the CLI's loop (apps/train.py::train) with 4 loader
+     worker threads over a SyntheticGraspNetDataset at its production
+     shape, the eval pass and the checkpoint, with the launches of every
+     kernel along it checked, and a resume of the checkpoint into a fresh
+     Trainer bitwise equal in parameters and Adam state (the loop's time is
+     the benchmark's cell train.recipe_b2);
+  9. collision: the collision filter (postproc/collision.py) after one
      GraspNetConfig() forward at B=2 on tabletop frames sampled from
      250k-point raw clouds: detect_batch on the card against the same call
      on the CPU with the same rows, on the host library's downsampled
@@ -103,7 +93,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
      version on the CPU and repeatable, its event time against the plain
      version on the card, its bytes' bound and the host library (phase
      voxel_kernel, a row of the kernels line);
- 11. test_app: the eval loop (apps/test.py::inference) through
+ 10. test_app: the eval loop (apps/test.py::inference) through
      scripts/bench_test_app.py's run at GraspNetConfig(), batch 1 and 4,
      over 200 synthetic frames of 250k-point raw clouds with the collision
      filter and the dump: ms/frame and stage means, launches per batch (K1
@@ -111,15 +101,15 @@ Phases (each prints one JSON line; any failure exits non-zero):
      profiled batches, and the card's dump of two frames against a CPU
      pipeline's dump with the same weights (selection fields equal, floats
      within TOPK_ATOL);
- 12. learnability: scripts/learnability_gate.py's run on the card (600
+ 11. learnability: scripts/learnability_gate.py's run on the card (600
      steps, seed 0): the tiny model trained from scratch, dumped through
      apps/test.py and scored by eval/ap.py; AP(trained) >= 6 > AP(random)
      asserted, the kernels' launches along it counted;
- 13. feature_input (run after phase 4): the SA1 routes away from K3 at
+ 12. feature_input (run after phase 4): the SA1 routes away from K3 at
      GraspNetConfig() widths, extra input channels (input_feature_dim=3)
      and sa1.normalize_xyz=False: launches K1 1, K3 0, K4 4, K5 1 a
      forward, and the forward equal to the CPU's;
- 14. service (after phase 11): apps/service.py's GraspService with seed-1
+ 13. service (after phase 10): apps/service.py's GraspService with seed-1
      weights, card against CPU on two 250k-point requests with the
      collision filter off and on, a TCP round trip equal to the in-process
      reply, and scripts/bench_service.py's run at max_batch 1 and 8 (16
@@ -127,39 +117,39 @@ Phases (each prints one JSON line; any failure exits non-zero):
      K3 1, K4 3, K5 1, and the voxel kernel 1 at max_batch 1); then
      max_batch 8 with the request threads' downsample on the host library
      and on the voxel kernel, alternating, two runs each: requests/s;
- 15. service_success (inside phase 12's directory): the same at the gate's
+ 14. service_success (inside phase 11's directory): the same at the gate's
      tiny config with its trained checkpoint and learnable-scene requests,
      ok > 0 asserted in each mode;
- 16. demos (after phase 14): image_demo, demo_pointcloud,
+ 15. demos (after phase 13): image_demo, demo_pointcloud,
      segmentation_demo, stereo_demo, grasp_tf --once and grasp_base through
      their main(argv) on a synthetic RGB-D frame, image_demo's dump equal
      to a CPU run's, its PLY readable, grasp_tf's pose the service's best;
- 17. ddp_train (after phase 8): data-parallel training on the one card: a
+ 16. ddp_train (after phase 8): data-parallel training on the one card: a
      one-rank NCCL group's Trainer.step bitwise the plain step (K7 1); two
      gloo ranks (NCCL takes one rank a card), one scene each of the B=2
      batch, their loss and summed gradients against the single-process
      B=2 probe within the train-correctness bounds, K7 0 and K6 1 on each
      rank; scripts/multiproc_check.py --device cuda --backend gloo ok;
- 18. crop_routes: a two-layer crop MLP (3, 16, 32): a B=1 forward through
+ 17. crop_routes: a two-layer crop MLP (3, 16, 32): a B=1 forward through
      K6 and the generic MLP (no K5) equal to the CPU's, and a B=2 training
      probe through K6 and the generic MLP (no K7) within the bounds;
- 19. tolerance: data/tolerance.py on a synthetic object of 2048 label
+ 18. tolerance: data/tolerance.py on a synthetic object of 2048 label
      points x 300*12*4 cells bitwise the CPU's, ms per object, and the CLI
      over a two-object root;
- 20. parallel_infer (after phase 16): GraspPipeline(mesh=) on meshes that
+ 19. parallel_infer (after phase 15): GraspPipeline(mesh=) on meshes that
      repeat cuda:0 (data 2 at B=4, candidate 4 at B=1, hybrid 2 x 2 at
      B=2): top-50 equal to the unsharded pipeline's within PARALLEL_ATOL,
      K1, K3 and K4 once a scene group, K5 once a seed block; ms per frame
      beside the unsharded pipeline's (the code path on one card, not
      scaling); the service with candidate_devices=2 against one device;
- 21. the kernels line (launches per serving forward, per training step,
-     per tool run, per eval batch, per feature-input forward, per service
+ 20. the kernels line (launches per serving forward, per training step,
+     per eval batch, per feature-input forward, per service
      dispatch at max_batch 1 and 8, per crop-routes forward and probe, per parallel_infer run,
      per one-rank NCCL step, per rank's step of the two-rank run, per
      rank's step of the 2 x 2 hybrid run, per MSG forward, per
-     verify_checkpoint run and per VoteNet batch), printed after phase 24, the nvidia-smi line,
+     verify_checkpoint run and per VoteNet batch), printed after phase 23, the nvidia-smi line,
      and last {"ok": true, "device": {...}};
- 22. hybrid_train (after phase 17): hybrid data x candidate training on
+ 21. hybrid_train (after phase 16): hybrid data x candidate training on
      the one card: gloo ranks laid out 2 x 2 and 1 x 2 at GraspNetConfig()
      on the B=2 batch, stage 2 on seed blocks of 512; the probe's loss and
      summed gradients against the single-process B=2 probe within the
@@ -168,15 +158,15 @@ Phases (each prints one JSON line; any failure exits non-zero):
      scatter-add 5 and no K7; on every rank, outside the counted runs, K6
      bitwise its plain version and the scatter-add bitwise the CPU's sum on
      the calls of one more probe (its seed block's shapes);
- 23. msg: the MSG modules (models/msg.py) at the PointNet++ classification
+ 22. msg: the MSG modules (models/msg.py) at the PointNet++ classification
      model's SA1 widths (npoint 512, radii 0.1/0.2/0.4, nsample
      16/32/128) and an LFP stage over it, on the B=2 tabletop clouds: FPS
      and K4 indices equal to their plain versions, the forward equal to the
      CPU's, launches FPS 1 and K4 5 a forward;
- 24. verify_checkpoint: scripts/verify_checkpoint.py on a fabricated
+ 23. verify_checkpoint: scripts/verify_checkpoint.py on a fabricated
      reference-layout .tar and a synthetic frame: PASS on the card against
      the CPU's rows, exit 1 on a golden with one row perturbed;
- 25. detection (after phase 13): VoteNet through apps/detect.py's
+ 24. detection (after phase 12): VoteNet through apps/detect.py's
      DetectionPipeline at its published widths on a batch of 8 seeded
      40,000-point room scans: K1 2 and K4 5 launches a batch and nothing
      else, K4 at SA1 and at the vote aggregation bitwise plain, every box
@@ -213,8 +203,6 @@ WEIGHT_SEED = 1
 N_POINTS = 20000
 B_KERNELS = 2
 FEATURE_TOL = 1e-4  # max |kernel - plain| / max(1, max |plain|): f32 sums in another order
-# slope windows of the tools phase: short, so the phase takes tens of seconds
-TOOL_K_LO, TOOL_K_HI = 2, 6
 TOPK_ATOL = 1e-4  # CPU vs card top-50 floats: CPU BLAS vs cuBLAS f32 sums
 PEAK_F32_FLOPS = 67e12  # H100 SXM, non-tensor f32 (NVIDIA data sheet)
 PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 tensor cores (NVIDIA data sheet)
@@ -250,8 +238,9 @@ STEP_LOSS_RTOL = 1e-5  # card vs CPU loss: batch-stat BN sums in another order
 TRAIN_SEED = 0
 # train_cli: the scatter-add kernel against a float64 sum, x max(1, scale)
 SCATTER_F64_TOL = 1e-6
-# train_cli: the CLI loop's timed steps, the steps before them, loader threads
-CLI_STEPS, CLI_WARMUP, CLI_WORKERS = 10, 2, 4
+# train_cli: the CLI loop's steps (one epoch), its loader threads, and the
+# label points an object of the eval pass's batch
+CLI_STEPS, CLI_WORKERS, CLI_EVAL_LABEL_POINTS = 16, 4, 300
 # train_cli: the deterministic-mode child, its cuBLAS workspace and time limit
 DETERMINISTIC_ENV, DETERMINISTIC_TIMEOUT_S = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}, 600
 # collision / test_app: raw cloud size, and apps/test.py's filter settings
@@ -719,52 +708,6 @@ def query_sa_kernel_phase(cfg, model, cloud_b):
     return rows
 
 
-def tools_phase():
-    """Phase 8: the four timing entry points in-process at GraspNetConfig(),
-    with short slope windows.  Returns the launch counts of one run of all
-    four and their records."""
-    from graspnet_tpu_torch.ops import cuda as kernels
-    from graspnet_tpu_torch.scripts import bench, bench_crop_kernels, crop_train_breakdown, profile_stages
-    from graspnet_tpu_torch.utils import timing
-
-    windows = ["--k-lo", str(TOOL_K_LO), "--k-hi", str(TOOL_K_HI)]
-    per_tool, records = {}, {}
-    for name, run in (
-        ("bench_crop_kernels", lambda: bench_crop_kernels.main(windows)),
-        ("profile_stages", lambda: profile_stages.main(windows)),
-        ("crop_train_breakdown", lambda: crop_train_breakdown.main(windows)),
-        ("bench", lambda: bench.main(["--frames", "10", "--repeats", "2", "--sync-frames", "5"])),
-    ):
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        records[name] = run()
-        torch.cuda.synchronize()
-        per_tool[name] = kernels.launches()
-        records[name + "_s"] = time.perf_counter() - t0
-    for name in ("bench_crop_kernels", "profile_stages", "crop_train_breakdown"):
-        bad = {k: v for k, v in records[name].items() if not (np.isfinite(v) and v > 0)}
-        if bad:
-            raise AssertionError(f"{name}: stage times not finite and > 0: {bad}")
-    if records["bench"]["backend"] != "cuda" or not records["bench"]["value"] > 0:
-        raise AssertionError(f"bench: {records['bench']}")
-    calls = timing.calls_per_stage()  # fn calls per timed stage
-    checks = {
-        "profile_stages launches cylinder_query_multi": per_tool["profile_stages"]["cylinder_query_multi"] > 0,
-        "crop_train_breakdown launches cylinder_query_multi":
-            per_tool["crop_train_breakdown"]["cylinder_query_multi"] > 0,
-        "bench_crop_kernels launches sa_feat_fused 3x per stage call":
-            per_tool["bench_crop_kernels"]["sa_feat_fused"] == 3 * calls,
-        "profile_stages launches multi_query": per_tool["profile_stages"]["multi_query"] > 0,
-    }
-    total = {k: sum(t[k] for t in per_tool.values()) for k in kernels.launches()}
-    log(phase="tools", launches_per_tool=per_tool, calls_per_stage=calls, checks=checks,
-        **{k: v for k, v in records.items()})
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise AssertionError(f"tool launch counts: {failed}")
-    return total, records
-
-
 def compare_topk(card: np.ndarray, cpu: np.ndarray, atol: float = TOPK_ATOL) -> dict:
     """Selection fields equal (row order, height, depth, centre, object id);
     score, width and rotation within `atol`."""
@@ -1104,9 +1047,10 @@ def pool_extreme_z3(mlp, x: torch.Tensor) -> torch.Tensor:
 
 
 def labelled_scene(rng: np.random.Generator, cloud: np.ndarray, cfg, n_obj: int = 8, n_pts: int = 300):
-    """One synthetic labelled scene in the manner of scripts/bench_train.py:
-    n_obj objects posed at points of the tabletop's objects, n_pts label
-    points each, random (V, A, D) scores, widths and tolerances."""
+    """One synthetic labelled scene as the JAX package's training timing
+    scripts build theirs: n_obj objects posed at points of the tabletop's
+    objects, n_pts label points each, random (V, A, D) scores, widths and
+    tolerances."""
     v, a, d = cfg.num_view, cfg.num_angle, cfg.num_depth
     obj = cloud[cloud[:, 2] < 0.54]
     poses, pts, scores, widths, tols = [], [], [], [], []
@@ -1557,11 +1501,10 @@ def train_cli_phase(cfg, clouds: np.ndarray, full):
     """Phase 8: the training entry point on the card.  Returns the scatter
     kernels' rows and the phase's timings."""
     from graspnet_tpu_torch.apps import train as cli_train
+    from graspnet_tpu_torch.data.synthetic import SyntheticGraspNetDataset
     from graspnet_tpu_torch.ops import cuda as kernels
     from graspnet_tpu_torch.ops.cuda import build
-    from graspnet_tpu_torch.scripts import bench_train_pipeline
     from graspnet_tpu_torch.train.trainer import TrainConfig, Trainer
-    from graspnet_tpu_torch.utils import timing as slope
     from graspnet_tpu_torch.utils.logging import MetricLogger
 
     log(phase="train_cli_build", build_s={k: build.BUILD_SECONDS.get(k) for k in (build.HOST, "scatter")})
@@ -1571,37 +1514,45 @@ def train_cli_phase(cfg, clouds: np.ndarray, full):
     log(phase="train_cli_repeatable", **rep)
     scatter_rows = scatter_kernel_rows(cfg, full)
 
-    slope.reset(TOOL_K_LO, TOOL_K_HI)
+    # one epoch of the CLI's loop over the production-shape synthetic
+    # dataset; the eval pass's one batch at fewer label points
+    train_ds = SyntheticGraspNetDataset(n_frames=CLI_STEPS * B_KERNELS, cfg=cfg, num_points=cfg.num_point)
+    test_ds = SyntheticGraspNetDataset(n_frames=B_KERNELS, cfg=cfg, num_points=cfg.num_point, augment=False,
+                                       seed=1, label_points=CLI_EVAL_LABEL_POINTS)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_cli_") as log_dir:
-        result, trainer, ckpt = bench_train_pipeline.run(
-            cfg, torch.device("cuda"), log_dir, steps=CLI_STEPS, warmup=CLI_WARMUP, workers=CLI_WORKERS,
-            batch=B_KERNELS)
-        s, e = result["train_steps"], 1  # train steps (run() checks them), eval batches
+        trainer = Trainer(cfg, TrainConfig(batch_size=B_KERNELS, max_epoch=1), seed=TRAIN_SEED)
+        logger = MetricLogger(log_dir)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            loop = cli_train.train(trainer, train_ds, test_ds, logger, log_dir, num_workers=CLI_WORKERS,
+                                   log_every=CLI_STEPS)
+        finally:
+            logger.close()
+        loop_s = time.perf_counter() - t0
+        launches = kernels.launches()
+        s, e = len(loop["step_end_s"]), 1  # train steps, eval batches
+        if s != CLI_STEPS or loop["epochs_done"] != 1:
+            raise AssertionError(f"the CLI loop ran {s} steps and {loop['epochs_done']} epochs, "
+                                 f"expected {CLI_STEPS} and 1")
         expected = {**{k: 0 for k in kernels.launches()}, "ball_query": 4 * s + 6 * e, "crop_group": s,
                     "crop_mlp_train": s, "crop_mlp_train_backward": s, "scatter_add_rows": 5 * s,
                     "scatter_plan": 5 * s,
                     "sa1_fused": 2 * e, "crop_fused": e}
-        if result["launches"] != expected:
-            raise AssertionError(f"CLI loop launches {result['launches']}, expected {expected}")
+        if launches != expected:
+            raise AssertionError(f"CLI loop launches {launches}, expected {expected}")
         fresh = Trainer(cfg, TrainConfig(batch_size=B_KERNELS, max_epoch=1), seed=TRAIN_SEED + 1)
         logger = MetricLogger(log_dir, filename="resume.txt")
         try:
-            start = cli_train.resume(fresh, ckpt, logger)
+            start = cli_train.resume(fresh, os.path.join(log_dir, cli_train.CHECKPOINT), logger)
         finally:
             logger.close()
         saved = trainer.state_dict()
         if start != 1 or not states_equal(fresh.state_dict(), saved):
             raise AssertionError(f"resume: start epoch {start}, state equal {states_equal(fresh.state_dict(), saved)}")
-    log(phase="train_cli_loop", resumed_bitwise=True, launches_per_loop=result["launches"],
-        eval_batches=e, **{k: v for k, v in result.items() if k != "launches"})
-    timing = dict(cli_sustained_ms_per_step=result["value"], cli_device_step_ms=result["device_step_ms"],
-                  cli_stage1_ms=result["stage1_ms"], cli_host_prep_ms_per_scene=result["host_prep_ms_per_scene"],
-                  cli_finalize_ms_per_batch=result["finalize_ms_per_batch"],
-                  cli_device_busy_ms_per_step=result["device_busy_ms_per_step"],
-                  cli_profiled_wall_ms_per_step=result["profiled_wall_ms_per_step"],
-                  cli_loop_idle_share=result["device_idle_share"],
-                  cli_loop_idle_share_sustained=result["device_idle_share_sustained"],
-                  seed_chain_ms_per_scene_library=statistics.mean(chain["host_library_ms_per_scene"]),
+    log(phase="train_cli_loop", resumed_bitwise=True, launches_per_loop=launches, train_steps=s, eval_batches=e,
+        loop_s=loop_s, first_step_s=loop["step_end_s"][0] - t0)
+    timing = dict(seed_chain_ms_per_scene_library=statistics.mean(chain["host_library_ms_per_scene"]),
                   seed_chain_ms_per_scene_numpy=statistics.mean(chain["fps_numpy_ms_per_scene"]))
     log(phase="train_cli_timing", **timing)
     return scatter_rows, timing
@@ -1647,7 +1598,7 @@ def voxel_kernel_row(raw: list) -> dict:
 
 
 def collision_phase(pipe) -> dict:
-    """Phase 10: the collision filter (`postproc/collision.py`) on the card
+    """Phase 9: the collision filter (`postproc/collision.py`) on the card
     against the same call on the CPU: one GraspNetConfig() forward at B=2
     on tabletop frames sampled from 250k-point raw clouds, then
     detect_batch on the raw clouds (each frame downsampled on its device:
@@ -1702,7 +1653,7 @@ def collision_phase(pipe) -> dict:
 
 
 def test_app_phase(cfg) -> dict:
-    """Phase 11: the eval loop (`apps/test.py::inference`) through
+    """Phase 10: the eval loop (`apps/test.py::inference`) through
     `scripts/bench_test_app.run` at GraspNetConfig(), batch 1 and 4, over
     TEST_APP_FRAMES synthetic frames of 250k-point raw clouds: ms/frame,
     stage means, launches per batch (K1 1, K3 1, K4 3, K5 1), the device's
@@ -1744,12 +1695,12 @@ def test_app_phase(cfg) -> dict:
 
 
 def learnability_phase() -> dict:
-    """Phase 12: the learnability gate on the card (`scripts/
+    """Phase 11: the learnability gate on the card (`scripts/
     learnability_gate.run`, 600 steps, seed 0): train the tiny model from
     scratch, dump the test split through apps/test.py with its collision
     filter, score it with eval/ap.py; AP(trained) >= 6 > AP(random),
     asserted, and the kernels' launches along the gate counted.  Then, in
-    the gate's directory, the service's success path (phase 15) with the
+    the gate's directory, the service's success path (phase 14) with the
     gate's data and checkpoint."""
     from graspnet_tpu_torch.ops import cuda as kernels
     from graspnet_tpu_torch.scripts import learnability_gate
@@ -1777,7 +1728,7 @@ def learnability_phase() -> dict:
 
 
 def feature_input_phase() -> dict:
-    """Phase 13: the SA1 routes away from K3 at GraspNetConfig() widths,
+    """Phase 12: the SA1 routes away from K3 at GraspNetConfig() widths,
     seed-1 weights, on two tabletop clouds: extra input channels (an RGB-like
     triple, input_feature_dim=3, SA1 MLP 6-64-64-128) and sa1.normalize_xyz=
     False.  Each forward launches K1 1, K3 0, K4 4 (SA1-4) and K5 1, and
@@ -1828,7 +1779,7 @@ def feature_input_phase() -> dict:
 
 
 def detection_phase() -> dict:
-    """Phase 25: VoteNet at its published widths through
+    """Phase 24: VoteNet at its published widths through
     DetectionPipeline(VoteNetConfig(), seed-1 weights) on the card, on a
     batch of 8 of the detection cell's seeded room scans
     (benchmark/inputs/rooms.py, 40,000 points with the height).  A batch
@@ -1915,7 +1866,7 @@ def service_reply_diff(card: dict, cpu: dict, atol: float = TOPK_ATOL) -> dict:
 
 
 def service_phase(ckpt: str) -> dict:
-    """Phase 14: apps/service.py on the card with seed-1 weights
+    """Phase 13: apps/service.py on the card with seed-1 weights
     (`ckpt`) at GraspNetConfig(): compute() on two 250k-point requests
     (scripts/bench_service.make_clouds) against the CPU service, with the
     collision filter off (rows as compare_topk holds them, poses within
@@ -2010,7 +1961,7 @@ def service_phase(ckpt: str) -> dict:
 
 
 def service_success_phase(gate: dict) -> dict:
-    """Phase 15 (inside the learnability gate's directory): the port of
+    """Phase 14 (inside the learnability gate's directory): the port of
     `bench_service --learnable`: the gate's 1024-point tiny config and its
     trained checkpoint, SERVICE_REQUESTS requests drawn from the learnable
     test scene, max_batch 1 and 8, the collision filter on.  The gate's
@@ -2035,7 +1986,7 @@ def service_success_phase(gate: dict) -> dict:
 
 
 def demos_phase(ckpt: str) -> dict:
-    """Phase 16: the six demos in process through their main(argv) on the
+    """Phase 15: the six demos in process through their main(argv) on the
     card with seed-1 weights at GraspNetConfig(), on a synthetic RGB-D frame
     in the reference demo layout (utils/synthetic.py::write_demo_frame,
     DEMO_FRAME pixels): image_demo's dump equal to a --device cpu run of
@@ -2113,7 +2064,7 @@ def demos_phase(ckpt: str) -> dict:
 
 
 def crop_routes_phase(clouds: np.ndarray):
-    """Phase 18: the CloudCrop's routes with a two-layer crop MLP (3, 16, 32)
+    """Phase 17: the CloudCrop's routes with a two-layer crop MLP (3, 16, 32)
     and GraspNetConfig()'s other widths: a B=1 forward with seed-1 weights
     takes K6 and the generic MLP, no K5 (K1 1, K3 1, K4 3, K6 1), equal to
     the CPU's (selections exactly, floats within FEATURE_TOL x max(1,
@@ -2185,7 +2136,7 @@ def tolerance_object(rng: np.random.Generator, n: int, v: int = 300, a: int = 12
 
 
 def tolerance_phase() -> dict:
-    """Phase 19: data/tolerance.py on the card: one synthetic object of
+    """Phase 18: data/tolerance.py on the card: one synthetic object of
     TOL_LABEL_POINTS label points at V*A*D = 300*12*4, bitwise the CPU
     plain version; host ms per object on the card (median of 3, the
     result fetched); then apps/generate_tolerance.py over a two-object
@@ -2226,7 +2177,7 @@ def tolerance_phase() -> dict:
 
 
 def parallel_infer_phase(clouds: np.ndarray, ckpt: str) -> dict:
-    """Phase 20: parallel/ on one card whose device the meshes repeat:
+    """Phase 19: parallel/ on one card whose device the meshes repeat:
     GraspPipeline(mesh=) at GraspNetConfig(), seed-1 weights, with a data
     mesh ['cuda:0'] * 2 at B=4, a candidate mesh ['cuda:0'] * 4 at B=1 and
     the hybrid 2 x 2 at B=2; each top-50 equal to the unsharded card
@@ -2309,7 +2260,7 @@ def _scenes(compact: dict, lo: int, hi: int) -> dict:
 
 
 def ddp_train_phase(cfg, full: dict, compact: dict) -> dict:
-    """Phase 17: data-parallel training on the card.
+    """Phase 16: data-parallel training on the card.
     - A one-rank NCCL group: one Trainer(group=).step bitwise the plain
       card step (loss and every state tensor), K7 launched (world size 1).
     - Two ranks on the one card over gloo (NCCL takes one rank a card),
@@ -2467,7 +2418,7 @@ def hybrid_rank(rank: int, port: int, batch_path: str, out_dir: str, layout: tup
 
 
 def hybrid_train_phase(cfg, compact: dict) -> dict:
-    """Phase 22: hybrid data x candidate training on the card: gloo ranks
+    """Phase 21: hybrid data x candidate training on the card: gloo ranks
     sharing it (NCCL takes one rank a card), laid out 2 x 2 (a scene a data
     row, two seed blocks of 512 each) and 1 x 2 (both scenes, two blocks),
     at GraspNetConfig() on the B=2 batch.  In each layout the probe's loss
@@ -2555,7 +2506,7 @@ def seeded_msg(module, seed: int):
 
 
 def msg_phase(clouds: np.ndarray) -> dict:
-    """Phase 23: the MSG modules (models/msg.py) on the card at published
+    """Phase 22: the MSG modules (models/msg.py) on the card at published
     widths (MSG_SA, MSG_LFP) on B=2 tabletop clouds of 20000 points, seeded
     weights: the FPS stage and every ball query against their plain
     versions on the card (indices equal), the eval forward against the same
@@ -2616,7 +2567,7 @@ def msg_phase(clouds: np.ndarray) -> dict:
 
 
 def verify_checkpoint_phase() -> dict:
-    """Phase 24: scripts/verify_checkpoint.py on the card.  A fabricated
+    """Phase 23: scripts/verify_checkpoint.py on the card.  A fabricated
     reference-layout .tar at GraspNetConfig() (`checkpoint.reference_state_dict`
     of the seed-1 weights: every seed objectness-positive, as phase 3's
     WEIGHT_SEED) and a synthetic RGB-D frame in the example-data layout
@@ -2735,7 +2686,6 @@ def main() -> int:
     verify_launches = verify_checkpoint_phase()
     route_forward_launches, route_step_launches = crop_routes_phase(clouds)
     tolerance = tolerance_phase()
-    tool_launches, tool_records = tools_phase()
     eval_pipe = GraspPipeline(cfg=cfg, seed=WEIGHT_SEED)
     collision = collision_phase(eval_pipe)
     rows.append(collision.pop("row"))
@@ -2753,15 +2703,15 @@ def main() -> int:
         parallel = parallel_infer_phase(clouds, ckpt)
         parallel_launches = parallel.pop("launches")
     gate = learnability_phase()
-    # the counts read after one serving forward, one training step, one tool
-    # run, one eval batch, one feature-input forward, one service dispatch
+    # the counts read after one serving forward, one training step, one eval
+    # batch, one feature-input forward, one service dispatch
     # at max_batch 1 and one at the MicroBatcher's bucket of 8, the
     # two-layer crop MLP's forward and training probe, the three mesh
     # forwards of parallel_infer together, the one-rank NCCL step, one
     # rank's step of the two-rank run and of the 2 x 2 hybrid run, one MSG
     # forward, one verify_checkpoint run and one VoteNet batch
     columns = {"launches_per_forward": launches, "launches_per_train_step": train_launches,
-               "launches_per_tool_run": tool_launches, "launches_per_eval_batch": eval_launches,
+               "launches_per_eval_batch": eval_launches,
                "launches_per_feature_forward": feature_launches,
                "launches_per_service_dispatch_b1": service_b1_launches,
                "launches_per_service_dispatch_b8": service_b8_launches,
@@ -2781,7 +2731,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", *columns, "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}), flush=True)
-    log(phase="summary", gpu=smi, **timing, **train_timing, bench=tool_records["bench"],
+    log(phase="summary", gpu=smi, **timing, **train_timing,
         collision_ms_per_frame=collision["ms_per_frame"], **eval_timing, **service, **demos, **tolerance,
         **parallel, **{f"gate_{k}": v for k, v in gate.items()})
     print(smi, flush=True)

@@ -3,8 +3,8 @@
 A second package beside `graspnet_tpu/` (the JAX reference, which it never
 imports).  It ports the serving path (PointNet++ backbone -> ApproachNet ->
 CloudCrop -> Operation/Tolerance heads -> pred_decode -> device NMS +
-top-K), the single-card training step (`train/`) and the timing entry
-points (`scripts/`), with hand-written CUDA kernels in place of the JAX
+top-K), the single-card training step (`train/`) and the gate and check
+entry points (`scripts/`), with hand-written CUDA kernels in place of the JAX
 package's Pallas kernels (`csrc/`, wrappers in `ops/cuda/`).
 """
 

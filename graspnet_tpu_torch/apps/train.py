@@ -14,7 +14,7 @@ a checkpoint (`log_dir/checkpoint.pt`, `checkpoint.save`).
 epoch, bitwise.  SIGTERM or SIGINT sets a flag; the loop finishes the step
 in flight, checkpoints at epoch - 1 (the epoch restarts on resume) and
 returns.  `train()` is the loop alone, for callers that build their own
-datasets (`scripts/bench_train_pipeline.py`, `chip_smoke.py`).
+datasets (the benchmark's training cell, `chip_smoke.py`).
 
 Runs on CUDA unless `--device cpu` is passed.  Data-parallel training runs
 one process a device in a torch.distributed group (`parallel/distributed.py`,

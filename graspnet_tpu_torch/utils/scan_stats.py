@@ -1,7 +1,7 @@
 """What the first-ns scans test, counted from the plain masks: per centre
 the points a scan tests up to its ns-th hit, and what the ring scans' blocks
 (csrc/query.cu: K4's ball scan, the cylinder scan) scan and load.  For the
-card's checks and timings (chip_smoke.py, scripts/ab_crop_scan.py); the
+card's checks and timings (chip_smoke.py); the
 schedule is emulated in tests/test_torch_port_{ball,cylinder}_scan_plan.py.
 """
 

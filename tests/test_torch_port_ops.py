@@ -238,17 +238,260 @@ class TestThreeNN:
 # ------------------------------------------------------- wrapper contract --
 
 
-def test_cpu_wrappers_do_not_count_launches():
+# Every kernel wrapper, each of whose counts stays 0 on the CPU.
+NO_LAUNCHES = {"fps_chain": 0, "ball_query": 0, "sa1_fused": 0, "crop_fused": 0, "crop_group": 0,
+               "crop_mlp_train": 0, "crop_mlp_train_backward": 0, "cylinder_query_multi": 0, "sa_feat_fused": 0,
+               "multi_query": 0, "scatter_add_rows": 0, "scatter_plan": 0, "voxel_downsample": 0}
+
+
+def tiny_cloud(seed: int, n: int = 512) -> np.ndarray:
+    return np.random.default_rng(seed).uniform(-0.3, 0.3, (n, 3)).astype(np.float32)
+
+
+def tiny_pipeline(**kw):
+    from graspnet_tpu_torch.apps import GraspPipeline
+    from graspnet_tpu_torch.config import GraspNetConfig
+
+    return GraspPipeline(cfg=GraspNetConfig.tiny(), seed=1, device="cpu", **kw)
+
+
+def tiny_scene(seed: int, n: int = 4000) -> np.ndarray:
+    from graspnet_tpu_torch.utils.synthetic import tabletop_cloud
+
+    return tabletop_cloud(np.random.default_rng(seed), n)
+
+
+def tiny_dataset(label_mode: str = "compact", n_frames: int = 2, **kw):
+    from graspnet_tpu_torch.config import GraspNetConfig
+    from graspnet_tpu_torch.data.synthetic import SyntheticGraspNetDataset
+
+    cfg = GraspNetConfig.tiny()
+    return SyntheticGraspNetDataset(n_frames=n_frames, n_objects=2, label_points=40, cloud_points=1200,
+                                    num_points=cfg.num_point, cfg=cfg, label_mode=label_mode, **kw)
+
+
+def rows_of(groups):
+    return [(g.grasp_group_array, (None, 17)) for g in groups]
+
+
+def entry_ops(tmp_path):
+    pts = t(make_cloud(np.random.default_rng(2), 200)[None])
+    rot = t(random_rotations(np.random.default_rng(3), (1, 8)))
+    stage0, stage1 = kfps.fps_chain(pts, (32, 16))
+    return [(stage0, (1, 32)), (stage1, (1, 16)),
+            (kquery.ball_query(pts, pts[:, :8], 0.1, 4), (1, 8, 4)),
+            (kquery.cylinder_query_multi(pts, pts[:, :8], rot, 0.05, -0.02, (0.02, 0.04), 4), (1, 8, 2, 4)),
+            (kquery.multi_query(pts, pts[:, :8], None, 0.1, 0.0, (0.0,), 4, rotate=False), (1, 8, 1, 4))]
+
+
+def entry_topk(tmp_path):
+    return rows_of([tiny_pipeline().get_grasps_topk(tiny_cloud(0))])
+
+
+def entry_batch(tmp_path):
+    return rows_of(tiny_pipeline().get_grasps_batch(np.stack([tiny_cloud(0), tiny_cloud(1)])))
+
+
+def entry_run_filtered(tmp_path):
+    pipe, scene = tiny_pipeline(), tiny_scene(0)
+    return rows_of([pipe.run(pipe.sample_cloud(scene), scene_cloud=scene, collision_thresh=0.01, top_k=0)])
+
+
+def entry_filter_pre_downsampled(tmp_path):
+    from graspnet_tpu_torch import native
+
+    pipe, scenes = tiny_pipeline(), [tiny_scene(0), tiny_scene(1)]
+    ggs = pipe.get_grasps_batch(np.stack([pipe.sample_cloud(c) for c in scenes]))
+    voxels = [native.voxel_downsample(c, 0.01) for c in scenes]
+    return rows_of(pipe.collision_filter_batch(ggs, voxels, pre_downsampled=True))
+
+
+def service_reply(max_batch: int):
+    from graspnet_tpu_torch.apps.service import GraspService, ServiceConfig
+    from graspnet_tpu_torch.config import GraspNetConfig
+
+    svc = GraspService(ServiceConfig(model_cfg=GraspNetConfig.tiny(), device="cpu", max_batch=max_batch))
+    try:
+        reply = svc.compute(tiny_scene(0))
+    finally:
+        svc.close()
+    assert reply["ok"], reply.get("error")
+    return [(np.asarray(reply["tf_pose"]), (4, 4)), (np.asarray(reply["grasps"]), (reply["num_grasps"], 17))]
+
+
+def entry_service_b1(tmp_path):
+    return service_reply(1)
+
+
+def entry_service_b2(tmp_path):
+    return service_reply(2)
+
+
+def entry_candidate_mesh(tmp_path):
+    from graspnet_tpu_torch.parallel import make_mesh
+
+    pipe = tiny_pipeline(mesh=make_mesh(2, ("candidate",), devices=["cpu"] * 2))
+    return rows_of([pipe.get_grasps_topk(tiny_cloud(0))])
+
+
+def entry_data_mesh(tmp_path):
+    from graspnet_tpu_torch.parallel import make_mesh
+
+    pipe = tiny_pipeline(mesh=make_mesh(2, ("data",), devices=["cpu"] * 2))
+    return rows_of(pipe.get_grasps_topk_batch(np.stack([tiny_cloud(0), tiny_cloud(1)])))
+
+
+def step_outputs(loss, metrics):
+    return [(loss, ())] + [(v, ()) for v in metrics.values()]
+
+
+def entry_step_full(tmp_path):
+    from graspnet_tpu_torch.config import GraspNetConfig
+    from graspnet_tpu_torch.data.dataset import collate
+    from graspnet_tpu_torch.train.trainer import Trainer
+
+    ds = tiny_dataset("full")
+    return step_outputs(*Trainer(GraspNetConfig.tiny(), device="cpu").step(collate([ds.get_data_label(i) for i in (0, 1)])))
+
+
+def entry_step_prepared(tmp_path):
+    from graspnet_tpu_torch.config import GraspNetConfig
+    from graspnet_tpu_torch.data.dataset import collate
+    from graspnet_tpu_torch.train.trainer import Trainer
+
+    ds = tiny_dataset("compact")
+    trainer = Trainer(GraspNetConfig.tiny(), device="cpu")
+    return step_outputs(*trainer.step_prepared(trainer.prepare(collate([ds.get_data_label(i) for i in (0, 1)]))))
+
+
+def entry_train_cli(tmp_path):
+    from graspnet_tpu_torch.apps import train as cli
+    from graspnet_tpu_torch.config import GraspNetConfig
+    from graspnet_tpu_torch.train.trainer import TrainConfig, Trainer
+    from graspnet_tpu_torch.utils.logging import MetricLogger
+
+    ds = tiny_dataset("compact")
+    trainer = Trainer(GraspNetConfig.tiny(), TrainConfig(max_epoch=1), device="cpu")
+    logger = MetricLogger(str(tmp_path))
+    try:
+        run = cli.train(trainer, ds, ds, logger, str(tmp_path), num_workers=2)
+    finally:
+        logger.close()
+    assert run["epochs_done"] == 1 and (tmp_path / cli.CHECKPOINT).exists()
+    return [(np.asarray(run["step_end_s"]), (1,))] + [(q.detach(), tuple(q.shape)) for q in trainer.model.parameters()]
+
+
+def entry_test_app(tmp_path):
+    import argparse
+
+    from graspnet_tpu_torch import checkpoint
+    from graspnet_tpu_torch.apps import test as test_app
+    from graspnet_tpu_torch.config import GraspNetConfig
+    from graspnet_tpu_torch.models import GraspNet, init_weights
+
+    cfg = GraspNetConfig.tiny()
+    weights = str(tmp_path / "weights.pt")
+    checkpoint.save(weights, init_weights(GraspNet(cfg), 1).state_dict())
+    ds = tiny_dataset(n_frames=3, augment=False, with_labels=False)
+    args = argparse.Namespace(dataset_root="<synthetic>", camera="kinect", split="train", checkpoint_path=weights,
+                              dump_dir=str(tmp_path / "dump"), num_point=cfg.num_point, collision_thresh=0.01,
+                              voxel_size=0.01, batch_size=2, max_frames=3, profile_dir=None, device="cpu")
+    assert test_app.inference(args, cfg, dataset=ds)["frames"] == 3
+    dumped = sorted((tmp_path / "dump").rglob("*.npy"))
+    assert len(dumped) == 3
+    return [(np.load(f), (None, 17)) for f in dumped]
+
+
+def entry_detect(tmp_path):
+    from graspnet_tpu_torch.apps.detect import DetectionPipeline
+    from graspnet_tpu_torch.config import VoteNetConfig
+    from tests.test_torch_port_votenet import scans, seeded_state
+
+    cfg = VoteNetConfig.tiny()
+    dets = DetectionPipeline(params=seeded_state(cfg, 1), cfg=cfg, device="cpu").detect(scans(cfg, 5))
+    assert len(dets) == 2
+    return [(d.rows, (cfg.num_proposal, 12 + cfg.num_class)) for d in dets]
+
+
+def entry_msg(tmp_path):
+    from graspnet_tpu_torch.models import init_weights
+    from graspnet_tpu_torch.models.msg import LFPModuleMSG, SAModuleMSG
+
+    xyz = t(np.random.default_rng(2).uniform(-0.3, 0.3, (1, 256, 3)).astype(np.float32))
+    sa = init_weights(SAModuleMSG([(8, 16), (8, 16)], in_dim=0, npoint=32, radii=(0.1, 0.2), nsamples=(8, 16)), 0)
+    lfp = init_weights(LFPModuleMSG([(8,)], (8,), in_dim=32, skip_dim=0, radii=(0.2,), nsamples=(8,)), 1)
+    with torch.no_grad():
+        new_xyz, feat, _, _ = sa(xyz)
+        up, _ = lfp(xyz, new_xyz, None, feat)
+    return [(new_xyz, (1, 32, 3)), (feat, (1, 32, 32)), (up, (1, 256, 8))]
+
+
+def entry_tolerance(tmp_path):
+    from graspnet_tpu_torch.data.tolerance import generate_tolerance
+
+    rng = np.random.default_rng(4)
+    pts = rng.uniform(-0.02, 0.02, (24, 3)).astype(np.float32)
+    scores = rng.uniform(0.0, 1.2, (24, 4, 3, 2)).astype(np.float32)
+    return [(generate_tolerance(pts, scores, chunk=16, device="cpu"), (24, 4, 3, 2))]
+
+
+def entry_voxel(tmp_path):
+    from graspnet_tpu_torch.ops.voxel import voxel_downsample
+
+    return [(voxel_downsample(torch.from_numpy(tiny_scene(0)), 0.01), (None, 3))]
+
+
+def entry_demo_pointcloud(tmp_path):
+    from graspnet_tpu_torch.apps import demo_pointcloud
+
+    np.save(tmp_path / "cloud.npy", tiny_scene(0))
+    dump = tmp_path / "g.npy"
+    demo_pointcloud.main(["--cloud_path", str(tmp_path / "cloud.npy"), "--dump", str(dump), "--tiny",
+                          "--device", "cpu"])
+    return [(np.load(dump), (None, 17))]
+
+
+ENTRY_POINTS = {
+    "ops_wrappers": entry_ops,
+    "get_grasps_topk": entry_topk,
+    "get_grasps_batch_b2": entry_batch,
+    "run_with_filter": entry_run_filtered,
+    "collision_filter_batch_pre_downsampled": entry_filter_pre_downsampled,
+    "service_max_batch_1": entry_service_b1,
+    "service_max_batch_2": entry_service_b2,
+    "candidate_mesh": entry_candidate_mesh,
+    "data_mesh": entry_data_mesh,
+    "trainer_step_full": entry_step_full,
+    "trainer_prepare_step_prepared": entry_step_prepared,
+    "train_cli_epoch": entry_train_cli,
+    "test_app_dump_loop": entry_test_app,
+    "detection_pipeline": entry_detect,
+    "msg_modules": entry_msg,
+    "tolerance": entry_tolerance,
+    "voxel_downsample": entry_voxel,
+    "demo_pointcloud": entry_demo_pointcloud,
+}
+
+
+@pytest.mark.parametrize("entry", list(ENTRY_POINTS))
+def test_cpu_entry_point_launches_no_kernel(entry, tmp_path):
+    """Each entry point at `GraspNetConfig.tiny()` (VoteNet's tiny config
+    for detection) on the CPU: no CUDA launcher is reached, so every
+    wrapper's count stays 0, and each output has its shape and finite
+    values."""
     from graspnet_tpu_torch.ops import cuda as kernels
 
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the suite runs in several processes on shared cores
     kernels.reset_launches()
-    pts = t(make_cloud(np.random.default_rng(2), 200)[None])
-    kfps.fps_chain(pts, (32, 16))
-    kquery.ball_query(pts, pts[:, :8], 0.1, 4)
-    rot = t(random_rotations(np.random.default_rng(3), (1, 8)))
-    kquery.cylinder_query_multi(pts, pts[:, :8], rot, 0.05, -0.02, (0.02, 0.04), 4)
-    kquery.multi_query(pts, pts[:, :8], None, 0.1, 0.0, (0.0,), 4, rotate=False)
-    assert kernels.launches() == {"fps_chain": 0, "ball_query": 0, "sa1_fused": 0, "crop_fused": 0,
-                                  "crop_group": 0, "crop_mlp_train": 0, "crop_mlp_train_backward": 0,
-                                  "cylinder_query_multi": 0, "sa_feat_fused": 0, "multi_query": 0,
-                                  "scatter_add_rows": 0, "scatter_plan": 0, "voxel_downsample": 0}
+    try:
+        outputs = ENTRY_POINTS[entry](tmp_path)
+    finally:
+        torch.set_num_threads(threads)
+    assert kernels.launches() == NO_LAUNCHES
+    assert outputs
+    for out, shape in outputs:
+        out = torch.as_tensor(out)
+        assert out.dim() == len(shape) and all(w is None or n == w for n, w in zip(out.shape, shape)), \
+            (tuple(out.shape), shape)
+        assert torch.isfinite(out.double()).all()

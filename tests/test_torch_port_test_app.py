@@ -15,8 +15,7 @@ on the CPU.
   recorded on contending threads, the spans in a profiler's trace.
 * The scripts at `--device cpu --tiny`: `bench_test_app` (every frame
   dumped, no kernel launched on the CPU), `overfit_gate` (its CPU twin
-  converges), `train_stage_times`; `bench_eval_frame`'s timing on a small
-  frame.
+  converges); `bench_eval_frame`'s timing on a small frame.
 """
 
 import argparse
@@ -38,7 +37,7 @@ from graspnet_tpu_torch import checkpoint
 from graspnet_tpu_torch.apps import test as app
 from graspnet_tpu_torch.config import GraspNetConfig
 from graspnet_tpu_torch.ops import cuda as kernels
-from graspnet_tpu_torch.scripts import bench_eval_frame, bench_test_app, overfit_gate, train_stage_times
+from graspnet_tpu_torch.scripts import bench_eval_frame, bench_test_app, overfit_gate
 from graspnet_tpu_torch.utils.tracing import TRACE_FILE, device_trace, recording, span
 
 from tests.mini_dataset import make_mini_dataset
@@ -204,13 +203,10 @@ def test_overfit_gate_tiny_converges():
     assert r["converged"] and r["objectness_acc"] > 0.9 and r["loss"] < 4.0, r["trajectory"]
 
 
-def test_bench_eval_frame_and_train_stage_times(capsys):
+def test_bench_eval_frame_times_the_evaluator():
     from graspnet_tpu_torch.eval.ap import eval_frame
 
     # the timing of bench_eval_frame.main on a smaller force-closure-heavy frame
     ms, fc_calls, fc_ms, acc = bench_eval_frame._timed(
         eval_frame, bench_eval_frame.build_fc_workload(n_obj=3, model_pts=600, n_grasps=64), 1)
     assert ms > 0 and fc_calls > 0 and 0 < fc_ms < ms and acc.max() > 0
-    s = train_stage_times.main(["--device", "cpu", "--tiny", "--k-lo", "1", "--k-hi", "2"])
-    assert len(s["train_stage_ms"]) == 11 and s["backend"] == "cpu" and s["gpu"] is None
-    assert all(np.isfinite(v) for v in s["train_stage_ms"].values())
