@@ -26,9 +26,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
      proposals' FPS of 1024 seeds), bitwise plain, timed (`fps_votenet`);
   3. main path: GraspPipeline(GraspNetConfig(), seed=1) on the card —
      get_grasps_topk at B=1 and the batched calls at B=4 give (50, 17)
-     finite rows, each forward launches FPS 1, ball query 3, SA1 crop 1 and
-     CloudCrop 1 times, the card's top-50 matches the same pipeline on the
-     CPU, and p50 latency / sustained frames/s at B=1;
+     finite rows, each forward launches FPS 1, ball query 3, SA1 crop 1,
+     CloudCrop 1, the SA2-4 grouping 3 and their epilogues 9 times, the
+     card's top-50 matches the same pipeline on the CPU, and p50 latency /
+     sustained frames/s at B=1;
   4. a torch.profiler window over B=1 frames: device time per kernel (K5's
      cylinder scan and MLP launches apart, K3's MLP beside the ball scans of
      K3 and K4) and the device's idle share;
@@ -97,7 +98,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
      scripts/bench_test_app.py's run at GraspNetConfig(), batch 1 and 4,
      over 200 synthetic frames of 250k-point raw clouds with the collision
      filter and the dump: ms/frame and stage means, launches per batch (K1
-     1, K3 1, K4 3, K5 1), the device's busy time and idle share over 3
+     1, K3 1, K4 3, K5 1, the SA2-4 grouping 3 and epilogues 9), the
+     device's busy time and idle share over 3
      profiled batches, and the card's dump of two frames against a CPU
      pipeline's dump with the same weights (selection fields equal, floats
      within TOPK_ATOL);
@@ -107,14 +109,17 @@ Phases (each prints one JSON line; any failure exits non-zero):
      asserted, the kernels' launches along it counted;
  12. feature_input (run after phase 4): the SA1 routes away from K3 at
      GraspNetConfig() widths, extra input channels (input_feature_dim=3)
-     and sa1.normalize_xyz=False: launches K1 1, K3 0, K4 4, K5 1 a
-     forward, and the forward equal to the CPU's;
+     and sa1.normalize_xyz=False: launches K1 1, K3 0, K4 4, K5 1, the
+     featured SA route's grouping 4 and 3 (SA1 with features, SA2-4) and
+     epilogues three a grouping, a forward, and the forward equal to the
+     CPU's;
  13. service (after phase 10): apps/service.py's GraspService with seed-1
      weights, card against CPU on two 250k-point requests with the
      collision filter off and on, a TCP round trip equal to the in-process
      reply, and scripts/bench_service.py's run at max_batch 1 and 8 (16
      clients, collision on): requests/s and each dispatch's launches (K1 1,
-     K3 1, K4 3, K5 1, and the voxel kernel 1 at max_batch 1); then
+     K3 1, K4 3, K5 1, grouping 3, epilogues 9, and the voxel kernel 1 at
+     max_batch 1); then
      max_batch 8 with the request threads' downsample on the host library
      and on the voxel kernel, alternating, two runs each: requests/s;
  14. service_success (inside phase 11's directory): the same at the gate's
@@ -148,7 +153,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
      per one-rank NCCL step, per rank's step of the two-rank run, per
      rank's step of the 2 x 2 hybrid run, per MSG forward, per
      verify_checkpoint run and per VoteNet batch), printed after phase 23, the nvidia-smi line,
-     and last {"ok": true, "device": {...}};
+     and last {"ok": true, "device": {...}}; the featured SA route's two
+     kernels' rows come from phase 25;
  21. hybrid_train (after phase 16): hybrid data x candidate training on
      the one card: gloo ranks laid out 2 x 2 and 1 x 2 at GraspNetConfig()
      on the B=2 batch, stage 2 on seed blocks of 512; the probe's loss and
@@ -168,10 +174,18 @@ Phases (each prints one JSON line; any failure exits non-zero):
      the CPU's rows, exit 1 on a golden with one row perturbed;
  24. detection (after phase 12): VoteNet through apps/detect.py's
      DetectionPipeline at its published widths on a batch of 8 seeded
-     40,000-point room scans: K1 2 and K4 5 launches a batch and nothing
-     else, K4 at SA1 and at the vote aggregation bitwise plain, every box
-     decision equal to the CPU pipeline's, floats within FEATURE_TOL, ms a
-     batch.
+     40,000-point room scans: K1 2, K4 5, the featured SA route's grouping
+     4 and its epilogues 11 launches a batch and nothing else, K4 at SA1
+     and at the vote aggregation bitwise plain, every box decision equal to
+     the CPU pipeline's, floats within FEATURE_TOL, ms a batch;
+ 25. sa_route (after phase 24): the featured eval SA route (the grouping
+     and epilogue kernels of csrc/sa.cu around torch.matmul) at each of
+     VoteNet's SA1-SA4 on phase 24's batch, on the backbone's own
+     intermediates: torch.equal to its plain twin on the card and to the
+     stage's output; CUDA-event ms of each stage with the route and with
+     the twin, and of K4, the grouping, the products and the epilogues
+     apart; a profiler window by kernel; the two kernels' rows of the
+     kernels line.
 
 Without CUDA it exits with code 2 before printing any result.  The
 deterministic-mode child runs this file with `--deterministic-steps FILE`;
@@ -732,7 +746,8 @@ def main_path_phase(cfg, pipe, clouds):
     expected = {"fps_chain": 1, "ball_query": 3, "sa1_fused": 1, "crop_fused": 1,
                 "crop_group": 0, "crop_mlp_train": 0, "crop_mlp_train_backward": 0,
                 "cylinder_query_multi": 0, "sa_feat_fused": 0, "multi_query": 0,
-                "scatter_add_rows": 0, "scatter_plan": 0, "voxel_downsample": 0}
+                "scatter_add_rows": 0, "scatter_plan": 0, "voxel_downsample": 0,
+                "sa_group": 3, "sa_bias_relu": 9}
 
     def drive(fn):
         """Run one batched forward; every kernel must launch once for it."""
@@ -1538,7 +1553,7 @@ def train_cli_phase(cfg, clouds: np.ndarray, full):
         expected = {**{k: 0 for k in kernels.launches()}, "ball_query": 4 * s + 6 * e, "crop_group": s,
                     "crop_mlp_train": s, "crop_mlp_train_backward": s, "scatter_add_rows": 5 * s,
                     "scatter_plan": 5 * s,
-                    "sa1_fused": 2 * e, "crop_fused": e}
+                    "sa1_fused": 2 * e, "crop_fused": e, "sa_group": 6 * e, "sa_bias_relu": 18 * e}
         if launches != expected:
             raise AssertionError(f"CLI loop launches {launches}, expected {expected}")
         fresh = Trainer(cfg, TrainConfig(batch_size=B_KERNELS, max_epoch=1), seed=TRAIN_SEED + 1)
@@ -1656,7 +1671,8 @@ def test_app_phase(cfg) -> dict:
     """Phase 10: the eval loop (`apps/test.py::inference`) through
     `scripts/bench_test_app.run` at GraspNetConfig(), batch 1 and 4, over
     TEST_APP_FRAMES synthetic frames of 250k-point raw clouds: ms/frame,
-    stage means, launches per batch (K1 1, K3 1, K4 3, K5 1), the device's
+    stage means, launches per batch (K1 1, K3 1, K4 3, K5 1, the SA2-4
+    grouping 3 and epilogues 9), the device's
     busy time and idle share over 3 profiled batches of the loop; then the
     card's dump of two frames against a CPU pipeline's dump of the same
     frames with the same weights."""
@@ -1665,7 +1681,7 @@ def test_app_phase(cfg) -> dict:
     from graspnet_tpu_torch.scripts import bench_test_app
 
     per_batch = {**{k: 0 for k in kernels.launches()}, "fps_chain": 1, "ball_query": 3, "sa1_fused": 1,
-                 "crop_fused": 1}
+                 "crop_fused": 1, "sa_group": 3, "sa_bias_relu": 9}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_test_app_") as work:
         result = bench_test_app.run(cfg, torch.device("cuda"), work, frames=TEST_APP_FRAMES, batch_sizes=(1, 4))
         for row in result["per_batch_size"]:
@@ -1714,7 +1730,8 @@ def learnability_phase() -> dict:
     expected = {**{k: 0 for k in launches}, "ball_query": 4 * steps + 3 * forwards, "crop_group": steps,
                 "crop_mlp_train": steps, "crop_mlp_train_backward": steps, "scatter_add_rows": 5 * steps,
                 "scatter_plan": 5 * steps,
-                "fps_chain": forwards, "sa1_fused": forwards, "crop_fused": forwards}
+                "fps_chain": forwards, "sa1_fused": forwards, "crop_fused": forwards, "sa_group": 3 * forwards,
+                "sa_bias_relu": 9 * forwards}
     log(phase="learnability", launches=launches,
         **{k: v for k, v in result.items() if k not in ("trajectory", "dataset_root", "checkpoint_path")},
         trajectory_tail=result["trajectory"][-5:])
@@ -1731,7 +1748,9 @@ def feature_input_phase() -> dict:
     """Phase 12: the SA1 routes away from K3 at GraspNetConfig() widths,
     seed-1 weights, on two tabletop clouds: extra input channels (an RGB-like
     triple, input_feature_dim=3, SA1 MLP 6-64-64-128) and sa1.normalize_xyz=
-    False.  Each forward launches K1 1, K3 0, K4 4 (SA1-4) and K5 1, and
+    False.  Each forward launches K1 1, K3 0, K4 4 (SA1-4) and K5 1, the
+    featured SA route at each stage with features (4 with the channels, 3
+    without: an xyz-only SA1 off K3 is plain torch), and
     equals the CPU's: selections exactly, floats within FEATURE_TOL x
     max(1, scale).  Returns the launches of the feature-input forward."""
     import dataclasses
@@ -1748,9 +1767,11 @@ def feature_input_phase() -> dict:
     rng = np.random.default_rng(DATA_SEED + 2)
     xyz = np.stack([tabletop_cloud(rng) for _ in range(B_KERNELS)])
     rgb = rng.uniform(0, 1, xyz.shape).astype(np.float32)
-    expected = {**{k: 0 for k in kernels.launches()}, "fps_chain": 1, "ball_query": 4, "crop_fused": 1}
     out = {}
     for name, cfg in cases.items():
+        featured = 4 if cfg.input_feature_dim else 3  # an xyz-only SA1 off K3 takes the plain path
+        expected = {**{k: 0 for k in kernels.launches()}, "fps_chain": 1, "ball_query": 4, "crop_fused": 1,
+                    "sa_group": featured, "sa_bias_relu": 3 * featured}
         clouds = torch.from_numpy(np.concatenate([xyz, rgb[..., :cfg.input_feature_dim]], axis=-1))
         model = init_weights(GraspNet(cfg), WEIGHT_SEED).eval()
         t0 = time.perf_counter()
@@ -1784,7 +1805,8 @@ def detection_phase() -> dict:
     batch of 8 of the detection cell's seeded room scans
     (benchmark/inputs/rooms.py, 40,000 points with the height).  A batch
     launches K1 2 (the cascade, the proposals' FPS), K4 5 (SA1-4 and the
-    vote aggregation) and nothing else; K4 at SA1 (40,000 points, 2048
+    vote aggregation), the featured SA route's grouping 4 (SA1-4) and
+    epilogues 11 and nothing else; K4 at SA1 (40,000 points, 2048
     centres, r 0.2, ns 64) and at the vote aggregation (the 1024 votes,
     256 centres, r 0.3, ns 16) on the batch's own inputs bitwise its plain
     version; the rows against the same pipeline on the CPU: every box
@@ -1810,7 +1832,7 @@ def detection_phase() -> dict:
     handle = card.dispatch(clouds)
     got = card.finish(handle)
     launches = kernels.launches()
-    expected = {**{k: 0 for k in launches}, "fps_chain": 2, "ball_query": 5}
+    expected = {**{k: 0 for k in launches}, "fps_chain": 2, "ball_query": 5, "sa_group": 4, "sa_bias_relu": 11}
     if launches != expected:
         raise AssertionError(f"detection: launches {launches}, expected {expected}")
     ep = handle.end_points
@@ -1848,6 +1870,113 @@ def detection_phase() -> dict:
         proposals=rows.shape[0] * rows.shape[1], nonempty=nonempty, kept=kept, batch_ms=statistics.median(times),
         cpu_batch_s=cpu_s, phase_s=time.perf_counter() - t_phase)
     return launches
+
+
+def sa_route_phase() -> list:
+    """Phase 25: the featured eval SA route (`ops/cuda/sa.py`) at VoteNet's
+    published widths, on phase 24's batch of 8 room scans of 40,000 points:
+    at each SA stage, on the backbone's own intermediates, the route
+    (`sa_pool`) torch.equal to its plain twin (`sa_pool_plain`) on the card
+    and to the stage's own output; CUDA-event ms of the whole stage
+    (SAStage.forward: gather, BN fold, K4 and the rest) with the route and
+    with the twin in its place, and of its pieces: K4, the grouping kernel,
+    the products, the epilogues, and the plain grouping and epilogues they
+    replace; a torch.profiler window over the four routes (device ms by
+    kernel).  Returns the rows of the grouping kernel and the epilogue for
+    the kernels line: ms and plain ms summed over a batch's calls (4 and
+    11), bounded by bytes (inputs read once, outputs written once)."""
+    from unittest import mock
+
+    from benchmark.inputs.rooms import room_pool
+    from graspnet_tpu_torch import ops
+    from graspnet_tpu_torch.config import VoteNetConfig
+    from graspnet_tpu_torch.models import backbone as backbone_module
+    from graspnet_tpu_torch.models import init_weights
+    from graspnet_tpu_torch.models.votenet import VoteNet
+    from graspnet_tpu_torch.nn.layers import fold_bn_eval
+    from graspnet_tpu_torch.ops.cuda import query as kquery
+    from graspnet_tpu_torch.ops.cuda import sa as ksa
+
+    t_phase = time.perf_counter()
+    cfg = VoteNetConfig()
+    bb = init_weights(VoteNet(cfg), WEIGHT_SEED).backbone.cuda().eval()
+    clouds = torch.from_numpy(room_pool(DATA_SEED + 21, 8, cfg.num_point)).cuda()
+    stages = {"sa1": bb.sa1, "sa2": bb.sa2, "sa3": bb.sa3, "sa4": bb.sa4}
+    seen = {}
+    hooks = [st.register_forward_hook(lambda mod, args, out: seen.__setitem__(mod, (args[:3], out[1])))
+             for st in stages.values()]
+    try:
+        bb(clouds)
+    finally:
+        for h in hooks:
+            h.remove()
+    split, routes = {}, []
+    group_rows = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0}
+    epilogue_rows = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0}
+    for name, st in stages.items():
+        (xyz, feat, inds), stage_out = seen[st]
+        sa = st.cfg
+        new_xyz = ops.gather_points(xyz, inds)
+        idx = kquery.ball_query(xyz, new_xyz, sa.radius, sa.nsample)
+        folded = fold_bn_eval(st.mlp)
+        radius = sa.radius if sa.normalize_xyz else None
+        call = (xyz, new_xyz, feat, idx, folded, radius)
+        got, want = ksa.sa_pool(*call), ksa.sa_pool_plain(*call)
+        if not (torch.equal(got, want) and torch.equal(stage_out, want)):
+            raise AssertionError(f"sa_route {name}: the route differs from its plain twin on the card")
+        routes.append(call)
+        first = folded[0] if folded[0][0].shape[0] <= ksa.MAX_FUSED_K else None
+        rest = folded[1:] if first is not None else folded
+        group_args = (xyz, new_xyz, feat, idx, radius, first)
+        x = ksa.sa_group(*group_args)
+        group_rows["bytes"] += (idx.numel() * 2 + xyz.numel() + new_xyz.numel() + feat.numel() + x.numel()) * 4 + \
+            (0 if first is None else weight_bytes([first]))
+        products, epilogues = [], []
+        for i, (w, b) in enumerate(rest):
+            y = torch.matmul(x, w)
+            products.append((x, w))
+            epilogues.append((y.clone(), b, i == len(rest) - 1))
+            x = ksa.sa_bias_relu(y, b, i == len(rest) - 1)
+        pieces = dict(
+            k4_ms=cuda_ms(lambda: kquery.ball_query(xyz, new_xyz, sa.radius, sa.nsample), 20),
+            group_ms=cuda_ms(lambda: ksa.sa_group(*group_args), 20),
+            plain_group_ms=cuda_ms(lambda: ksa.sa_group_plain(*group_args), 10),
+            products_ms=cuda_ms(lambda: [torch.matmul(a, w) for a, w in products], 20),
+            epilogues_ms=cuda_ms(lambda: [ksa.sa_bias_relu(*e) for e in epilogues], 20),
+            plain_epilogues_ms=cuda_ms(lambda: [ksa.sa_bias_relu_plain(*e) for e in epilogues], 10),
+            route_ms=cuda_ms(lambda: ksa.sa_pool(*call), 20),
+            plain_route_ms=cuda_ms(lambda: ksa.sa_pool_plain(*call), 10),
+            stage_ms=cuda_ms(lambda: st(xyz, feat, inds), 20),
+        )
+        with mock.patch.object(backbone_module, "sa_pool", ksa.sa_pool_plain):
+            pieces["plain_stage_ms"] = cuda_ms(lambda: st(xyz, feat, inds), 10)
+        split[name] = dict(b=xyz.shape[0], n=xyz.shape[1], m=new_xyz.shape[1], ns=sa.nsample,
+                           mlp=list(sa.mlp), first_layer_in_grouping=first is not None, **pieces)
+        group_rows["ms"] += pieces["group_ms"]
+        group_rows["plain_ms"] += pieces["plain_group_ms"]
+        epilogue_rows["ms"] += pieces["epilogues_ms"]
+        epilogue_rows["plain_ms"] += pieces["plain_epilogues_ms"]
+        for y, b, pool in epilogues:
+            out = y.numel() // y.shape[2] if pool else y.numel()
+            epilogue_rows["bytes"] += (y.numel() + out + b.numel()) * 4
+        del products, epilogues, x
+    profiled("sa_route_profile", lambda i=0: [ksa.sa_pool(*c) for c in routes], 5, "batch",
+             {"grouping": ("sa_group_kernel",), "epilogues": ("bias_relu",), "products": ("gemm", "sgemm", "xmma")})
+    log(phase="sa_route_split", b=clouds.shape[0], n=cfg.num_point, bitwise_plain=True, stages=split,
+        sa1_ms=split["sa1"]["stage_ms"], sa1_plain_ms=split["sa1"]["plain_stage_ms"],
+        sa2_4_ms=sum(split[k]["stage_ms"] for k in ("sa2", "sa3", "sa4")),
+        sa2_4_plain_ms=sum(split[k]["plain_stage_ms"] for k in ("sa2", "sa3", "sa4")),
+        phase_s=time.perf_counter() - t_phase)
+    replaces = "no TPU kernel: the eval SA stage's generic path, XLA in the JAX package " \
+               "(graspnet_tpu/models/backbone.py:84-119)"
+    rows = []
+    for name, acc in (("sa_group", group_rows), ("sa_bias_relu", epilogue_rows)):
+        t_bound, by = bound(acc["bytes"])
+        rows.append(dict(name=name, route="cuda", source="graspnet_tpu_torch/csrc/sa.cu", replaces=replaces,
+                         max_abs_err=0.0,  # torch.equal to the plain twin at every stage
+                         ms=acc["ms"], plain_ms=acc["plain_ms"], bound_ms=t_bound, bound_by=by, library_ms=None))
+        log(phase="kernel", **rows[-1])
+    return rows
 
 
 def service_reply_diff(card: dict, cpu: dict, atol: float = TOPK_ATOL) -> dict:
@@ -1929,7 +2058,7 @@ def service_phase(ckpt: str) -> dict:
     requests = bench_service.make_clouds(SERVICE_REQUESTS, RAW_CLOUD_POINTS, seed=DATA_SEED + 5)
     result = bench_service.run(requests, SERVICE_CLIENTS, COLLISION_THRESH, checkpoint_path=ckpt, device="cuda")
     per_dispatch = {**{k: 0 for k in kernels.launches()}, "fps_chain": 1, "ball_query": 3, "sa1_fused": 1,
-                    "crop_fused": 1}
+                    "crop_fused": 1, "sa_group": 3, "sa_bias_relu": 9}
     expected = {1: {**per_dispatch, "voxel_downsample": 1}, 8: per_dispatch}
     for mode in result["modes"]:
         if mode["launches_per_dispatch"] != expected[mode["max_batch"]]:
@@ -2092,7 +2221,8 @@ def crop_routes_phase(clouds: np.ndarray):
         got = model(x.to("cuda"))
     torch.cuda.synchronize()
     eval_launches = kernels.launches()
-    expected = {**zero, "fps_chain": 1, "ball_query": 3, "sa1_fused": 1, "crop_group": 1}
+    expected = {**zero, "fps_chain": 1, "ball_query": 3, "sa1_fused": 1, "crop_group": 1, "sa_group": 3,
+                "sa_bias_relu": 9}
     if eval_launches != expected:
         raise AssertionError(f"crop_routes eval: launches {eval_launches}, expected {expected}")
     for key in ("fp2_inds", "grasp_top_view_inds"):
@@ -2223,7 +2353,7 @@ def parallel_infer_phase(clouds: np.ndarray, ckpt: str) -> dict:
         torch.cuda.synchronize()
         launches = kernels.launches()
         expected = {**zero, "fps_chain": groups, "sa1_fused": groups, "ball_query": 3 * groups,
-                    "crop_fused": groups * blocks}
+                    "crop_fused": groups * blocks, "sa_group": 3 * groups, "sa_bias_relu": 9 * groups}
         if launches != expected:
             raise AssertionError(f"parallel_infer {name}: launches {launches}, expected {expected}")
         total = {k: total[k] + v for k, v in launches.items()}
@@ -2617,7 +2747,8 @@ def verify_checkpoint_phase() -> dict:
         launches = kernels.launches()
         text = out.getvalue()
         n = sum(v.numel() for v in state.values())
-        expected = {**{k: 0 for k in launches}, "fps_chain": 2, "ball_query": 6, "sa1_fused": 2, "crop_fused": 2}
+        expected = {**{k: 0 for k in launches}, "fps_chain": 2, "ball_query": 6, "sa1_fused": 2, "crop_fused": 2,
+                    "sa_group": 6, "sa_bias_relu": 18}
         if rc != 0 or "PASS: matches golden dump" not in text or f"converted params: {n:,} values (state dict: " \
                 f"{n:,})" not in text or launches != expected:
             raise AssertionError(f"verify_checkpoint on the card: rc {rc}, launches {launches} (expected "
@@ -2671,6 +2802,8 @@ def main() -> int:
     del pipe
     feature_launches = feature_input_phase()
     detect_launches = detection_phase()
+    with torch.inference_mode():
+        rows += sa_route_phase()
     from graspnet_tpu_torch.models import GraspNet, init_weights
 
     crop_mlp = init_weights(GraspNet(cfg), TRAIN_SEED).crop.mlp.to(dev)

@@ -10,9 +10,15 @@ mirrors the JAX package's TPU gates, with the CUDA kernels in their place:
     the chain also runs at `GraspNetConfig.tiny()`;
   * eval: an xyz-only stage with normalize_xyz and a 3-layer MLP (SA1
     without input features) is the fused ball-crop kernel, under the JAX
-    gate's conditions (backbone.py:70-83); every other eval stage is the
-    ball-query kernel, then a gather, /r where normalize_xyz, and the
-    BN-folded MLP in plain torch (backbone.py:84-119);
+    gate's conditions (backbone.py:70-83); every other eval stage with
+    features (VoteNet's SA1 with the height, SA2-4 of both models) is the
+    ball-query kernel, then `ops/cuda/sa.py::sa_pool` (backbone.py:84-119):
+    the grouping kernel (the offsets, /r where normalize_xyz, the features;
+    for a first layer of contraction <= 4, VoteNet's 3 + 1 -> 64, that
+    layer too), each remaining BN-folded product as `torch.matmul`, and the
+    bias-ReLU kernel after each (taking the max after the last), bitwise
+    the plain path `sa_pool_plain`, which a CPU tensor and an xyz-only
+    stage outside the fused kernel's gate take;
   * train: every SA stage is the generic path (backbone.py:109-119) — the
     ball-query kernel (or the given `sa_query_idx`), group, /r where
     normalize_xyz, the batch-stat MLP and the max — and the indices it used
@@ -20,7 +26,7 @@ mirrors the JAX package's TPU gates, with the CUDA kernels in their place:
     as `end_points["bn_stats/backbone"]`;
   * extra input channels (`input_feature_dim > 0`) enter SA1 as features
     (backbone.py:171,182); the FPS chain and the crop take xyz only.  SA1
-    with features (VoteNet's height) is the generic path above.
+    with features (VoteNet's height) takes the featured eval path above.
 
 The configuration is a `GraspNetConfig` or a `VoteNetConfig`: the backbone
 reads only the fields the two share (`sa1`-`sa4`, `fp1_mlp`, `fp2_mlp`,
@@ -40,8 +46,9 @@ from torch import nn
 
 from graspnet_tpu_torch import ops
 from graspnet_tpu_torch.config import GraspNetConfig, SAConfig, VoteNetConfig
-from graspnet_tpu_torch.nn.layers import SharedMLP, fold_bn_eval, folded_mlp
+from graspnet_tpu_torch.nn.layers import SharedMLP, fold_bn_eval
 from graspnet_tpu_torch.ops.cuda import ball_query, fps_chain, sa1_fused
+from graspnet_tpu_torch.ops.cuda.sa import sa_group_plain, sa_pool, sa_pool_plain
 
 
 class SAStage(nn.Module):
@@ -61,14 +68,11 @@ class SAStage(nn.Module):
             folded = fold_bn_eval(self.mlp)
             return new_xyz, sa1_fused(xyz, new_xyz, folded, sa.radius, sa.nsample), None, None
         idx = qidx if qidx is not None else ball_query(xyz, new_xyz, sa.radius, sa.nsample)
-        grouped = ops.group_points(xyz, idx) - new_xyz[:, :, None, :]
-        if sa.normalize_xyz:
-            grouped = grouped / sa.radius
-        if features is not None:
-            grouped = torch.cat([grouped, ops.group_points(features, idx)], dim=-1)
+        radius = sa.radius if sa.normalize_xyz else None
         if not train:
-            return new_xyz, torch.amax(folded_mlp(fold_bn_eval(self.mlp), grouped), dim=2), None, None
-        out, stats = self.mlp.forward_train(grouped)
+            pool = sa_pool if features is not None else sa_pool_plain
+            return new_xyz, pool(xyz, new_xyz, features, idx, fold_bn_eval(self.mlp), radius), None, None
+        out, stats = self.mlp.forward_train(sa_group_plain(xyz, new_xyz, features, idx, radius))
         return new_xyz, torch.amax(out, dim=2), stats, idx
 
 

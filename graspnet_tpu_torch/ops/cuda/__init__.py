@@ -13,12 +13,13 @@ from graspnet_tpu_torch.ops.cuda.crop import crop_fused, crop_group, sa1_fused, 
 from graspnet_tpu_torch.ops.cuda.fps import fps_chain
 from graspnet_tpu_torch.ops.cuda.mlp_train import crop_mlp_train, crop_mlp_train_backward
 from graspnet_tpu_torch.ops.cuda.query import ball_query, cylinder_query_multi, multi_query
+from graspnet_tpu_torch.ops.cuda.sa import sa_bias_relu, sa_group
 from graspnet_tpu_torch.ops.scatter import scatter_add_rows, scatter_plan
 from graspnet_tpu_torch.ops.voxel import voxel_downsample
 
 WRAPPERS = (fps_chain, ball_query, sa1_fused, crop_fused, crop_group, crop_mlp_train,
             crop_mlp_train_backward, cylinder_query_multi, sa_feat_fused, multi_query,
-            scatter_add_rows, scatter_plan, voxel_downsample)
+            scatter_add_rows, scatter_plan, voxel_downsample, sa_group, sa_bias_relu)
 
 
 def reset_launches() -> None:
@@ -32,5 +33,5 @@ def launches() -> dict:
 
 __all__ = ["WRAPPERS", "ball_query", "crop_fused", "crop_group", "crop_mlp_train",
            "crop_mlp_train_backward", "cylinder_query_multi", "fps_chain", "launches",
-           "multi_query", "reset_launches", "sa1_fused", "sa_feat_fused", "scatter_add_rows",
+           "multi_query", "reset_launches", "sa1_fused", "sa_bias_relu", "sa_feat_fused", "sa_group", "scatter_add_rows",
            "scatter_plan", "voxel_downsample"]

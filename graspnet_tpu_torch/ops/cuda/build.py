@@ -34,7 +34,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 HOST = "host"  # csrc/host.cpp, built with g++
-SOURCES = ("fps", "query", "crop", "mlp_train", "scatter", "voxel", HOST)
+SOURCES = ("fps", "query", "crop", "mlp_train", "scatter", "voxel", "sa", HOST)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -193,3 +193,155 @@ def test_knn_random_clouds_match_jax():
     for k in (2, 8):
         np.testing.assert_array_equal(knn(torch.from_numpy(ref), torch.from_numpy(query), k).numpy(),
                                       np.asarray(jknn(jnp.asarray(ref), jnp.asarray(query), k)))
+
+
+# The eval SA routes of the port itself (no JAX): which path each stage
+# takes, and the plain twin of the card's featured route.
+
+def _backbone(cfg, seed: int = 0):
+    """A `Backbone` with Kaiming kernels and every BN statistic and affine
+    drawn away from the identity, so pre-activations of both signs reach
+    every ReLU."""
+    from graspnet_tpu_torch.models.backbone import Backbone
+    from graspnet_tpu_torch.models.graspnet import init_weights
+
+    bb = init_weights(Backbone(cfg), seed).eval()
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, p in [*bb.named_parameters(), *bb.named_buffers()]:
+            leaf = name.rsplit(".", 1)[-1]
+            lo, hi = {"mean": (-0.1, 0.1), "var": (0.5, 2.0), "scale": (0.5, 1.5),
+                      "offset": (-0.1, 0.1)}.get(leaf, (None, None))
+            if lo is not None:
+                p.copy_(lo + (hi - lo) * torch.rand(p.shape, generator=gen))
+    return bb
+
+
+def _route_config(name: str):
+    from graspnet_tpu_torch.config import VoteNetConfig
+
+    if name == "votenet":
+        return VoteNetConfig.tiny()
+    if name == "graspnet":
+        return GraspNetConfig.tiny()
+    return _variant(name)[1]
+
+
+def _route_clouds(cfg, seed: int = 0) -> torch.Tensor:
+    """Two clouds of cfg.num_point points in a 1.5 m box (VoteNet's radii
+    reach 1.2 m) with cfg.input_feature_dim channels in [0, 1]."""
+    rng = np.random.default_rng(seed)
+    xyz = rng.uniform(-0.75, 0.75, (2, cfg.num_point, 3)).astype(np.float32)
+    feats = rng.uniform(0, 1, (2, cfg.num_point, cfg.input_feature_dim)).astype(np.float32)
+    return torch.from_numpy(np.concatenate([xyz, feats], axis=-1))
+
+
+def _stage_inputs(bb, clouds):
+    """Each SA stage's (stage, xyz, features, FPS inds) of one eval forward."""
+    seen = []
+    hooks = [stage.register_forward_pre_hook(lambda mod, args: seen.append((mod, *args[:3])))
+             for stage in (bb.sa1, bb.sa2, bb.sa3, bb.sa4)]
+    try:
+        with torch.no_grad():
+            bb(clouds)
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def _previous_generic_path(stage, xyz, features, inds):
+    """The backbone's eval generic path as it was before the route, verbatim."""
+    from graspnet_tpu_torch import ops
+    from graspnet_tpu_torch.nn.layers import fold_bn_eval, folded_mlp
+    from graspnet_tpu_torch.ops.cuda import ball_query
+
+    sa = stage.cfg
+    new_xyz = ops.gather_points(xyz, inds)
+    idx = ball_query(xyz, new_xyz, sa.radius, sa.nsample)
+    grouped = ops.group_points(xyz, idx) - new_xyz[:, :, None, :]
+    if sa.normalize_xyz:
+        grouped = grouped / sa.radius
+    if features is not None:
+        grouped = torch.cat([grouped, ops.group_points(features, idx)], dim=-1)
+    return new_xyz, idx, torch.amax(folded_mlp(fold_bn_eval(stage.mlp), grouped), dim=2)
+
+
+@pytest.mark.parametrize("name", ["graspnet", "votenet", "input_features"])
+def test_plain_twin_is_the_previous_generic_path(name):
+    """At each stage with features, `sa_pool_plain` is bitwise the generic
+    eval path it replaced, and so is the card route's sequence run through
+    the wrappers' plain versions: `sa_group` (with the first layer where its
+    contraction is <= 4, VoteNet's SA1), then per remaining layer
+    `torch.matmul` and `sa_bias_relu`, pooling after the last."""
+    from graspnet_tpu_torch.nn.layers import fold_bn_eval
+    from graspnet_tpu_torch.ops.cuda.sa import MAX_FUSED_K, sa_bias_relu, sa_group, sa_pool, sa_pool_plain
+
+    cfg = _route_config(name)
+    bb = _backbone(cfg)
+    featured = 0
+    with torch.no_grad():
+        for stage, xyz, features, inds in _stage_inputs(bb, _route_clouds(cfg)):
+            if features is None:
+                continue
+            featured += 1
+            new_xyz, idx, want = _previous_generic_path(stage, xyz, features, inds)
+            folded = fold_bn_eval(stage.mlp)
+            radius = stage.cfg.radius if stage.cfg.normalize_xyz else None
+            assert torch.equal(sa_pool_plain(xyz, new_xyz, features, idx, folded, radius), want)
+            assert torch.equal(sa_pool(xyz, new_xyz, features, idx, folded, radius), want)
+            first = folded[0] if folded[0][0].shape[0] <= MAX_FUSED_K else None
+            x = sa_group(xyz, new_xyz, features, idx, radius, first)
+            rest = folded[1:] if first is not None else folded
+            for i, (w, b) in enumerate(rest):
+                x = sa_bias_relu(torch.matmul(x, w), b, pool=i == len(rest) - 1)
+            assert torch.equal(x, want)
+            assert (want == 0).any() and (want > 0).any()
+    assert featured == (4 if name in ("votenet", "input_features") else 3)
+
+
+ROUTES = {
+    # (config, mode): the path of SA1-SA4; "sa_pool/k4" fuses a first layer of contraction <= 4
+    ("graspnet", "eval"): ("sa1_fused", "sa_pool", "sa_pool", "sa_pool"),
+    ("graspnet", "train"): ("train",) * 4,
+    ("input_features", "eval"): ("sa_pool",) * 4,
+    ("input_features", "train"): ("train",) * 4,
+    ("sa1_unnormalized", "eval"): ("sa_pool_plain", "sa_pool", "sa_pool", "sa_pool"),
+    ("sa1_two_layer_mlp", "eval"): ("sa_pool_plain", "sa_pool", "sa_pool", "sa_pool"),
+    ("votenet", "eval"): ("sa_pool/k4", "sa_pool", "sa_pool", "sa_pool"),
+    ("votenet", "train"): ("train",) * 4,
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTES), ids=lambda c: "-".join(c))
+def test_sa_route_table(case, monkeypatch):
+    """Which path each SA stage takes, eval and train, with and without
+    features: the fused SA1 kernel for an xyz-only stage inside its gate,
+    the featured route `sa_pool` for every eval stage with features, the
+    plain twin for an xyz-only stage outside the gate, and the plain
+    grouping under the batch-stat MLP in training."""
+    from graspnet_tpu_torch.models import backbone
+    from graspnet_tpu_torch.ops.cuda.sa import MAX_FUSED_K
+
+    name, mode = case
+    cfg = _route_config(name)
+    seen, plain = [], backbone.sa_pool_plain
+
+    def recorder(label, fn):
+        def call(*args):
+            seen.append(label)
+            return fn(*args)
+        return call
+
+    def pool(xyz, new_xyz, features, idx, folded, radius):
+        seen.append("sa_pool/k4" if folded[0][0].shape[0] <= MAX_FUSED_K else "sa_pool")
+        return plain(xyz, new_xyz, features, idx, folded, radius)
+
+    monkeypatch.setattr(backbone, "sa1_fused", recorder("sa1_fused", backbone.sa1_fused))
+    monkeypatch.setattr(backbone, "sa_pool", pool)
+    monkeypatch.setattr(backbone, "sa_pool_plain", recorder("sa_pool_plain", backbone.sa_pool_plain))
+    monkeypatch.setattr(backbone, "sa_group_plain", recorder("train", backbone.sa_group_plain))
+    bb = _backbone(cfg)
+    with torch.no_grad():
+        bb(_route_clouds(cfg), train=mode == "train")
+    assert tuple(seen) == ROUTES[case]

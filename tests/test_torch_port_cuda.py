@@ -290,7 +290,8 @@ def test_tiny_pipeline_card_matches_cpu_and_counts_launches(dev):
     assert kernels.launches() == {"fps_chain": 1, "ball_query": 3, "sa1_fused": 1, "crop_fused": 1,
                                   "crop_group": 0, "crop_mlp_train": 0, "crop_mlp_train_backward": 0,
                                   "cylinder_query_multi": 0, "sa_feat_fused": 0, "multi_query": 0,
-                                  "scatter_add_rows": 0, "scatter_plan": 0, "voxel_downsample": 0}
+                                  "scatter_add_rows": 0, "scatter_plan": 0, "voxel_downsample": 0,
+                                  "sa_group": 3, "sa_bias_relu": 9}
     for g, w in zip(got, cpu.get_grasps_topk_batch(clouds)):
         g, w = g.grasp_group_array, w.grasp_group_array
         assert g.shape == w.shape
@@ -867,9 +868,11 @@ def test_sa_routes_on_the_card_match_cpu(dev, case):
         kernels.reset_launches()
         got = model(clouds.to(dev))
     fused = case == "default"
+    featured = 3 + (case == "input_features")  # the stages with features take the featured route
     counts = kernels.launches()
     assert (counts["fps_chain"], counts["sa1_fused"], counts["ball_query"], counts["crop_fused"]) == \
         (1, int(fused), 3 + (not fused), 1), counts
+    assert (counts["sa_group"], counts["sa_bias_relu"]) == (featured, 3 * featured), counts
     for key in ("sa1_inds", "fp2_inds", "grasp_top_view_inds"):
         assert torch.equal(got[key].cpu(), want[key]), key
     for key in ("fp2_features", "objectness_score", "grasp_score_pred", "grasp_width_pred"):
@@ -1078,7 +1081,8 @@ def test_detection_pipeline_card_matches_cpu(dev):
     h = card.dispatch(clouds)
     got = card.finish(h)
     launches = kernels.launches()
-    assert launches == {**{k: 0 for k in launches}, "fps_chain": 2, "ball_query": 5}
+    assert launches == {**{k: 0 for k in launches}, "fps_chain": 2, "ball_query": 5, "sa_group": 4,
+                        "sa_bias_relu": 11}
     hc = cpu.dispatch(clouds)
     want = cpu.finish(hc)
     head, head_cpu = h.end_points["head"].cpu(), hc.end_points["head"]
@@ -1087,6 +1091,174 @@ def test_detection_pipeline_card_matches_cpu(dev):
         for col in (boxes.NONEMPTY, boxes.PICKED, boxes.KEPT, boxes.SEM_CLS):
             np.testing.assert_array_equal(g.rows[:, col], w.rows[:, col])
         assert 0 < w.kept.sum() < w.nonempty.sum()
+
+
+# ------------------------------------------- the eval SA stages' featured route --
+
+def seeded_bn(model, seed):
+    """Every BN statistic and affine drawn away from the identity, so the
+    pre-activations of every layer take both signs."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in [*model.named_parameters(), *model.named_buffers()]:
+            lo, hi = {"mean": (-0.1, 0.1), "var": (0.5, 2.0), "scale": (0.5, 1.5),
+                      "offset": (-0.1, 0.1)}.get(name.rsplit(".", 1)[-1], (None, None))
+            if lo is not None:
+                p.copy_(lo + (hi - lo) * torch.rand(p.shape, generator=gen))
+    return model
+
+
+def backbone_stages(backbone, clouds):
+    """Run an eval backbone forward; each SA stage's (config, xyz, features,
+    new_xyz, pooled output) as the forward saw them."""
+    seen = {}
+    stages = (backbone.sa1, backbone.sa2, backbone.sa3, backbone.sa4)
+    hooks = [st.register_forward_hook(lambda mod, args, out: seen.__setitem__(mod, (args[0], args[1], *out[:2])))
+             for st in stages]
+    try:
+        with torch.inference_mode():
+            backbone(clouds)
+    finally:
+        for h in hooks:
+            h.remove()
+    return [(st.cfg, st.mlp, *seen[st]) for st in stages]
+
+
+def assert_route_is_the_twin(xyz, new_xyz, features, idx, folded, radius, pooled=None):
+    """The featured route on the card against its plain twin on the same
+    card, bitwise: the grouping kernel against the plain grouping, and the
+    whole stage; `pooled`, what the backbone's forward gave, too."""
+    from graspnet_tpu_torch.ops.cuda import sa as ksa
+
+    first = folded[0] if folded[0][0].shape[0] <= ksa.MAX_FUSED_K else None
+    before = (ksa.sa_group.launches, ksa.sa_bias_relu.launches)
+    got = ksa.sa_pool(xyz, new_xyz, features, idx, folded, radius)
+    products = len(folded) - (first is not None)
+    assert (ksa.sa_group.launches, ksa.sa_bias_relu.launches) == (before[0] + 1, before[1] + products)
+    want = ksa.sa_pool_plain(xyz, new_xyz, features, idx, folded, radius)
+    assert torch.equal(got, want)
+    assert torch.equal(ksa.sa_group(xyz, new_xyz, features, idx, radius, first),
+                       ksa.sa_group_plain(xyz, new_xyz, features, idx, radius, first))
+    if pooled is not None:
+        assert torch.equal(pooled, want)
+    return want
+
+
+@pytest.mark.parametrize("model", ["votenet_b8", "graspnet_b1"])
+def test_sa_route_is_bitwise_the_plain_twin_at_published_widths(dev, model):
+    """The featured route on the backbone's own intermediates, bitwise the
+    plain twin on the card: VoteNet SA1-SA4 on a batch of 8 of the
+    detection cell's 40,000-point room scans (SA1 with the height, its
+    3 + 1 -> 64 layer in the grouping kernel), GraspNet's SA2-4 on one
+    20,000-point tabletop."""
+    from graspnet_tpu_torch.config import VoteNetConfig
+    from graspnet_tpu_torch.models import GraspNet, init_weights
+    from graspnet_tpu_torch.models.votenet import VoteNet
+    from graspnet_tpu_torch.nn.layers import fold_bn_eval
+
+    if model == "votenet_b8":
+        from benchmark.inputs.rooms import room_pool
+
+        cfg = VoteNetConfig()
+        net = VoteNet(cfg)
+        clouds = torch.from_numpy(room_pool(25, 8, cfg.num_point))
+    else:
+        cfg = GraspNetConfig()
+        net = GraspNet(cfg)
+        clouds = torch.from_numpy(tabletop_cloud(np.random.default_rng(25))[None])
+    net = seeded_bn(init_weights(net, 1), 2).to(dev).eval()
+    featured = 0
+    for sa, mlp, xyz, features, new_xyz, pooled in backbone_stages(net.backbone, clouds.to(dev)):
+        if features is None:
+            continue
+        featured += 1
+        with torch.inference_mode():
+            idx = kquery.ball_query(xyz, new_xyz, sa.radius, sa.nsample)
+            want = assert_route_is_the_twin(xyz, new_xyz, features, idx, fold_bn_eval(mlp),
+                                            sa.radius if sa.normalize_xyz else None, pooled)
+        assert (want == 0).any() and (want > 0).any()
+    assert featured == (4 if model == "votenet_b8" else 3)
+
+
+def sa_route_inputs(dev, b, n, m, c_in, radius, seed):
+    """Points in a 1 m box with one at exactly (r, 0, 0) from a centre at
+    the origin (not in its ball: the test is d^2 < r^2), a centre far from
+    every point (its ball is empty: K4 pads with point 0), features of
+    both signs."""
+    rng = np.random.default_rng(seed)
+    xyz = rng.uniform(-0.5, 0.5, (b, n, 3)).astype(np.float32)
+    xyz[:, 7] = (radius, 0.0, 0.0)
+    centres = xyz[:, rng.choice(n, m, replace=False)].copy()
+    centres[:, 0] = 0.0
+    centres[:, -1] = (40.0, 40.0, 40.0)
+    feats = rng.normal(size=(b, n, c_in)).astype(np.float32)
+    return [torch.from_numpy(t).to(dev) for t in (xyz, centres, feats)]
+
+
+@pytest.mark.parametrize("dims", [(4, 64, 64, 128), (4, 7, 9, 13), (4, 8, 12), (4, 160, 16), (131, 128, 128, 256),
+                                  (8, 7, 13), (19, 16, 16, 32)])
+@pytest.mark.parametrize("ns", [1, 17, 64])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_sa_route_edges_are_bitwise_the_plain_twin(dev, dims, ns, normalize):
+    """Ragged shapes: M and B x M x ns multiples of no tile, widths not
+    multiples of 4 (the epilogues' scalar form), a fused first layer with
+    one product after it and one wider than the 128 columns the grouping
+    kernel holds in registers, the concat rows; an empty ball's padding, a
+    point at exactly r, pre-activations below 0 (a bias of -2 on half the
+    channels: whole groups pool to 0)."""
+    radius = 0.25
+    xyz, centres, feats = sa_route_inputs(dev, 2, 3001, 1001, dims[0] - 3, radius, ns)
+    folded = folded_weights(dims, ns, dev)
+    folded = [(w, b - 2.0 * (torch.arange(b.numel(), device=dev) % 2)) for w, b in folded]
+    with torch.inference_mode():
+        idx = kquery.ball_query(xyz, centres, radius, ns)
+        assert (idx[:, -1] == 0).all()  # the empty ball
+        assert not (idx[:, 0] == 7).any()  # the point at exactly r is out
+        want = assert_route_is_the_twin(xyz, centres, feats, idx, folded, radius if normalize else None)
+    assert (want == 0).any() and (want > 0).any()
+
+
+@pytest.mark.parametrize("radius", [0.04, 0.1, 0.2, 0.3, 0.4, 0.8, 1.2, 0.07, 0.013, 1.7, 0.3333])
+def test_sa_group_offsets_scale_as_torch_divides(dev, radius):
+    """The grouping kernel's offsets x 1/r are bitwise the plain path's
+    `grouped / r` on the card (ATen multiplies by 1/r rounded to float32
+    once), at every radius of both models and some where 1/r so rounded
+    differs from the float32 division 1.0f / (float)r."""
+    from graspnet_tpu_torch.ops import group_points
+    from graspnet_tpu_torch.ops.cuda import sa as ksa
+
+    xyz, centres, feats = sa_route_inputs(dev, 2, 4096, 513, 5, radius, 1)
+    with torch.inference_mode():
+        idx = kquery.ball_query(xyz, centres, radius, 32)
+        got = ksa.sa_group(xyz, centres, feats, idx, radius)
+        assert torch.equal(got, ksa.sa_group_plain(xyz, centres, feats, idx, radius))
+        assert torch.equal(got[..., :3], (group_points(xyz, idx) - centres[:, :, None]) / radius)
+
+
+def test_sa_route_rejects_inputs_outside_its_domain(dev):
+    """On the card a shape outside the kernels' domain raises ValueError and
+    launches nothing (no fallback to the plain path)."""
+    from graspnet_tpu_torch.ops.cuda import sa as ksa
+
+    xyz, centres, feats = sa_route_inputs(dev, 1, 512, 64, 1, 0.2, 0)
+    idx = kquery.ball_query(xyz, centres, 0.2, 16)
+    folded = folded_weights((4, 8, 16), 0, dev)
+    before = (ksa.sa_group.launches, ksa.sa_bias_relu.launches)
+    bad = [
+        lambda: ksa.sa_group(xyz, centres, feats.double(), idx, 0.2, folded[0]),
+        lambda: ksa.sa_group(xyz, centres, feats, idx.int(), 0.2),
+        lambda: ksa.sa_group(xyz, centres, None, idx, 0.2),
+        lambda: ksa.sa_group(xyz, centres, feats.cpu(), idx, 0.2),
+        lambda: ksa.sa_group(xyz, centres, torch.cat([feats, feats], -1), idx, 0.2, folded[0]),
+        lambda: ksa.sa_pool(xyz, centres, feats, idx, folded[:1], 0.2),
+        lambda: ksa.sa_bias_relu(torch.zeros(1, 16, 4, 8, device=dev).transpose(1, 2), folded[0][1]),
+        lambda: ksa.sa_bias_relu(torch.zeros(16, 8, device=dev), folded[0][1], pool=True),
+        lambda: ksa.sa_bias_relu(torch.zeros(16, 8, device=dev), folded[1][1]),
+    ]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+    assert (ksa.sa_group.launches, ksa.sa_bias_relu.launches) == before
 
 
 # ------------------------------------------------- the service's card route --

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from graspnet_tpu_torch.ops import scatter, voxel
-from graspnet_tpu_torch.ops.cuda import build, crop, fps, mlp_train, query
+from graspnet_tpu_torch.ops.cuda import build, crop, fps, mlp_train, query, sa
 
 
 class OnCard(torch.Tensor):
@@ -113,6 +113,13 @@ LAUNCHERS = {
         card(np.ones((1, 6, 4), np.float32)), card(np.array([[0, 2, 2, 1, 0, 3]])), 5),
     "scatter_plan": lambda x, c, r: scatter.scatter_plan(card(np.array([[0, 2, 2, 1, 0, 3]])), 5),
     "voxel_downsample": lambda x, c, r: voxel.voxel_downsample(x[0], 0.01),
+    "sa_group": lambda x, c, r: (
+        sa.sa_group(x, c, card(np.zeros((1, 32, 1), np.float32)), card(np.zeros((1, 4, 8), np.int64)), 0.05,
+                    folded((4, 8))[0]),
+        sa.sa_group(x, c, card(np.zeros((1, 32, 8), np.float32)), card(np.zeros((1, 4, 8), np.int64)), None)),
+    "sa_bias_relu": lambda x, c, r: (
+        sa.sa_bias_relu(card(np.zeros((1, 4, 8, 16), np.float32)), card(np.zeros(16, np.float32))),
+        sa.sa_bias_relu(card(np.zeros((1, 4, 8, 16), np.float32)), card(np.zeros(16, np.float32)), pool=True)),
 }
 
 
@@ -170,3 +177,85 @@ def test_fps_chain_domain_is_the_slice_a_cta_holds(state, n, cluster, ok):
         with pytest.raises(ValueError, match=f"at most {fps.MAX_SLICE} points a CTA: N={n} over a cluster of {ctas}"):
             fps.fps_chain(xyz, (16, 4), cluster)
         assert state["calls"] == []
+
+
+
+def _sa_stage_operands(stage, n: int = 48, m_max: int = 24):
+    """Stand-ins of an eval SA stage's operands at the stage's widths and
+    nsample (B=1, n input points, at most m_max centres)."""
+    m = min(stage.npoint, m_max)
+    xyz = card(np.zeros((1, n, 3), np.float32))
+    new_xyz = card(np.zeros((1, m, 3), np.float32))
+    features = card(np.zeros((1, n, stage.mlp[0] - 3), np.float32))
+    idx = card(np.zeros((1, m, stage.nsample), np.int64))
+    return xyz, new_xyz, features, idx, folded(stage.mlp)
+
+
+def _featured_stages():
+    from graspnet_tpu_torch.config import GraspNetConfig, VoteNetConfig
+
+    cases = []
+    for name, cfg in (("graspnet", GraspNetConfig()), ("graspnet_tiny", GraspNetConfig.tiny()),
+                      ("votenet", VoteNetConfig()), ("votenet_tiny", VoteNetConfig.tiny())):
+        for key in ("sa1", "sa2", "sa3", "sa4"):
+            if key != "sa1" or cfg.input_feature_dim:
+                cases.append(pytest.param(getattr(cfg, key), id=f"{name}-{key}"))
+    return cases
+
+
+@pytest.mark.parametrize("stage", _featured_stages())
+def test_sa_route_domain_covers_every_featured_eval_stage(state, stage):
+    """Every eval SA stage with features of both models' configurations and
+    their tiny ones reaches the grouping kernel, one epilogue after each
+    product but the last and the pooling epilogue after the last, all inside
+    `on_device`; a first layer of contraction <= 4 (VoteNet's SA1) is the
+    grouping kernel's."""
+    xyz, new_xyz, features, idx, layers = _sa_stage_operands(stage)
+    got = sa.sa_pool(xyz, new_xyz, features, idx, layers, stage.radius if stage.normalize_xyz else None)
+    assert tuple(got.shape) == (1, new_xyz.shape[1], stage.mlp[-1])
+    products = len(stage.mlp) - 1 - (stage.mlp[0] <= sa.MAX_FUSED_K)
+    want = ["gn_sa_group"] + ["gn_sa_bias_relu"] * (products - 1) + ["gn_sa_bias_relu_max"]
+    assert [fn for fn, _ in state["calls"]] == want
+    assert all(dev == xyz.device for _, dev in state["calls"])
+
+
+def _sa_bad_call(case: str):
+    """One call outside the featured route's domain (VoteNet's SA1 widths
+    and the epilogues' shapes otherwise)."""
+    from graspnet_tpu_torch.config import VoteNetConfig
+
+    stage = VoteNetConfig.tiny().sa1
+    xyz, new_xyz, features, idx, layers = _sa_stage_operands(stage)
+    y = card(np.zeros((1, 4, 8, 16), np.float32))
+    bias = card(np.zeros(16, np.float32))
+    calls = {
+        "features_float64": lambda: sa.sa_group(xyz, new_xyz, card(np.zeros((1, 48, 1))), idx, 0.2, layers[0]),
+        "indices_int32": lambda: sa.sa_group(xyz, new_xyz, features, card(np.zeros((1, 24, 16), np.int32)), 0.2),
+        "no_features": lambda: sa.sa_group(xyz, new_xyz, None, idx, 0.2),
+        "features_of_other_points": lambda: sa.sa_group(xyz, new_xyz, features[:, :40], idx, 0.2),
+        "centres_of_other_batch": lambda: sa.sa_group(xyz, card(np.zeros((2, 24, 3), np.float32)), features, idx,
+                                                      0.2),
+        "radius_zero": lambda: sa.sa_group(xyz, new_xyz, features, idx, 0.0),
+        "first_layer_5_wide": lambda: sa.sa_group(xyz, new_xyz, card(np.zeros((1, 48, 2), np.float32)), idx, 0.2,
+                                                  folded((5, 8))[0]),
+        "first_layer_bias_shape": lambda: sa.sa_group(xyz, new_xyz, features, idx, 0.2,
+                                                      (layers[0][0], card(np.zeros(9, np.float32)))),
+        "one_fused_layer_only": lambda: sa.sa_pool(xyz, new_xyz, features, idx, layers[:1], 0.2),
+        "epilogue_not_contiguous": lambda: sa.sa_bias_relu(y.transpose(1, 2), bias),
+        "epilogue_bias_width": lambda: sa.sa_bias_relu(y, card(np.zeros(8, np.float32))),
+        "pool_of_3d": lambda: sa.sa_bias_relu(y[0], bias, pool=True),
+        "epilogue_float64": lambda: sa.sa_bias_relu(card(np.zeros((4, 16))), bias),
+    }
+    return calls[case]
+
+
+@pytest.mark.parametrize("case", ["features_float64", "indices_int32", "no_features", "features_of_other_points",
+                                  "centres_of_other_batch", "radius_zero", "first_layer_5_wide",
+                                  "first_layer_bias_shape", "one_fused_layer_only", "epilogue_not_contiguous",
+                                  "epilogue_bias_width", "pool_of_3d", "epilogue_float64"])
+def test_sa_route_outside_its_domain_raises_before_a_launch(state, case):
+    """On the card a shape outside the kernels' domain raises ValueError
+    before any C function runs: no silent fallback to the plain path."""
+    with pytest.raises(ValueError, match="sa_(group|bias_relu|pool) takes"):
+        _sa_bad_call(case)()
+    assert state["calls"] == []
