@@ -747,7 +747,7 @@ def main_path_phase(cfg, pipe, clouds):
                 "crop_group": 0, "crop_mlp_train": 0, "crop_mlp_train_backward": 0,
                 "cylinder_query_multi": 0, "sa_feat_fused": 0, "multi_query": 0,
                 "scatter_add_rows": 0, "scatter_plan": 0, "voxel_downsample": 0,
-                "sa_group": 3, "sa_bias_relu": 9}
+                "sa_group": 3, "sa_bias_relu": 9, "attention": 0}
 
     def drive(fn):
         """Run one batched forward; every kernel must launch once for it."""
@@ -1979,6 +1979,123 @@ def sa_route_phase() -> list:
     return rows
 
 
+def groupfree_phase():
+    """Phase 26 (logged as `groupfree_attn`, then `groupfree`):
+    Group-Free-3D (L12 O512 w2x) on the card, the benchmark's seeded
+    weights (seed 0), a batch of 8 of its cell's 50,000-point room scans.  A batch through DetectionPipeline launches K1 1, K4 4, the
+    grouping 4, the epilogues 11 and the attention kernel 24 times; the
+    attention kernel (`groupfree_attn`) against its plain version at the
+    cell's two shapes (self-attention over the 512 queries, cross-attention
+    over the 1,024 seeds, 8 heads of 36, q and k, v as views into the
+    packed projections), within 1e-5 x max(1, scale); CUDA-event ms of a
+    forward's 24 calls with the kernel, with the plain version and with
+    torch's scaled_dot_product_attention on the same heads (the yardstick
+    only: the port never calls it), its bound; the batch's device time by
+    part (CUDA events, each part on its own inputs): backbone, KPS, the
+    proposal head, the decoder (projections, 12 layers, their heads), the
+    heads alone, the boxes (post-processing and NMS), the whole forward
+    and the whole batch; a profiled forward by kernel.  Returns the
+    attention kernel's row and the batch's launches."""
+    import torch.nn.functional as F
+
+    from benchmark import roofline_groupfree
+    from benchmark.inputs.rooms import room_pool
+    from benchmark.drivers.detect_groupfree import groupfree_weights
+    from benchmark.reference.gf import Detector
+    from graspnet_tpu_torch.apps.detect import DetectionPipeline
+    from graspnet_tpu_torch.config import GroupFreeConfig
+    from graspnet_tpu_torch.models.groupfree import GroupFree3D, decode_head
+    from graspnet_tpu_torch.ops import cuda as kernels
+    from graspnet_tpu_torch.ops.cuda import attn
+    from graspnet_tpu_torch.postproc import boxes
+
+    t_phase = time.perf_counter()
+    cfg = GroupFreeConfig()
+    b, p, s, heads, c = 8, cfg.num_proposal, cfg.sa2.npoint, cfg.nhead, cfg.d_model
+    weights = groupfree_weights({k: tuple(v.shape) for k, v in GroupFree3D(cfg).state_dict().items()}, 0, "cuda")
+    pipe = DetectionPipeline(params=weights, cfg=cfg)
+    clouds = room_pool(DATA_SEED + 26, b, cfg.num_point)
+    pipe.detect(clouds)  # builds the attention library, warms every shape
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    rows = np.stack([d.rows for d in pipe.detect(clouds)])
+    launches = kernels.launches()
+    expected = {**{k: 0 for k in launches}, "fps_chain": 1, "ball_query": 4, "sa_group": 4, "sa_bias_relu": 11,
+                "attention": 2 * cfg.num_decoder_layers}
+    if launches != expected:
+        raise AssertionError(f"groupfree: launches {launches}, expected {expected}")
+    gen = torch.Generator(device="cuda").manual_seed(DATA_SEED)
+    qkv = torch.randn((b, p, 3 * c), device="cuda", generator=gen)
+    q_cross = torch.randn((b, p, c), device="cuda", generator=gen)
+    kv = torch.randn((b, s, 2 * c), device="cuda", generator=gen)
+    calls = {"self": (qkv[..., :c], qkv[..., c: 2 * c], qkv[..., 2 * c:], heads),
+             "cross": (q_cross, kv[..., :c], kv[..., c:], heads)}
+    errs = {name: feature_err(attn.attention(*a), attn.attention_plain(*a)) for name, a in calls.items()}
+
+    def per_head(t):
+        return t.reshape(t.shape[0], t.shape[1], heads, -1).transpose(1, 2).contiguous()
+
+    library = {name: tuple(per_head(t) for t in a[:3]) for name, a in calls.items()}
+    layers = cfg.num_decoder_layers
+    forward_calls = lambda fn: [fn(*calls[name]) for _ in range(layers) for name in ("self", "cross")]  # noqa: E731
+    timing = dict(
+        ms=cuda_ms(lambda: forward_calls(attn.attention), 20),
+        plain_ms=cuda_ms(lambda: forward_calls(attn.attention_plain), 10),
+        library_ms=cuda_ms(lambda: [F.scaled_dot_product_attention(*library[name]) for _ in range(layers)
+                                    for name in ("self", "cross")], 20),
+        self_ms=cuda_ms(lambda: attn.attention(*calls["self"]), 50),
+        cross_ms=cuda_ms(lambda: attn.attention(*calls["cross"]), 50))
+    det = Detector(**{f: getattr(cfg, f) for f in Detector.__dataclass_fields__})
+    # a forward's 24 calls: q, k, v read once and the output written once, the operations at the f32 peak
+    t_bound, by = bound(layers * b * (4 * p + 2 * p + 2 * s) * c * 4, roofline_groupfree.attention_flops(cfg, det, b))
+
+    m = pipe.model
+    x = torch.as_tensor(clouds, device="cuda")
+    seed_feat, seed_xyz, _ = m.backbone(x)
+
+    def kps():
+        inds = torch.topk(torch.sigmoid(m.points_obj_cls(seed_feat)[..., 0]), p, dim=1).indices
+        return torch.gather(seed_xyz, 1, inds[..., None].expand(-1, -1, 3)), \
+            torch.gather(seed_feat, 1, inds[..., None].expand(-1, -1, c))
+
+    base, feat = kps()
+    dec0 = decode_head(m.proposal_head(feat), base, cfg, m.mean_size)
+
+    def decoder(with_heads=True):
+        query, key, dec = m.decoder_query_proj(feat), m.decoder_key_proj(seed_feat), dec0
+        for layer, predict in zip(m.decoder, m.prediction_heads):
+            query = layer(query, key, torch.cat([dec["center"], dec["size"]], dim=-1), seed_xyz)
+            if with_heads:
+                dec = decode_head(predict(query), base, cfg, m.mean_size)
+        return dec
+
+    ep = m(x)
+    split = dict(
+        backbone_ms=cuda_ms(lambda: m.backbone(x), 5),
+        kps_ms=cuda_ms(kps, 20),
+        proposal_head_ms=cuda_ms(lambda: decode_head(m.proposal_head(feat), base, cfg, m.mean_size), 20),
+        decoder_ms=cuda_ms(decoder, 10),
+        decoder_without_heads_ms=cuda_ms(lambda: decoder(False), 10),
+        boxes_ms=cuda_ms(lambda: boxes.select(*boxes.parse_predictions(ep, x[..., :3], cfg, m.mean_size)), 10),
+        forward_ms=cuda_ms(lambda: m(x), 5),
+        batch_ms=cuda_ms(lambda: pipe.detect(clouds), 5))
+    profiled("groupfree_profile", lambda i=0: m(x), 3, "batch",
+             {"attention": ("attn_fwd_kernel",), "products": ("gemm", "sgemm", "xmma"),
+              "layer_norm": ("layer_norm",), "sa_route": ("sa_group_kernel", "bias_relu")})
+    nonempty, kept = int(rows[..., boxes.NONEMPTY].sum()), int(rows[..., boxes.KEPT].sum())
+    log(phase="groupfree_attn", b=b, queries=p, keys=(p, s), heads=heads, max_abs_err=errs, bound_ms=t_bound,
+        bound_by=by, **timing)
+    log(phase="groupfree", b=b, n=cfg.num_point, launches=launches, proposals=rows.shape[0] * rows.shape[1],
+        nonempty=nonempty, kept=kept, memory_peak_bytes=int(torch.cuda.max_memory_allocated()), **split,
+        phase_s=time.perf_counter() - t_phase)
+    row = dict(name="attention", route="cuda", source="graspnet_tpu_torch/csrc/attn.cu",
+               replaces="no TPU kernel: the JAX package has no attention (Group-Free-3D's decoder, added with it)",
+               max_abs_err=max(errs.values()), ms=timing["ms"], plain_ms=timing["plain_ms"], bound_ms=t_bound,
+               bound_by=by, library_ms=timing["library_ms"])
+    log(phase="kernel", **row)
+    return row, launches
+
+
 def service_reply_diff(card: dict, cpu: dict, atol: float = TOPK_ATOL) -> dict:
     """Card vs CPU replies of GraspService.compute(): `ok` equal; with
     grasps, the rows as compare_topk holds them and best_pose / tf_pose
@@ -2781,7 +2898,7 @@ def main() -> int:
 
     smi = nvidia_smi()
     t0 = time.perf_counter()
-    nvcc_out = build.build_all()
+    nvcc_out = build.build_all(build.SOURCES + build.LAZY)
     build_s = time.perf_counter() - t0
     log(phase="environment", gpu=smi, torch=torch.__version__, cuda=torch.version.cuda,
         build_s=build_s)
@@ -2804,6 +2921,8 @@ def main() -> int:
     detect_launches = detection_phase()
     with torch.inference_mode():
         rows += sa_route_phase()
+        gf_row, groupfree_launches = groupfree_phase()
+        rows.append(gf_row)
     from graspnet_tpu_torch.models import GraspNet, init_weights
 
     crop_mlp = init_weights(GraspNet(cfg), TRAIN_SEED).crop.mlp.to(dev)
@@ -2842,7 +2961,8 @@ def main() -> int:
     # two-layer crop MLP's forward and training probe, the three mesh
     # forwards of parallel_infer together, the one-rank NCCL step, one
     # rank's step of the two-rank run and of the 2 x 2 hybrid run, one MSG
-    # forward, one verify_checkpoint run and one VoteNet batch
+    # forward, one verify_checkpoint run, one VoteNet batch and one
+    # Group-Free-3D batch
     columns = {"launches_per_forward": launches, "launches_per_train_step": train_launches,
                "launches_per_eval_batch": eval_launches,
                "launches_per_feature_forward": feature_launches,
@@ -2856,7 +2976,8 @@ def main() -> int:
                "launches_per_hybrid_rank_step": hybrid_launches,
                "launches_per_msg_forward": msg_launches,
                "launches_per_verify_run": verify_launches,
-               "launches_per_detect_batch": detect_launches}
+               "launches_per_detect_batch": detect_launches,
+               "launches_per_groupfree_batch": groupfree_launches}
     for r in rows:
         for col, counts in columns.items():
             r[col] = counts[r["name"]]

@@ -1,7 +1,11 @@
-"""3D object detection in room scans: VoteNet on the port's PointNet++ path.
+"""3D object detection in room scans: VoteNet and Group-Free-3D on the
+port's PointNet++ path.
 
-`DetectionPipeline` holds VoteNet's weights on the device and serves
-batches of scans: (B, num_point, 3 + 1) xyz and height above the floor
+`DetectionPipeline` holds the weights of the model its configuration names
+(a `VoteNetConfig`: `models/votenet.py`; a `GroupFreeConfig`:
+`models/groupfree.py`, whose forward adds the spans `detect.kps` and
+`detect.decoder`) on the device and serves batches of scans: (B,
+num_point, 3 + 1) xyz and height above the floor
 (votenet `scannet/scannet_detection_dataset.py`: z less the 0.99th
 percentile of z, `floor_height`) -> each scan's kept boxes.  As
 `GraspPipeline`, it has a dispatch half, which enqueues everything on the
@@ -33,9 +37,10 @@ import numpy as np
 import torch
 
 from graspnet_tpu_torch import checkpoint
-from graspnet_tpu_torch.config import VoteNetConfig
+from graspnet_tpu_torch.config import GroupFreeConfig, VoteNetConfig
 from graspnet_tpu_torch.device import resolve_device
 from graspnet_tpu_torch.models import init_weights
+from graspnet_tpu_torch.models.groupfree import GroupFree3D
 from graspnet_tpu_torch.models.votenet import VoteNet
 from graspnet_tpu_torch.postproc import boxes
 from graspnet_tpu_torch.utils.tracing import span
@@ -106,17 +111,19 @@ class DetectionHandle:
 class DetectionPipeline:
     """Holds the weights on the device, then serves batches of scans."""
 
-    def __init__(self, params: Optional[Dict[str, torch.Tensor]] = None, cfg: VoteNetConfig = VoteNetConfig(),
-                 seed: int = 0, device: str | torch.device = "cuda", checkpoint_path: Optional[str] = None):
-        """`params`: a VoteNet state dict; else `checkpoint_path`, a file of
-        `checkpoint.save` holding one (or a training state whose 'model' it
-        takes); else seeded random weights (`models.init_weights`)."""
+    def __init__(self, params: Optional[Dict[str, torch.Tensor]] = None,
+                 cfg: VoteNetConfig | GroupFreeConfig = VoteNetConfig(), seed: int = 0,
+                 device: str | torch.device = "cuda", checkpoint_path: Optional[str] = None):
+        """`cfg` names the model; `params`: its state dict; else
+        `checkpoint_path`, a file of `checkpoint.save` holding one (or a
+        training state whose 'model' it takes); else seeded random weights
+        (`models.init_weights`)."""
         self.cfg = cfg
         self.device = resolve_device(device, "DetectionPipeline")
         if params is None and checkpoint_path is not None:
             params = checkpoint.restore(checkpoint_path)
             params = params.get("model", params)
-        model = VoteNet(cfg)
+        model = GroupFree3D(cfg) if isinstance(cfg, GroupFreeConfig) else VoteNet(cfg)
         if params is None:
             init_weights(model, seed)
         else:

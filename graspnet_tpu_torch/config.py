@@ -3,9 +3,9 @@
 `GraspNetConfig` is a field-for-field copy of `graspnet_tpu/config.py` (the
 port imports nothing of the JAX package); `tests/test_torch_port_nn_geometry.py`
 pins the two equal so the hyperparameters cannot drift.  `VoteNetConfig`
-(no JAX counterpart) shares its backbone fields, so `models/backbone.py`
-takes either.  Tests use the scaled-down `tiny()` presets so the whole
-stack runs quickly on the CPU.
+and `GroupFreeConfig` (no JAX counterparts) share its backbone fields, so
+`models/backbone.py` takes any of the three.  Tests use the scaled-down
+`tiny()` presets so the whole stack runs quickly on the CPU.
 """
 
 from __future__ import annotations
@@ -162,6 +162,81 @@ class VoteNetConfig:
             fp2_mlp=(64, 32, 32),
             num_proposal=64,
             vote_mlp=(16, 16, 16),
+            num_class=3,
+            num_size_cluster=3,
+            mean_size=assumed_mean_sizes(count=3),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupFreeConfig:
+    """Group-Free-3D (Liu, Zhang, Cao, Hu, Tong, ICCV 2021) with the ScanNet
+    settings of zeliu98/Group-Free-3D's largest published model, L12 O512
+    w2x: `--num_point 50000 --width 2 --num_decoder_layers 12
+    --num_target 512 --sampling kps --nhead 8 --dim_feedforward 2048
+    --self_position_embedding loc_learned --cross_position_embedding
+    xyz_learned`.  The backbone fields are `GraspNetConfig`'s (votenet's
+    `Pointnet2Backbone` at twice the width, FP2 ending at the decoder's
+    288); the post-processing fields are `VoteNetConfig`'s."""
+
+    # ---- input: xyz and the height above the floor ----
+    num_point: int = 50000
+    input_feature_dim: int = 1
+
+    # ---- backbone (width 2: every SA and FP width doubled, FP2 out = d_model) ----
+    sa1: SAConfig = SAConfig(2048, 0.2, 64, (4, 128, 128, 256))
+    sa2: SAConfig = SAConfig(1024, 0.4, 32, (259, 256, 256, 512))
+    sa3: SAConfig = SAConfig(512, 0.8, 16, (515, 256, 256, 512))
+    sa4: SAConfig = SAConfig(256, 1.2, 16, (515, 256, 256, 512))
+    fp1_mlp: Tuple[int, ...] = (1024, 512, 512)
+    fp2_mlp: Tuple[int, ...] = (1024, 512, 288)
+
+    # ---- KPS queries and the transformer decoder ----
+    num_proposal: int = 512
+    num_decoder_layers: int = 12
+    nhead: int = 8
+    dim_feedforward: int = 2048
+
+    # ---- decode (ScannetDatasetConfig) and post-processing (VoteNet's) ----
+    num_class: int = 18
+    num_heading_bin: int = 1
+    num_size_cluster: int = 18
+    mean_size: Tuple[Tuple[float, float, float], ...] = assumed_mean_sizes()
+    min_box_points: int = 5
+    nms_iou: float = 0.25
+    conf_thresh: float = 0.05
+
+    # ---- numerics ----
+    bn_eps: float = 1e-5
+    ln_eps: float = 1e-5
+
+    @property
+    def d_model(self) -> int:
+        return self.fp2_mlp[-1]
+
+    @property
+    def head_dim(self) -> int:
+        """Channels of a prediction head: 1 objectness, 3 centre, 2 per
+        heading bin, 4 per size cluster, one per class (96 for ScanNet)."""
+        return 1 + 3 + 2 * self.num_heading_bin + 4 * self.num_size_cluster + self.num_class
+
+    @staticmethod
+    def tiny() -> "GroupFreeConfig":
+        """For fast CPU tests: a quarter of every width (d_model 72, so two
+        heads keep the head width of 36), 2 decoder layers, 16 queries;
+        VoteNet's tiny point counts and three classes."""
+        return GroupFreeConfig(
+            num_point=1024,
+            sa1=SAConfig(256, 0.2, 16, (4, 32, 32, 64)),
+            sa2=SAConfig(128, 0.4, 8, (67, 64, 64, 128)),
+            sa3=SAConfig(32, 0.8, 8, (131, 64, 64, 128)),
+            sa4=SAConfig(16, 1.2, 8, (131, 64, 64, 128)),
+            fp1_mlp=(256, 128, 128),
+            fp2_mlp=(256, 128, 72),
+            num_proposal=16,
+            num_decoder_layers=2,
+            nhead=2,
+            dim_feedforward=128,
             num_class=3,
             num_size_cluster=3,
             mean_size=assumed_mean_sizes(count=3),

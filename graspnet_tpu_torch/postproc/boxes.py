@@ -1,6 +1,6 @@
-"""VoteNet's box post-processing on the device: the boxes of the decoded
-proposals, the removal of empty boxes, class-aware greedy 3D NMS and the
-per-class scores.
+"""VoteNet's box post-processing on the device, which Group-Free-3D shares:
+the boxes of the decoded proposals, the removal of empty boxes, class-aware
+greedy 3D NMS and the per-class scores.
 
 Counterpart of facebookresearch/votenet `models/ap_helper.py::
 parse_predictions` with ScanNet's eval flags (`remove_empty_box`,
@@ -22,7 +22,9 @@ IoU):
     `select` runs `postproc/nms.py::fixpoint` on it (Jacobi sweeps to the
     greedy result, a host read a sweep, so it waits for the device);
   * a kept box with objectness probability above `conf_thresh` is
-    reported with its per-class scores, sem_prob x obj_prob.
+    reported with its per-class scores, sem_prob x obj_prob.  The
+    probability is the head's: VoteNet's two objectness logits through a
+    softmax, Group-Free-3D's one through a sigmoid (`objectness_prob`).
 
 Every proposal's result is one row, in the columns named below, so a batch
 reaches the host in one copy.
@@ -34,13 +36,23 @@ from typing import Dict, Tuple
 
 import torch
 
-from graspnet_tpu_torch.config import VoteNetConfig
+from graspnet_tpu_torch.config import GroupFreeConfig, VoteNetConfig
 from graspnet_tpu_torch.postproc.nms import fixpoint
 
 CHUNK_ELEMS = 1 << 27  # box x point tests a chunk of the empty-box count (bounds its bool temporaries)
 
 # columns of a proposal's row; then num_class per-class scores
 LO, HI, OBJ_PROB, SEM_CLS, POINTS, NONEMPTY, PICKED, KEPT, SCORES = 0, 3, 6, 7, 8, 9, 10, 11, 12
+
+
+def objectness_prob(end_points: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """(B, P) probability that a proposal is an object: the softmax of two
+    logits (VoteNet, `ap_helper.parse_predictions`), or the sigmoid of one
+    (Group-Free-3D's `ap_helper`)."""
+    scores = end_points["objectness_scores"]
+    if scores.shape[-1] == 1:
+        return torch.sigmoid(scores[..., 0])
+    return torch.softmax(scores, dim=-1)[..., 1]
 
 
 def box_bounds(end_points: Dict[str, torch.Tensor], mean_size: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -92,14 +104,14 @@ def nms_matrix(over: torch.Tensor, score: torch.Tensor, valid: torch.Tensor) -> 
     return (over & before & valid[:, :, None] & valid[:, None, :]).float()
 
 
-def parse_predictions(end_points: Dict[str, torch.Tensor], points: torch.Tensor, cfg: VoteNetConfig,
-                      mean_size: torch.Tensor):
+def parse_predictions(end_points: Dict[str, torch.Tensor], points: torch.Tensor,
+                      cfg: VoteNetConfig | GroupFreeConfig, mean_size: torch.Tensor):
     """Decoded proposals, the scans' (B, N, 3) points and the mean sizes on
     the device -> (rows (B, P, 12 + num_class) float32 with PICKED and KEPT
     still 0, the NMS state `select` takes).  Nothing is read on the host,
     nothing copied to the device."""
     lo, hi = box_bounds(end_points, mean_size)
-    obj_prob = torch.softmax(end_points["objectness_scores"], dim=-1)[..., 1]
+    obj_prob = objectness_prob(end_points)
     sem_cls = torch.argmax(end_points["sem_cls_scores"], dim=-1)
     sem_prob = torch.softmax(end_points["sem_cls_scores"], dim=-1)
     counts = points_in_boxes(points, lo, hi)

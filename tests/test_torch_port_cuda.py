@@ -291,7 +291,7 @@ def test_tiny_pipeline_card_matches_cpu_and_counts_launches(dev):
                                   "crop_group": 0, "crop_mlp_train": 0, "crop_mlp_train_backward": 0,
                                   "cylinder_query_multi": 0, "sa_feat_fused": 0, "multi_query": 0,
                                   "scatter_add_rows": 0, "scatter_plan": 0, "voxel_downsample": 0,
-                                  "sa_group": 3, "sa_bias_relu": 9}
+                                  "sa_group": 3, "sa_bias_relu": 9, "attention": 0}
     for g, w in zip(got, cpu.get_grasps_topk_batch(clouds)):
         g, w = g.grasp_group_array, w.grasp_group_array
         assert g.shape == w.shape
@@ -1144,23 +1144,25 @@ def assert_route_is_the_twin(xyz, new_xyz, features, idx, folded, radius, pooled
     return want
 
 
-@pytest.mark.parametrize("model", ["votenet_b8", "graspnet_b1"])
+@pytest.mark.parametrize("model", ["votenet_b8", "graspnet_b1", "groupfree_b8"])
 def test_sa_route_is_bitwise_the_plain_twin_at_published_widths(dev, model):
     """The featured route on the backbone's own intermediates, bitwise the
     plain twin on the card: VoteNet SA1-SA4 on a batch of 8 of the
     detection cell's 40,000-point room scans (SA1 with the height, its
-    3 + 1 -> 64 layer in the grouping kernel), GraspNet's SA2-4 on one
-    20,000-point tabletop."""
-    from graspnet_tpu_torch.config import VoteNetConfig
+    3 + 1 -> 64 layer in the grouping kernel), Group-Free-3D's w2x SA1-SA4
+    on 8 scans of 50,000 points (the 3 + 1 -> 128 layer, 256- and 512-wide
+    products), GraspNet's SA2-4 on one 20,000-point tabletop."""
+    from graspnet_tpu_torch.config import GroupFreeConfig, VoteNetConfig
     from graspnet_tpu_torch.models import GraspNet, init_weights
+    from graspnet_tpu_torch.models.groupfree import GroupFree3D
     from graspnet_tpu_torch.models.votenet import VoteNet
     from graspnet_tpu_torch.nn.layers import fold_bn_eval
 
-    if model == "votenet_b8":
+    if model in ("votenet_b8", "groupfree_b8"):
         from benchmark.inputs.rooms import room_pool
 
-        cfg = VoteNetConfig()
-        net = VoteNet(cfg)
+        cfg = VoteNetConfig() if model == "votenet_b8" else GroupFreeConfig()
+        net = VoteNet(cfg) if model == "votenet_b8" else GroupFree3D(cfg)
         clouds = torch.from_numpy(room_pool(25, 8, cfg.num_point))
     else:
         cfg = GraspNetConfig()
@@ -1177,7 +1179,7 @@ def test_sa_route_is_bitwise_the_plain_twin_at_published_widths(dev, model):
             want = assert_route_is_the_twin(xyz, new_xyz, features, idx, fold_bn_eval(mlp),
                                             sa.radius if sa.normalize_xyz else None, pooled)
         assert (want == 0).any() and (want > 0).any()
-    assert featured == (4 if model == "votenet_b8" else 3)
+    assert featured == (3 if model == "graspnet_b1" else 4)
 
 
 def sa_route_inputs(dev, b, n, m, c_in, radius, seed):
@@ -1348,3 +1350,100 @@ def test_service_sample_span_counts_the_route(dev):
         assert [s.counts for s in spans if s.name == "service.sample"] == \
             [{"points": 3000, "card": card, "window": kept}], max_batch
         assert [s.counts["points"] for s in spans if s.name == "collision.downsample"] == [kept], max_batch
+
+
+# ------------------------------------------------ Group-Free-3D's attention --
+
+def attention_operands(dev, b, lq, lk, heads, seed, scale=1.0, packed=True):
+    """q (B, Lq, E) and k, v (B, Lk, E), E = heads x 36: with `packed`, as
+    the decoder hands them over, k and v views into one (B, Lk, 2E)
+    projection and q a view into a (B, Lq, 3E) one."""
+    from graspnet_tpu_torch.ops.cuda import attn
+
+    gen = torch.Generator().manual_seed(seed)
+    e = heads * attn.HEAD_DIM
+    if packed:
+        q = (torch.randn((b, lq, 3 * e), generator=gen) * scale).to(dev)[..., :e]
+        kv = (torch.randn((b, lk, 2 * e), generator=gen) * scale).to(dev)
+        return q, kv[..., :e], kv[..., e:]
+    return tuple((torch.randn((b, n, e), generator=gen) * scale).to(dev) for n in (lq, lk, lk))
+
+
+@pytest.mark.parametrize("b,lq,lk,heads,scale,packed", [
+    (8, 512, 512, 8, 1.0, True),     # the cell's self-attention
+    (8, 512, 1024, 8, 1.0, True),    # the cell's cross-attention
+    (2, 33, 17, 3, 1.0, False),      # ragged tiles, a warp with no keys
+    (1, 70, 1, 2, 1.0, True),        # one key
+    (2, 64, 300, 1, 8.0, False),     # scores of hundreds: the online softmax's rescaling
+])
+def test_attention_kernel_matches_plain(dev, b, lq, lk, heads, scale, packed):
+    """The fused kernel against its plain version at head width 36: within
+    1e-5 x max(1, scale) of it, or, where the scores run to hundreds and a
+    float32 score's rounding moves its weight by more than that, no further
+    from the float64 attention than 2 x the plain version is.  Both are
+    softmax-weighted means of v summed in another order (the kernel: scores
+    in 16-key chunks, exp2 of pre-scaled queries, the four warps' partial
+    sums joined at the end).  The launch is counted once."""
+    from graspnet_tpu_torch.ops.cuda import attn
+
+    q, k, v = attention_operands(dev, b, lq, lk, heads, seed=lq + lk, scale=scale, packed=packed)
+    before = attn.attention.launches
+    got = attn.attention(q, k, v, heads)
+    assert attn.attention.launches == before + 1
+    want = attn.attention_plain(q, k, v, heads)
+    assert got.shape == want.shape and got.is_contiguous() and torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    if err > 1e-5 * max(1.0, want.abs().max().item()):
+        exact = attn.attention_plain(q.double(), k.double(), v.double(), heads)
+        assert (got - exact).abs().max().item() <= 2 * (want - exact).abs().max().item(), err
+
+
+def test_attention_rejects_inputs_outside_its_domain(dev):
+    from graspnet_tpu_torch.ops.cuda import attn
+
+    q, k, v = attention_operands(dev, 1, 8, 8, 2, seed=0, packed=False)
+    for bad in ((q[..., :64], k[..., :64], v[..., :64], 2),   # head width 32
+                (q, k[:, :0], v[:, :0], 2),                   # no keys
+                (q.double(), k.double(), v.double(), 2),
+                (q, k[:, :4], v, 2)):
+        with pytest.raises(ValueError, match="attention takes"):
+            attn.attention(*bad)
+
+
+def test_groupfree_pipeline_on_the_card_matches_the_reference(dev):
+    """Group-Free-3D at its published widths (L12 O512 w2x) through
+    `DetectionPipeline` on the card, two of the cell's 50,000-point room
+    scans, the benchmark's seeded weights: K1 once (the cascade), K4, the
+    grouping kernel 4 times and the epilogues 11 times (SA1-4), the
+    attention kernel 24 times; then held against the plain reference on
+    the card by the cell's own comparison and limits."""
+    from benchmark import harness
+    from benchmark.drivers.detect_groupfree import groupfree_weights
+    from benchmark.inputs.rooms import room_pool
+    from benchmark.reference import gf, gn, judge
+    from graspnet_tpu_torch.apps.detect import DetectionPipeline
+    from graspnet_tpu_torch.config import GroupFreeConfig
+    from graspnet_tpu_torch.models.groupfree import GroupFree3D
+
+    cfg = GroupFreeConfig()
+    weights = groupfree_weights({k: tuple(v.shape) for k, v in GroupFree3D(cfg).state_dict().items()}, 0, dev)
+    clouds = room_pool(2**31 + 5, 2, cfg.num_point)
+    pipe = DetectionPipeline(params=weights, cfg=cfg, device=dev)
+    kernels.reset_launches()
+    handle = pipe.dispatch(clouds)
+    rows = np.stack([d.rows for d in pipe.finish(handle)])
+    launches = kernels.launches()
+    assert launches == {**{k: 0 for k in launches}, "fps_chain": 1, "ball_query": 4, "sa_group": 4,
+                        "sa_bias_relu": 11, "attention": 2 * cfg.num_decoder_layers}
+    spec = harness.load_json("configs", "groupfree3d-scannet-L12-O512-w2x.infer")
+    limits = harness.load_json("workloads", "infer.groupfree_scannet_b8")["limits"]
+    det = gf.Detector.from_fields(spec["detector"])
+    ref = gf.GroupFree(harness.model_config(spec["model"], gn), det, weights, dev)
+    x = torch.as_tensor(clouds, device=dev)
+    with judge.precision("float32"):
+        out = ref.forward(x, follow=handle.end_points["size_cls_layers"], tie=limits["head_gap"])
+        res = gf.parse_predictions(out, x[..., :3], det, ref.mean_size)
+    assert torch.equal(handle.end_points["query_inds"], out["query_inds"])
+    got = gf.compare(rows, handle.end_points["head"].cpu().numpy(), out["head"].cpu().numpy(), res, x[..., :3], det)
+    assert all(got[k] <= limits[k] for k in got), got
+    assert 0 < res["kept"].sum() < res["nonempty"].sum()

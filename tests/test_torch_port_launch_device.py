@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from graspnet_tpu_torch.ops import scatter, voxel
-from graspnet_tpu_torch.ops.cuda import build, crop, fps, mlp_train, query, sa
+from graspnet_tpu_torch.ops.cuda import attn, build, crop, fps, mlp_train, query, sa
 
 
 class OnCard(torch.Tensor):
@@ -120,6 +120,9 @@ LAUNCHERS = {
     "sa_bias_relu": lambda x, c, r: (
         sa.sa_bias_relu(card(np.zeros((1, 4, 8, 16), np.float32)), card(np.zeros(16, np.float32))),
         sa.sa_bias_relu(card(np.zeros((1, 4, 8, 16), np.float32)), card(np.zeros(16, np.float32)), pool=True)),
+    "attention": lambda x, c, r: attn.attention(
+        card(np.zeros((1, 5, 72), np.float32)), card(np.zeros((1, 9, 72), np.float32)),
+        card(np.zeros((1, 9, 72), np.float32)), 2),
 }
 
 
@@ -140,6 +143,20 @@ def test_the_launchers_cover_every_wrapper():
     from graspnet_tpu_torch.ops.cuda import WRAPPERS
 
     assert {w.__name__ for w in WRAPPERS} == set(LAUNCHERS)
+
+
+def test_attention_loads_its_library_at_the_call(state, monkeypatch):
+    """The attention wrapper asks for its own library (`attn`) when it
+    launches, and only then; a head width other than 36 raises before."""
+    asked = []
+    lib = build.load("any")
+    monkeypatch.setattr(build, "load", lambda name: asked.append(name) or lib)
+    q = card(np.zeros((2, 3, 36), np.float32))
+    with pytest.raises(ValueError, match="attention takes"):
+        attn.attention(card(np.zeros((2, 3, 32), np.float32)), q, q, 1)
+    assert asked == []
+    attn.attention(q, q, q, 1)
+    assert asked == ["attn"] and [fn for fn, _ in state["calls"]] == ["gn_attention"]
 
 
 def test_on_device_makes_the_device_current_and_yields_its_stream(monkeypatch):
@@ -192,11 +209,12 @@ def _sa_stage_operands(stage, n: int = 48, m_max: int = 24):
 
 
 def _featured_stages():
-    from graspnet_tpu_torch.config import GraspNetConfig, VoteNetConfig
+    from graspnet_tpu_torch.config import GraspNetConfig, GroupFreeConfig, VoteNetConfig
 
     cases = []
     for name, cfg in (("graspnet", GraspNetConfig()), ("graspnet_tiny", GraspNetConfig.tiny()),
-                      ("votenet", VoteNetConfig()), ("votenet_tiny", VoteNetConfig.tiny())):
+                      ("votenet", VoteNetConfig()), ("votenet_tiny", VoteNetConfig.tiny()),
+                      ("groupfree", GroupFreeConfig()), ("groupfree_tiny", GroupFreeConfig.tiny())):
         for key in ("sa1", "sa2", "sa3", "sa4"):
             if key != "sa1" or cfg.input_feature_dim:
                 cases.append(pytest.param(getattr(cfg, key), id=f"{name}-{key}"))
@@ -205,8 +223,9 @@ def _featured_stages():
 
 @pytest.mark.parametrize("stage", _featured_stages())
 def test_sa_route_domain_covers_every_featured_eval_stage(state, stage):
-    """Every eval SA stage with features of both models' configurations and
-    their tiny ones reaches the grouping kernel, one epilogue after each
+    """Every eval SA stage with features of the three models' configurations
+    and their tiny ones (Group-Free-3D's w2x: a 128-wide fused first layer,
+    256- and 512-wide products) reaches the grouping kernel, one epilogue after each
     product but the last and the pooling epilogue after the last, all inside
     `on_device`; a first layer of contraction <= 4 (VoteNet's SA1) is the
     grouping kernel's."""

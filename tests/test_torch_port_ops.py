@@ -242,7 +242,7 @@ class TestThreeNN:
 NO_LAUNCHES = {"fps_chain": 0, "ball_query": 0, "sa1_fused": 0, "crop_fused": 0, "crop_group": 0,
                "crop_mlp_train": 0, "crop_mlp_train_backward": 0, "cylinder_query_multi": 0, "sa_feat_fused": 0,
                "multi_query": 0, "scatter_add_rows": 0, "scatter_plan": 0, "voxel_downsample": 0, "sa_group": 0,
-               "sa_bias_relu": 0}
+               "sa_bias_relu": 0, "attention": 0}
 
 
 def tiny_cloud(seed: int, n: int = 512) -> np.ndarray:
@@ -414,6 +414,17 @@ def entry_detect(tmp_path):
     return [(d.rows, (cfg.num_proposal, 12 + cfg.num_class)) for d in dets]
 
 
+def entry_detect_groupfree(tmp_path):
+    from graspnet_tpu_torch.apps.detect import DetectionPipeline
+    from graspnet_tpu_torch.config import GroupFreeConfig
+    from tests.test_torch_port_groupfree import scans, seeded_state
+
+    cfg = GroupFreeConfig.tiny()
+    dets = DetectionPipeline(params=seeded_state(cfg, 1), cfg=cfg, device="cpu").detect(scans(cfg, 5))
+    assert len(dets) == 2
+    return [(d.rows, (cfg.num_proposal, 12 + cfg.num_class)) for d in dets]
+
+
 def entry_msg(tmp_path):
     from graspnet_tpu_torch.models import init_weights
     from graspnet_tpu_torch.models.msg import LFPModuleMSG, SAModuleMSG
@@ -467,6 +478,7 @@ ENTRY_POINTS = {
     "train_cli_epoch": entry_train_cli,
     "test_app_dump_loop": entry_test_app,
     "detection_pipeline": entry_detect,
+    "groupfree_detection_pipeline": entry_detect_groupfree,
     "msg_modules": entry_msg,
     "tolerance": entry_tolerance,
     "voxel_downsample": entry_voxel,
