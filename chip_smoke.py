@@ -175,7 +175,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
  24. detection (after phase 12): VoteNet through apps/detect.py's
      DetectionPipeline at its published widths on a batch of 8 seeded
      40,000-point room scans: K1 2, K4 5, the featured SA route's grouping
-     4 and its epilogues 11 launches a batch and nothing else, K4 at SA1
+     4, its epilogues 11 and the box count 1 a batch and nothing else, K4 at SA1
      and at the vote aggregation bitwise plain, every box decision equal to
      the CPU pipeline's, floats within FEATURE_TOL, ms a batch;
  25. sa_route (after phase 24): the featured eval SA route (the grouping
@@ -185,7 +185,15 @@ Phases (each prints one JSON line; any failure exits non-zero):
      stage's output; CUDA-event ms of each stage with the route and with
      the twin, and of K4, the grouping, the products and the epilogues
      apart; a profiler window by kernel; the two kernels' rows of the
-     kernels line.
+     kernels line;
+ 26. groupfree (after phase 25): Group-Free-3D through DetectionPipeline,
+     the attention kernel against its plain version, the batch by part;
+ 27. box_count (after phase 26): the empty-box count's kernel
+     (csrc/boxes.cu) at VoteNet's (8 x 256 boxes x 40,000 points) and
+     Group-Free-3D's (8 x 512 x 50,000) batches of room scans, on the
+     strided xyz of the 4-float rows: torch.equal to the plain count, its
+     CUDA-event ms (the zeroed output and the launch) against the plain
+     count's and its bound; the kernels line's row.
 
 Without CUDA it exits with code 2 before printing any result.  The
 deterministic-mode child runs this file with `--deterministic-steps FILE`;
@@ -743,11 +751,8 @@ def main_path_phase(cfg, pipe, clouds):
     from graspnet_tpu_torch.ops import cuda as kernels
     from graspnet_tpu_torch.postproc.nms import nms_keep_mask
 
-    expected = {"fps_chain": 1, "ball_query": 3, "sa1_fused": 1, "crop_fused": 1,
-                "crop_group": 0, "crop_mlp_train": 0, "crop_mlp_train_backward": 0,
-                "cylinder_query_multi": 0, "sa_feat_fused": 0, "multi_query": 0,
-                "scatter_add_rows": 0, "scatter_plan": 0, "voxel_downsample": 0,
-                "sa_group": 3, "sa_bias_relu": 9, "attention": 0}
+    expected = {**{k: 0 for k in kernels.launches()}, "fps_chain": 1, "ball_query": 3, "sa1_fused": 1,
+                "crop_fused": 1, "sa_group": 3, "sa_bias_relu": 9}
 
     def drive(fn):
         """Run one batched forward; every kernel must launch once for it."""
@@ -1805,8 +1810,8 @@ def detection_phase() -> dict:
     batch of 8 of the detection cell's seeded room scans
     (benchmark/inputs/rooms.py, 40,000 points with the height).  A batch
     launches K1 2 (the cascade, the proposals' FPS), K4 5 (SA1-4 and the
-    vote aggregation), the featured SA route's grouping 4 (SA1-4) and
-    epilogues 11 and nothing else; K4 at SA1 (40,000 points, 2048
+    vote aggregation), the featured SA route's grouping 4 (SA1-4),
+    epilogues 11 and the box count 1 and nothing else; K4 at SA1 (40,000 points, 2048
     centres, r 0.2, ns 64) and at the vote aggregation (the 1024 votes,
     256 centres, r 0.3, ns 16) on the batch's own inputs bitwise its plain
     version; the rows against the same pipeline on the CPU: every box
@@ -1832,7 +1837,8 @@ def detection_phase() -> dict:
     handle = card.dispatch(clouds)
     got = card.finish(handle)
     launches = kernels.launches()
-    expected = {**{k: 0 for k in launches}, "fps_chain": 2, "ball_query": 5, "sa_group": 4, "sa_bias_relu": 11}
+    expected = {**{k: 0 for k in launches}, "fps_chain": 2, "ball_query": 5, "sa_group": 4, "sa_bias_relu": 11,
+                "count_in_boxes": 1}
     if launches != expected:
         raise AssertionError(f"detection: launches {launches}, expected {expected}")
     ep = handle.end_points
@@ -1983,7 +1989,7 @@ def groupfree_phase():
     """Phase 26 (logged as `groupfree_attn`, then `groupfree`):
     Group-Free-3D (L12 O512 w2x) on the card, the benchmark's seeded
     weights (seed 0), a batch of 8 of its cell's 50,000-point room scans.  A batch through DetectionPipeline launches K1 1, K4 4, the
-    grouping 4, the epilogues 11 and the attention kernel 24 times; the
+    grouping 4, the epilogues 11, the attention kernel 24 times and the box count once; the
     attention kernel (`groupfree_attn`) against its plain version at the
     cell's two shapes (self-attention over the 512 queries, cross-attention
     over the 1,024 seeds, 8 heads of 36, q and k, v as views into the
@@ -2021,7 +2027,7 @@ def groupfree_phase():
     rows = np.stack([d.rows for d in pipe.detect(clouds)])
     launches = kernels.launches()
     expected = {**{k: 0 for k in launches}, "fps_chain": 1, "ball_query": 4, "sa_group": 4, "sa_bias_relu": 11,
-                "attention": 2 * cfg.num_decoder_layers}
+                "attention": 2 * cfg.num_decoder_layers, "count_in_boxes": 1}
     if launches != expected:
         raise AssertionError(f"groupfree: launches {launches}, expected {expected}")
     gen = torch.Generator(device="cuda").manual_seed(DATA_SEED)
@@ -2094,6 +2100,53 @@ def groupfree_phase():
                bound_by=by, library_ms=timing["library_ms"])
     log(phase="kernel", **row)
     return row, launches
+
+
+def box_count_phase() -> dict:
+    """Phase 27: the empty-box count's kernel (`ops/cuda/boxes.py::
+    count_in_boxes`) at both detection cells' batches: 8 seeded room scans
+    (benchmark/inputs/rooms.py) of 40,000 points with 256 boxes a scan
+    (VoteNet) and of 50,000 with 512 (Group-Free-3D), the points the
+    strided xyz of the 4-float rows as the pipeline hands them over, the
+    boxes 0.1-2 m a side around points of the scan.  The kernel
+    torch.equal to the plain count; CUDA-event ms of the wrapper (the
+    zeroed output and the launch) and of the plain count; the bound: 6
+    float compares a (box, point) test at the f32 rate against the points'
+    xyz, the corners and the counts through memory once.  Returns the
+    kernels line's row (ms at VoteNet's batch)."""
+    from benchmark.inputs.rooms import room_pool
+    from graspnet_tpu_torch.ops.cuda import boxes as kboxes
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(DATA_SEED + 27)
+    shapes = {}
+    for cell, (n, p) in {"votenet": (40000, 256), "groupfree": (50000, 512)}.items():
+        rows = torch.from_numpy(room_pool(DATA_SEED + 27, 8, n)).cuda()
+        pts = rows[..., :3]
+        centre = pts[torch.arange(8, device="cuda")[:, None], torch.from_numpy(rng.integers(0, n, (8, p))).cuda()]
+        half = torch.from_numpy(rng.uniform(0.05, 1.0, (8, p, 3)).astype(np.float32)).cuda()
+        lo, hi = centre - half, centre + half
+        got, want = kboxes.count_in_boxes(pts, lo, hi), kboxes.points_in_boxes(pts, lo, hi)
+        if not torch.equal(got, want):
+            raise AssertionError(f"box_count: the kernel differs from the plain count at {cell}'s shape")
+        tests = 8 * p * n
+        t_bound, by = bound(8 * n * 12 + 8 * p * (24 + 8), 6 * tests)
+        shapes[cell] = dict(b=8, p=p, n=n, tests=tests,
+                            ms=cuda_ms(lambda: kboxes.count_in_boxes(pts, lo, hi), 50),
+                            plain_ms=cuda_ms(lambda: kboxes.points_in_boxes(pts, lo, hi), 10),
+                            bound_ms=t_bound, bound_by=by, nonempty=int((want >= 5).sum()),
+                            counted=int(want.sum()))
+        del rows, pts, lo, hi, got, want
+    log(phase="box_count", bitwise_plain=True, shapes=shapes, phase_s=time.perf_counter() - t_phase)
+    vn = shapes["votenet"]
+    row = dict(name="count_in_boxes", route="cuda", source="graspnet_tpu_torch/csrc/boxes.cu",
+               replaces="no TPU kernel: the JAX package has no box post-processing (the empty-box count of "
+                        "postproc/boxes.py, plain torch before)",
+               max_abs_err=0.0,  # torch.equal to the plain count at both shapes
+               ms=vn["ms"], plain_ms=vn["plain_ms"], bound_ms=vn["bound_ms"], bound_by=vn["bound_by"],
+               library_ms=None)
+    log(phase="kernel", **row)
+    return row
 
 
 def service_reply_diff(card: dict, cpu: dict, atol: float = TOPK_ATOL) -> dict:
@@ -2923,6 +2976,7 @@ def main() -> int:
         rows += sa_route_phase()
         gf_row, groupfree_launches = groupfree_phase()
         rows.append(gf_row)
+        rows.append(box_count_phase())
     from graspnet_tpu_torch.models import GraspNet, init_weights
 
     crop_mlp = init_weights(GraspNet(cfg), TRAIN_SEED).crop.mlp.to(dev)

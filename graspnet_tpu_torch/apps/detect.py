@@ -14,9 +14,11 @@ card and returns at once, and a blocking finish half:
   * `dispatch`: the scans to the card, then the forward, the decode, the
     empty-box count and the NMS's suppression matrix enqueued
     (`postproc/boxes.py`) — span `detect.dispatch`, and inside it
-    `detect.boxes` around the post-processing, whose counts `proposals`,
-    `nonempty` and `kept` join it when the batch is fetched (they are the
-    device's);
+    `detect.boxes` around the post-processing, with the count `card`
+    (the empty-box count's kernel launches: 1 on the card, 0 on the CPU's
+    plain route and where there are no boxes or no points); its counts
+    `proposals`, `nonempty` and `kept` join it when the batch is fetched
+    (they are the device's);
   * `finish`: the NMS's sweeps to the greedy result, whose first read
     waits for the device — span `detect.nms`, count `sweeps` — then the
     proposals' rows to the host — both in span `detect.fetch` — and a
@@ -42,6 +44,7 @@ from graspnet_tpu_torch.device import resolve_device
 from graspnet_tpu_torch.models import init_weights
 from graspnet_tpu_torch.models.groupfree import GroupFree3D
 from graspnet_tpu_torch.models.votenet import VoteNet
+from graspnet_tpu_torch.ops.cuda.boxes import count_in_boxes
 from graspnet_tpu_torch.postproc import boxes
 from graspnet_tpu_torch.utils.tracing import span
 
@@ -148,7 +151,9 @@ class DetectionPipeline:
             x = torch.as_tensor(np.asarray(clouds, np.float32)).to(self.device)
             end_points = self.model(x)
             with span("detect.boxes", into=timings) as b:
+                launched = count_in_boxes.launches
                 rows, state = boxes.parse_predictions(end_points, x[..., :3], self.cfg, self.model.mean_size)
+                b.count(card=count_in_boxes.launches - launched)
         return DetectionHandle(end_points, rows, state, b, d.start_ns, timings)
 
     @torch.inference_mode()

@@ -14,7 +14,8 @@ IoU):
     y) and back, a permutation and a sign flip; the IoU's products are
     taken in its order (x, then depth z, then depth y);
   * a box with fewer than `min_box_points` of the scan's points inside,
-    lo <= p <= hi on every axis, is empty;
+    lo <= p <= hi on every axis, is empty (the count: one kernel on the
+    card, `ops/cuda/boxes.py::count_in_boxes`; plain torch on the CPU);
   * NMS runs over the non-empty boxes in descending objectness
     probability, ties by ascending index; a box is dropped when its IoU
     with a kept box of the same semantic class is above `nms_iou`.
@@ -37,9 +38,8 @@ from typing import Dict, Tuple
 import torch
 
 from graspnet_tpu_torch.config import GroupFreeConfig, VoteNetConfig
+from graspnet_tpu_torch.ops.cuda.boxes import count_in_boxes
 from graspnet_tpu_torch.postproc.nms import fixpoint
-
-CHUNK_ELEMS = 1 << 27  # box x point tests a chunk of the empty-box count (bounds its bool temporaries)
 
 # columns of a proposal's row; then num_class per-class scores
 LO, HI, OBJ_PROB, SEM_CLS, POINTS, NONEMPTY, PICKED, KEPT, SCORES = 0, 3, 6, 7, 8, 9, 10, 11, 12
@@ -64,22 +64,6 @@ def box_bounds(end_points: Dict[str, torch.Tensor], mean_size: torch.Tensor) -> 
     half = torch.abs(mean_size[size_cls] + res) * 0.5
     center = end_points["center"]
     return center - half, center + half
-
-
-def points_in_boxes(points: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
-    """(B, N, 3) points, (B, P, 3) corners -> (B, P) int64 counts of the
-    points with lo <= p <= hi on every axis."""
-    b, n, _ = points.shape
-    chunk = max(1, CHUNK_ELEMS // max(1, b * n))
-    x, y, z = (points[:, None, :, k] for k in range(3))
-    counts = []
-    for p0 in range(0, lo.shape[1], chunk):
-        l, h = lo[:, p0: p0 + chunk, :, None], hi[:, p0: p0 + chunk, :, None]
-        inside = (x >= l[:, :, 0]) & (x <= h[:, :, 0])
-        inside &= (y >= l[:, :, 1]) & (y <= h[:, :, 1])
-        inside &= (z >= l[:, :, 2]) & (z <= h[:, :, 2])
-        counts.append(inside.sum(dim=-1))
-    return torch.cat(counts, dim=1)
 
 
 def overlaps(lo: torch.Tensor, hi: torch.Tensor, sem_cls: torch.Tensor, iou_thresh: float) -> torch.Tensor:
@@ -114,7 +98,7 @@ def parse_predictions(end_points: Dict[str, torch.Tensor], points: torch.Tensor,
     obj_prob = objectness_prob(end_points)
     sem_cls = torch.argmax(end_points["sem_cls_scores"], dim=-1)
     sem_prob = torch.softmax(end_points["sem_cls_scores"], dim=-1)
-    counts = points_in_boxes(points, lo, hi)
+    counts = count_in_boxes(points, lo, hi)
     nonempty = counts >= cfg.min_box_points
     a = nms_matrix(overlaps(lo, hi, sem_cls, cfg.nms_iou), obj_prob, nonempty)
     zero = torch.zeros_like(obj_prob)[..., None]

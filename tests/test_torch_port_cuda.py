@@ -287,11 +287,9 @@ def test_tiny_pipeline_card_matches_cpu_and_counts_launches(dev):
     cpu = GraspPipeline(cfg=cfg, seed=1, device="cpu")
     kernels.reset_launches()
     got = card.get_grasps_topk_batch(clouds)
-    assert kernels.launches() == {"fps_chain": 1, "ball_query": 3, "sa1_fused": 1, "crop_fused": 1,
-                                  "crop_group": 0, "crop_mlp_train": 0, "crop_mlp_train_backward": 0,
-                                  "cylinder_query_multi": 0, "sa_feat_fused": 0, "multi_query": 0,
-                                  "scatter_add_rows": 0, "scatter_plan": 0, "voxel_downsample": 0,
-                                  "sa_group": 3, "sa_bias_relu": 9, "attention": 0}
+    launches = kernels.launches()
+    assert launches == {**{k: 0 for k in launches}, "fps_chain": 1, "ball_query": 3, "sa1_fused": 1,
+                        "crop_fused": 1, "sa_group": 3, "sa_bias_relu": 9}
     for g, w in zip(got, cpu.get_grasps_topk_batch(clouds)):
         g, w = g.grasp_group_array, w.grasp_group_array
         assert g.shape == w.shape
@@ -1082,7 +1080,7 @@ def test_detection_pipeline_card_matches_cpu(dev):
     got = card.finish(h)
     launches = kernels.launches()
     assert launches == {**{k: 0 for k in launches}, "fps_chain": 2, "ball_query": 5, "sa_group": 4,
-                        "sa_bias_relu": 11}
+                        "sa_bias_relu": 11, "count_in_boxes": 1}
     hc = cpu.dispatch(clouds)
     want = cpu.finish(hc)
     head, head_cpu = h.end_points["head"].cpu(), hc.end_points["head"]
@@ -1434,7 +1432,7 @@ def test_groupfree_pipeline_on_the_card_matches_the_reference(dev):
     rows = np.stack([d.rows for d in pipe.finish(handle)])
     launches = kernels.launches()
     assert launches == {**{k: 0 for k in launches}, "fps_chain": 1, "ball_query": 4, "sa_group": 4,
-                        "sa_bias_relu": 11, "attention": 2 * cfg.num_decoder_layers}
+                        "sa_bias_relu": 11, "attention": 2 * cfg.num_decoder_layers, "count_in_boxes": 1}
     spec = harness.load_json("configs", "groupfree3d-scannet-L12-O512-w2x.infer")
     limits = harness.load_json("workloads", "infer.groupfree_scannet_b8")["limits"]
     det = gf.Detector.from_fields(spec["detector"])
@@ -1447,3 +1445,118 @@ def test_groupfree_pipeline_on_the_card_matches_the_reference(dev):
     got = gf.compare(rows, handle.end_points["head"].cpu().numpy(), out["head"].cpu().numpy(), res, x[..., :3], det)
     assert all(got[k] <= limits[k] for k in got), got
     assert 0 < res["kept"].sum() < res["nonempty"].sum()
+
+
+# ------------------------------------------------------- the empty-box count --
+
+def box_case(rng, b, n, p, width=4, lattice=False):
+    """(B, N, width) rows whose x[..., :3] are the points (a strided view at
+    width 4, as the pipeline hands them over) and (B, P, 3) corners: boxes
+    around points of the scan, 0.05-1.5 m a side, every fourth moved 10 m
+    away (empty); or, with `lattice`, points and corners on a 1/8 m
+    lattice, so points lie exactly on faces and corners and some boxes
+    have no extent."""
+    if lattice:
+        rows = (rng.integers(0, 17, (b, n, width)) / 8).astype(np.float32)
+        lo = (rng.integers(0, 17, (b, p, 3)) / 8).astype(np.float32)
+        hi = lo + (rng.integers(0, 5, (b, p, 3)) / 8).astype(np.float32)
+    else:
+        rows = rng.uniform(0.0, 6.0, (b, n, width)).astype(np.float32)
+        centre = rng.uniform(0.0, 6.0, (b, p, 3)).astype(np.float32)
+        if n:
+            centre = rows[np.arange(b)[:, None], rng.integers(0, n, (b, p)), :3]
+        centre[:, 3::4] += 10.0
+        half = rng.uniform(0.025, 0.75, (b, p, 3)).astype(np.float32)
+        lo, hi = centre - half, centre + half
+    return torch.from_numpy(rows), torch.from_numpy(lo), torch.from_numpy(hi)
+
+
+@pytest.mark.parametrize("b,n,p,width,lattice", [
+    (8, 40000, 256, 4, False),   # VoteNet's batch
+    (8, 50000, 512, 4, False),   # Group-Free-3D's batch
+    (1, 1000, 1, 4, False),      # one box, a ragged step
+    (1, 40001, 33, 4, False),    # a ragged tile and a ragged slice
+    (1, 777, 300, 3, False),     # contiguous 3-float rows
+    (2, 5000, 300, 4, True),     # faces, corners, zero extent
+    (3, 513, 40, 3, True),
+])
+def test_box_count_kernel_is_the_plain_count(dev, b, n, p, width, lattice):
+    """`count_in_boxes` on the card equals `points_in_boxes` (torch.equal,
+    int64), one launch a call."""
+    from graspnet_tpu_torch.ops.cuda import boxes as kboxes
+
+    rows, lo, hi = (t.to(dev) for t in box_case(np.random.default_rng(b * n + p), b, n, p, width, lattice))
+    pts = rows[..., :3]
+    before = kboxes.count_in_boxes.launches
+    got = kboxes.count_in_boxes(pts, lo, hi)
+    assert kboxes.count_in_boxes.launches == before + 1
+    want = kboxes.points_in_boxes(pts, lo, hi)
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    assert int(want.max()) > 0 and (p < 4 or lattice or int(want.min()) == 0)
+
+
+def test_box_count_kernel_takes_nan_as_outside(dev):
+    """NaN coordinates of points and NaN bounds of boxes fail every
+    comparison, on the card as in the plain count."""
+    from graspnet_tpu_torch.ops.cuda import boxes as kboxes
+
+    rng = np.random.default_rng(7)
+    rows, lo, hi = box_case(rng, 2, 3000, 70)
+    rows[:, rng.choice(3000, 300, replace=False), rng.integers(0, 3)] = float("nan")
+    lo[:, 2, 1] = float("nan")
+    hi[:, 10, 2] = float("nan")
+    lo[0, 21] = float("nan")
+    rows, lo, hi = rows.to(dev), lo.to(dev), hi.to(dev)
+    got = kboxes.count_in_boxes(rows[..., :3], lo, hi)
+    assert torch.equal(got, kboxes.points_in_boxes(rows[..., :3], lo, hi))
+    assert int(got[:, 2].sum()) == int(got[:, 10].sum()) == int(got[0, 21]) == 0 < int(got.sum())
+
+
+def test_box_count_kernel_of_no_boxes_and_no_points(dev):
+    """No points: every count 0; no boxes: an empty result; neither
+    launches the kernel."""
+    from graspnet_tpu_torch.ops.cuda import boxes as kboxes
+
+    before = kboxes.count_in_boxes.launches
+    rows, lo, hi = (t.to(dev) for t in box_case(np.random.default_rng(3), 2, 0, 5))
+    got = kboxes.count_in_boxes(rows[..., :3], lo, hi)
+    assert torch.equal(got, torch.zeros((2, 5), dtype=torch.int64, device=dev))
+    rows, lo, hi = (t.to(dev) for t in box_case(np.random.default_rng(3), 2, 100, 0))
+    assert kboxes.count_in_boxes(rows[..., :3], lo, hi).shape == (2, 0)
+    assert kboxes.count_in_boxes.launches == before
+
+
+@pytest.mark.parametrize("model", ["votenet", "groupfree"])
+def test_detection_batch_counts_the_boxes_as_the_plain_count(dev, model, monkeypatch):
+    """One batch of two of the cell's room scans through `DetectionPipeline`
+    at the published widths, with the kernel and with the plain count in
+    its place: the POINTS and NONEMPTY columns equal, and the
+    `detect.boxes` span counts card 1 on the card."""
+    from benchmark.drivers.detect_groupfree import groupfree_weights
+    from benchmark.inputs.rooms import room_pool
+    from graspnet_tpu_torch.apps.detect import DetectionPipeline
+    from graspnet_tpu_torch.config import GroupFreeConfig, VoteNetConfig
+    from graspnet_tpu_torch.models.groupfree import GroupFree3D
+    from graspnet_tpu_torch.ops.cuda import boxes as kboxes
+    from graspnet_tpu_torch.postproc import boxes
+
+    if model == "votenet":
+        cfg = VoteNetConfig()
+        pipe = DetectionPipeline(cfg=cfg, seed=1, device=dev)
+    else:
+        cfg = GroupFreeConfig()
+        weights = groupfree_weights({k: tuple(v.shape) for k, v in GroupFree3D(cfg).state_dict().items()}, 0, dev)
+        pipe = DetectionPipeline(params=weights, cfg=cfg, device=dev)
+    clouds = room_pool(2**31 + 27, 2, cfg.num_point)
+    kernels.reset_launches()
+    with tracing.recording() as rec:
+        got = np.stack([d.rows for d in pipe.detect(clouds)])
+    assert kernels.launches()["count_in_boxes"] == 1
+    assert [s.counts["card"] for s in rec.drain() if s.name == "detect.boxes"] == [1]
+    monkeypatch.setattr(boxes, "count_in_boxes", kboxes.points_in_boxes)
+    kernels.reset_launches()
+    want = np.stack([d.rows for d in pipe.detect(clouds)])
+    assert kernels.launches()["count_in_boxes"] == 0
+    for col in (boxes.POINTS, boxes.NONEMPTY):
+        np.testing.assert_array_equal(got[..., col], want[..., col])
+    assert 0 < want[..., boxes.NONEMPTY].sum() < want[..., boxes.NONEMPTY].size

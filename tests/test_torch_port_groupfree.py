@@ -284,6 +284,7 @@ def test_dispatch_records_the_kps_and_decoder_spans():
     assert spans["detect.decoder"].counts == {"layers": cfg.num_decoder_layers, "queries": cfg.num_proposal,
                                               "keys": cfg.sa2.npoint}
     assert spans["detect.boxes"].counts["proposals"] == 2 * cfg.num_proposal
+    assert spans["detect.boxes"].counts["card"] == 0  # the plain count ran
     assert set(timings) == {"detect.dispatch", "detect.boxes", "detect.fetch", "detect.nms", "detect"}
     assert len(dets) == 2 and dets[0].rows.shape == (cfg.num_proposal, boxes.SCORES + cfg.num_class)
     k = dets[0].kept
@@ -394,5 +395,5 @@ def test_the_configuration_file_is_the_published_config():
 def test_the_attention_library_is_built_at_its_first_use_only():
     """`build_all`'s default list (the training CLI's, the robot's) leaves
     the attention library out; its source lies in the port."""
-    assert "attn" not in build.SOURCES and build.LAZY == ("attn",)
+    assert "attn" not in build.SOURCES and build.LAZY == ("attn", "boxes")
     assert build._source("attn").exists() and build._source("attn").parent == build.CSRC

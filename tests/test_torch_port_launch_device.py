@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from graspnet_tpu_torch.ops import scatter, voxel
-from graspnet_tpu_torch.ops.cuda import attn, build, crop, fps, mlp_train, query, sa
+from graspnet_tpu_torch.ops.cuda import attn, boxes, build, crop, fps, mlp_train, query, sa
 
 
 class OnCard(torch.Tensor):
@@ -37,7 +37,8 @@ def card(x) -> OnCard:
 
 class FakeLib:
     """Every C function: returns 0 (success) or a size the wrapper accepts,
-    and records (name, the device `on_device` made current, or None)."""
+    and records (name, the device `on_device` made current, or None), and
+    its last arguments under its name."""
 
     def __init__(self, state):
         self.state = state
@@ -47,6 +48,7 @@ class FakeLib:
 
         def fn(*args):
             state["calls"].append((name, state["current"]))
+            state["args"][name] = args
             if name.endswith("_smem"):
                 return 1 << 16
             if name == "gn_mlp_train_dims_ok":
@@ -63,7 +65,7 @@ class FakeLib:
 
 @pytest.fixture
 def state(monkeypatch):
-    state = {"calls": [], "current": None}
+    state = {"calls": [], "args": {}, "current": None}
 
     @contextlib.contextmanager
     def on_device(device):
@@ -123,6 +125,8 @@ LAUNCHERS = {
     "attention": lambda x, c, r: attn.attention(
         card(np.zeros((1, 5, 72), np.float32)), card(np.zeros((1, 9, 72), np.float32)),
         card(np.zeros((1, 9, 72), np.float32)), 2),
+    "count_in_boxes": lambda x, c, r: boxes.count_in_boxes(
+        card(np.zeros((1, 32, 4), np.float32))[..., :3], c, c + 0.01),
 }
 
 
@@ -157,6 +161,53 @@ def test_attention_loads_its_library_at_the_call(state, monkeypatch):
     assert asked == []
     attn.attention(q, q, q, 1)
     assert asked == ["attn"] and [fn for fn, _ in state["calls"]] == ["gn_attention"]
+
+
+def test_box_count_loads_its_library_at_the_call(state, monkeypatch):
+    """The box count asks for its own library (`boxes`) when it launches,
+    and only then; what the kernel does not take raises before: another
+    dtype, rank or width, a last axis that is not unit-stride, corners of
+    two shapes or another batch."""
+    asked = []
+    lib = build.load("any")
+    monkeypatch.setattr(build, "load", lambda name: asked.append(name) or lib)
+    pts, lo = card(np.zeros((2, 40, 3), np.float32)), card(np.zeros((2, 5, 3), np.float32))
+    bad = [(card(np.zeros((2, 40, 3), np.float64)), lo, lo),
+           (card(np.zeros((40, 3), np.float32)), lo[0], lo[0]),
+           (card(np.zeros((2, 40, 4), np.float32)), lo, lo),
+           (card(np.zeros((2, 3, 40), np.float32)).transpose(1, 2), lo, lo),
+           (pts, lo, lo[:, :4]),
+           (pts, lo[:1], lo[:1])]
+    for args in bad:
+        with pytest.raises(ValueError, match="count_in_boxes takes"):
+            boxes.count_in_boxes(*args)
+    assert asked == []
+    before = boxes.count_in_boxes.launches
+    boxes.count_in_boxes(pts, lo, lo)
+    assert asked == ["boxes"] and [fn for fn, _ in state["calls"]] == ["gn_box_count"]
+    assert boxes.count_in_boxes.launches == before + 1
+
+
+@pytest.mark.parametrize("b,p,n,width", [(8, 256, 40000, 4), (8, 512, 50000, 4), (1, 1, 1, 3), (1, 33, 513, 4),
+                                         (2, 300, 1000, 3), (3, 64, 1025, 5), (2, 0, 100, 4), (2, 7, 0, 4)])
+def test_box_count_hands_the_rows_over_in_place(state, b, p, n, width):
+    """The box count passes the kernel the points' and corners' own storage
+    and strides (the pipeline's x[..., :3] of wider rows, corners as views
+    of one (B, P, 6) array), the sizes and a (B, P) int64 output zeroed
+    before the launch; with no boxes or no points it launches nothing and
+    returns the zeros."""
+    rows = card(np.ones((b, n, width), np.float32))
+    corners = card(np.ones((b, p, 6), np.float32))
+    pts, lo, hi = rows[..., :3], corners[..., :3], corners[..., 3:]
+    before = boxes.count_in_boxes.launches
+    got = boxes.count_in_boxes(pts, lo, hi)
+    assert got.dtype == torch.int64 and got.shape == (b, p) and not got.any()
+    if p == 0 or n == 0:
+        assert state["calls"] == [] and boxes.count_in_boxes.launches == before
+        return
+    assert state["calls"] == [("gn_box_count", pts.device)] and boxes.count_in_boxes.launches == before + 1
+    assert state["args"]["gn_box_count"] == (rows.data_ptr(), n * width, width, corners.data_ptr(), 6 * p, 6,
+                                             corners.data_ptr() + 12, 6 * p, 6, b, n, p, got.data_ptr(), 0)
 
 
 def test_on_device_makes_the_device_current_and_yields_its_stream(monkeypatch):

@@ -242,7 +242,7 @@ class TestThreeNN:
 NO_LAUNCHES = {"fps_chain": 0, "ball_query": 0, "sa1_fused": 0, "crop_fused": 0, "crop_group": 0,
                "crop_mlp_train": 0, "crop_mlp_train_backward": 0, "cylinder_query_multi": 0, "sa_feat_fused": 0,
                "multi_query": 0, "scatter_add_rows": 0, "scatter_plan": 0, "voxel_downsample": 0, "sa_group": 0,
-               "sa_bias_relu": 0, "attention": 0}
+               "sa_bias_relu": 0, "attention": 0, "count_in_boxes": 0}
 
 
 def tiny_cloud(seed: int, n: int = 512) -> np.ndarray:

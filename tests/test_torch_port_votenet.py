@@ -28,6 +28,8 @@ from graspnet_tpu_torch.config import GraspNetConfig, SAConfig, VoteNetConfig
 from graspnet_tpu_torch.models import init_weights
 from graspnet_tpu_torch.models.backbone import Backbone
 from graspnet_tpu_torch.models.votenet import VoteNet
+from graspnet_tpu_torch.ops.cuda import boxes as kboxes
+from graspnet_tpu_torch.ops.cuda import build
 from graspnet_tpu_torch.postproc import boxes
 from graspnet_tpu_torch.utils import tracing
 
@@ -231,7 +233,7 @@ def test_points_in_boxes_counts_the_faces(seed):
     pts = (rng.integers(0, 9, (2, 500, 3)) / 8).astype(np.float32)
     lo = (rng.integers(0, 9, (2, 40, 3)) / 8).astype(np.float32)
     hi = lo + (rng.integers(0, 5, (2, 40, 3)) / 8).astype(np.float32)
-    got = boxes.points_in_boxes(torch.from_numpy(pts), torch.from_numpy(lo), torch.from_numpy(hi))
+    got = kboxes.points_in_boxes(torch.from_numpy(pts), torch.from_numpy(lo), torch.from_numpy(hi))
     for b in range(2):
         want = vn.count_in_boxes(torch.from_numpy(pts[b]), torch.from_numpy(lo[b]), torch.from_numpy(hi[b]))
         assert torch.equal(got[b], want)
@@ -241,9 +243,40 @@ def test_points_in_boxes_chunks_give_the_whole(monkeypatch):
     pts = torch.rand((2, 300, 3))
     lo = torch.rand((2, 50, 3)) * 0.5
     hi = lo + 0.4
-    want = boxes.points_in_boxes(pts, lo, hi)
-    monkeypatch.setattr(boxes, "CHUNK_ELEMS", 2 * 300 * 7)  # 7 boxes a chunk, a ragged last one
-    assert torch.equal(boxes.points_in_boxes(pts, lo, hi), want)
+    want = kboxes.points_in_boxes(pts, lo, hi)
+    monkeypatch.setattr(kboxes, "CHUNK_ELEMS", 2 * 300 * 7)  # 7 boxes a chunk, a ragged last one
+    assert torch.equal(kboxes.points_in_boxes(pts, lo, hi), want)
+
+
+def test_points_in_boxes_treats_nan_as_outside():
+    """A NaN coordinate in a point, or a NaN bound of a box, fails its
+    comparison: the point is outside, as the reference counts it."""
+    pts = torch.tensor([[[0.5, 0.5, 0.5], [float("nan"), 0.5, 0.5], [0.5, 0.5, float("nan")], [0.2, 0.2, 0.2]]])
+    lo = torch.tensor([[[0.0, 0.0, 0.0], [0.0, float("nan"), 0.0], [0.0, 0.0, 0.0]]])
+    hi = torch.tensor([[[1.0, 1.0, 1.0], [1.0, 1.0, 1.0], [1.0, 1.0, float("nan")]]])
+    got = kboxes.points_in_boxes(pts, lo, hi)
+    assert got.dtype == torch.int64 and got.tolist() == [[2, 0, 0]]
+    assert torch.equal(got[0], vn.count_in_boxes(pts[0], lo[0], hi[0]))
+
+
+def test_count_in_boxes_takes_the_plain_route_on_the_cpu(monkeypatch):
+    """CPU tensors: the plain count, strided views read as they are, no
+    library loaded and no launch counted."""
+    monkeypatch.setattr(build, "load", lambda name: pytest.fail(f"loaded {name} on the CPU"))
+    clouds = torch.rand((2, 300, 4))
+    lo = torch.rand((2, 33, 3)) * 0.5
+    hi = lo + 0.4
+    before = kboxes.count_in_boxes.launches
+    got = kboxes.count_in_boxes(clouds[..., :3], lo, hi)
+    assert kboxes.count_in_boxes.launches == before
+    assert torch.equal(got, kboxes.points_in_boxes(clouds[..., :3].contiguous(), lo, hi))
+
+
+def test_box_count_library_is_built_at_its_first_use_only():
+    """`build_all`'s default list (the training CLI's, the robot's) leaves
+    the box count's library out; its source lies in the port."""
+    assert "boxes" not in build.SOURCES and "boxes" in build.LAZY
+    assert build._source("boxes").exists() and build._source("boxes").parent == build.CSRC
 
 
 def test_negative_sizes_make_the_same_box():
@@ -276,7 +309,7 @@ def test_dispatch_and_fetch_record_their_spans_and_counts():
     assert spans["detect.nms"].parent == spans["detect.fetch"].id
     assert spans["detect.nms"].counts["sweeps"] >= 1
     rows = np.stack([d.rows for d in dets])
-    assert spans["detect.boxes"].counts == {"proposals": 2 * cfg.num_proposal,
+    assert spans["detect.boxes"].counts == {"card": 0, "proposals": 2 * cfg.num_proposal,
                                             "nonempty": int((rows[..., boxes.NONEMPTY] > 0).sum()),
                                             "kept": int((rows[..., boxes.KEPT] > 0).sum())}
     assert set(timings) == {"detect.dispatch", "detect.boxes", "detect.fetch", "detect.nms", "detect"}
