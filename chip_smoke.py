@@ -152,7 +152,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
      dispatch at max_batch 1 and 8, per crop-routes forward and probe, per parallel_infer run,
      per one-rank NCCL step, per rank's step of the two-rank run, per
      rank's step of the 2 x 2 hybrid run, per MSG forward, per
-     verify_checkpoint run and per VoteNet batch), printed after phase 23, the nvidia-smi line,
+     verify_checkpoint run, per VoteNet batch, per Group-Free-3D batch and
+     per Point Transformer V3 batch), printed after phase 23, the nvidia-smi line,
      and last {"ok": true, "device": {...}}; the featured SA route's two
      kernels' rows come from phase 25;
  21. hybrid_train (after phase 16): hybrid data x candidate training on
@@ -194,6 +195,15 @@ Phases (each prints one JSON line; any failure exits non-zero):
      strided xyz of the 4-float rows: torch.equal to the plain count, its
      CUDA-event ms (the zeroed output and the launch) against the plain
      count's and its bound; the kernels line's row.
+ 28. ptv3 (after phase 27): Point Transformer V3's three kernels
+     (csrc/spconv.cu's map and convolution, csrc/attn.cu's width-16
+     variable-length entry) against their plain versions at the
+     segmentation cell's shapes (409,600 sites, stage 0's 400 patches and
+     a ragged tail), bitwise or within FEATURE_TOL, each timed against its
+     plain version and its bound; a ragged batch through
+     SegmentationPipeline, its launches (maps 6, convolutions 23,
+     attention 22), ms, memory peak and a profiled batch by kernel; the
+     three rows of the kernels line.
 
 Without CUDA it exits with code 2 before printing any result.  The
 deterministic-mode child runs this file with `--deterministic-steps FILE`;
@@ -285,6 +295,10 @@ VERIFY_TIMEOUT_S = 300  # verify_checkpoint: the script's child process on the c
 # another rounding moves by ~1e-7 keep their order); frame seeds 0 and 2
 # hold pairs 2.9e-7 and 1.9e-6 apart, near enough to swap two rows
 VERIFY_FRAME_SEED = 1
+# ptv3: the pipeline's ragged batch (the cell's room fragments cut to these
+# lengths, the first whole: 102,400 points) and the ragged tail after stage
+# 0's 400 patches in the attention check
+PTV3_LENGTHS, PTV3_TAIL = (102400, 80000, 55555, 41000), 700
 
 
 def log(**kv) -> None:
@@ -811,12 +825,14 @@ def main_path_phase(cfg, pipe, clouds):
     return launches, timing
 
 
-def profiled(name: str, fn, reps: int, unit: str, groups=None):
+def profiled(name: str, fn, reps: int, unit: str, groups=None, spans=()):
     """Device time per kernel over `reps` calls of fn(i) under
     torch.profiler; the device's busy share is the summed kernel time over
     the wall time of the window.  Logs the top kernels per call (`unit`) and,
     for each of `groups` ({label: kernel-name parts}), the time per call of
-    every kernel whose name holds one of the parts."""
+    every kernel whose name holds one of the parts.  Events whose names
+    start with one of `spans` (the program's spans, which the profiler
+    also lists on the device) are left out."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -830,7 +846,8 @@ def profiled(name: str, fn, reps: int, unit: str, groups=None):
     kernels = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", 0) or 0
-        if dev_us > 0 and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
+        if dev_us > 0 and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA \
+                and not ev.key.startswith(tuple(spans)):
             kernels.append((dev_us / reps / 1e3, ev.key[:60], ev.count // reps))
     kernels.sort(reverse=True)
     busy = sum(k[0] for k in kernels)
@@ -2149,6 +2166,164 @@ def box_count_phase() -> dict:
     return row
 
 
+def ptv3_phase():
+    """Phase 28 (logged as `ptv3_kmap`, `ptv3_subm_conv`, `ptv3_attention`,
+    `ptv3`, `ptv3_profile`): Point Transformer V3 (the published base
+    widths, `PTv3Config()`) on the card with the benchmark's seeded weights
+    (seed 0) and the segmentation cell's room fragments
+    (benchmark/inputs/rooms_seg.py, 4 of 102,400 points: 409,600 sites).
+    Its three kernels against their plain versions at the cell's shapes:
+    `kmap_kernel` at 3^3 and 5^3 on the 409,600 sites, torch.equal to
+    `kernel_map_plain` with the same hits, and every stage's 3^3 map of
+    the pipeline equal to the plain one; `subm_conv_kernel` at the stem's
+    6 -> 32 at 5^3 and the blocks' 64 -> 64 (stage 0), 256 -> 256 (stage
+    3) and 512 -> 512 (stage 4) at 3^3 on the pipeline's own maps, within
+    FEATURE_TOL x max(1, scale) of `subm_conv_plain` and bitwise the same
+    twice, where the plain version with the busiest offset dropped lies
+    more than 10 x that bound away; the width-16 `attention_varlen` over
+    stage 0's 400 patches of 1,024 and a ragged tail of PTV3_TAIL rows
+    (heads 4, the decoder's C 64) within FEATURE_TOL x max(1, scale) of
+    `attention_varlen_plain`.  CUDA-event ms of each against its plain
+    version and its bound: the map's cells read, its entries written and
+    a probe's key and value read from the table a (site, offset); the
+    convolution's 2 x hits x C_in x C_out at the f32 rate against the
+    gathered rows, the weights, the map and the output; the attention's
+    4 x sum L^2 x C at the f32 rate against q, k, v and the output.  Then
+    a batch of the fragments cut to PTV3_LENGTHS through
+    SegmentationPipeline: the launches counted from zero over that batch
+    alone (kernel_map 6, subm_conv 23, attention_varlen 22, nothing
+    else), its CUDA-event ms, the memory peak and a profiled batch by
+    kernel.  Returns the three rows of the kernels line and the batch's
+    launches."""
+    from benchmark.inputs.rooms_seg import fragment_pool
+    from benchmark.reference.ptv3 import Config, state_shapes
+    from benchmark.weights import make_weights
+    from graspnet_tpu_torch.apps.segment import Fragment, SegmentationPipeline
+    from graspnet_tpu_torch.config import PTv3Config
+    from graspnet_tpu_torch.ops import cuda as kernels
+    from graspnet_tpu_torch.ops.cuda import attn, spconv
+
+    t_phase = time.perf_counter()
+    cfg = PTv3Config()
+    weights = make_weights(state_shapes(Config.from_fields(vars(cfg))), 0, "cuda")
+    pool = fragment_pool(DATA_SEED + 28, 4, PTV3_LENGTHS[0])
+    full = [Fragment(*f) for f in pool]
+    ragged = [Fragment(c[:n], g[:n], f[:n]) for (c, g, f), n in zip(pool, PTV3_LENGTHS)]
+    pipe = SegmentationPipeline(cfg, params=weights)
+    handle = pipe.dispatch(full)  # builds both libraries
+    pipe.finish(handle)
+    stages = handle.stages
+    n0 = stages[0].n
+    grid, batch = stages[0].grid, stages[0].batch
+    rows = []
+
+    # the maps: exact at 3^3 and 5^3 on the 409,600 sites, and every stage's
+    maps = {}
+    for k in (3, 5):
+        got, hits = spconv.kernel_map(grid, batch, k)
+        want, want_hits = spconv.kernel_map_plain(grid, batch, k)
+        if not (torch.equal(got, want) and int(hits) == int(want_hits)):
+            raise AssertionError(f"ptv3: kmap_kernel at {k}^3 differs from kernel_map_plain")
+        k3 = k ** 3
+        t_bound, by = bound(n0 * 16 + n0 * k3 * (4 + 12))
+        maps[f"k{k}"] = dict(sites=n0, hits=int(want_hits), ms=cuda_ms(lambda: spconv.kernel_map(grid, batch, k), 20),
+                             plain_ms=cuda_ms(lambda: spconv.kernel_map_plain(grid, batch, k), 5),
+                             bound_ms=t_bound, bound_by=by)
+    for s, st in enumerate(stages):
+        if not torch.equal(st.kmap, spconv.kernel_map_plain(st.grid, st.batch, cfg.cpe_kernel)[0]):
+            raise AssertionError(f"ptv3: the pipeline's stage-{s} map differs from kernel_map_plain")
+    log(phase="ptv3_kmap", exact=True, stages=[st.n for st in stages], **maps)
+    m3 = maps["k3"]
+    rows.append(dict(name="kernel_map", route="cuda", source="graspnet_tpu_torch/csrc/spconv.cu",
+                     replaces="no TPU kernel: the JAX package has no sparse convolution (Point Transformer V3's "
+                              "neighbour maps, added with it)",
+                     max_abs_err=0.0,  # torch.equal to the plain map
+                     ms=m3["ms"], plain_ms=m3["plain_ms"], bound_ms=m3["bound_ms"], bound_by=m3["bound_by"],
+                     library_ms=None))
+
+    # the convolution: the stem and the CPEs at 64, 256 and 512 channels on the pipeline's maps
+    gen = torch.Generator(device="cuda").manual_seed(DATA_SEED + 28)
+    stem_map = handle.stem
+    convs = {}
+    for name, (c_in, c_out, kmap) in {"stem_6_32": (cfg.in_channels, cfg.enc_channels[0], stem_map),
+                                      "cpe_64": (64, 64, stages[0].kmap), "cpe_256": (256, 256, stages[3].kmap),
+                                      "cpe_512": (512, 512, stages[4].kmap)}.items():
+        k3 = kmap.shape[1]
+        x = torch.randn((kmap.shape[0], c_in), device="cuda", generator=gen)
+        kernel = torch.randn((k3 * c_in, c_out), device="cuda", generator=gen) * (2.0 / (k3 * c_in)) ** 0.5
+        bias = None if name.startswith("stem") else torch.randn(c_out, device="cuda", generator=gen)
+        got = spconv.subm_conv(x, kmap, kernel, bias)
+        if not torch.equal(got, spconv.subm_conv(x, kmap, kernel, bias)):
+            raise AssertionError(f"ptv3: subm_conv_kernel at {name} is not bitwise the same twice")
+        want = spconv.subm_conv_plain(x, kmap, kernel, bias)
+        err = feature_err(got, want)
+        busiest = int(torch.argmax((kmap >= 0).sum(dim=0) * (torch.arange(k3, device="cuda") != k3 // 2)))
+        dropped = kmap.clone()
+        dropped[:, busiest] = -1
+        dropped_err = (spconv.subm_conv_plain(x, dropped, kernel, bias) - want).abs().max().item()
+        scale = max(1.0, want.abs().max().item())
+        if dropped_err <= 10 * FEATURE_TOL * scale:
+            raise AssertionError(f"ptv3: a dropped offset at {name} moves the output by only {dropped_err}")
+        hits = int((kmap >= 0).sum())
+        n = kmap.shape[0]
+        t_bound, by = bound((hits * c_in + k3 * c_in * c_out + n * c_out + n * k3) * 4, 2 * hits * c_in * c_out)
+        convs[name] = dict(sites=n, hits=hits, max_abs_err=err, dropped_offset_err=dropped_err, scale=scale,
+                           ms=cuda_ms(lambda: spconv.subm_conv(x, kmap, kernel, bias), 20),
+                           plain_ms=cuda_ms(lambda: spconv.subm_conv_plain(x, kmap, kernel, bias), 5),
+                           bound_ms=t_bound, bound_by=by)
+        del x, kernel, bias, got, want, dropped
+    log(phase="ptv3_subm_conv", bitwise_repeat=True, **convs)
+    c64 = convs["cpe_64"]
+    rows.append(dict(name="subm_conv", route="cuda", source="graspnet_tpu_torch/csrc/spconv.cu",
+                     replaces="no TPU kernel: the JAX package has no sparse convolution (Point Transformer V3's "
+                              "stem and CPE, added with it)",
+                     max_abs_err=max(c["max_abs_err"] for c in convs.values()), ms=c64["ms"],
+                     plain_ms=c64["plain_ms"], bound_ms=c64["bound_ms"], bound_by=c64["bound_by"], library_ms=None))
+    del stages, handle, stem_map
+
+    # the width-16 attention over stage 0's patches and a ragged tail
+    heads, c = 4, 64
+    lengths = [1024] * (n0 // 1024) + [PTV3_TAIL]
+    starts = torch.tensor(np.concatenate([[0], np.cumsum(lengths)]), dtype=torch.int32, device="cuda")
+    qkv = torch.randn((int(sum(lengths)), 3 * c), device="cuda", generator=gen)
+    got = attn.attention_varlen(qkv, starts, heads, max(lengths))
+    err = feature_err(got, attn.attention_varlen_plain(qkv, starts, heads))
+    t_bound, by = bound(sum(lengths) * 4 * c * 4, 4 * c * sum(n * n for n in lengths))
+    att = dict(sequences=len(lengths), rows=int(sum(lengths)), heads=heads, max_abs_err=err,
+               ms=cuda_ms(lambda: attn.attention_varlen(qkv, starts, heads, max(lengths)), 20),
+               plain_ms=cuda_ms(lambda: attn.attention_varlen_plain(qkv, starts, heads), 3),
+               bound_ms=t_bound, bound_by=by)
+    log(phase="ptv3_attention", **att)
+    rows.append(dict(name="attention_varlen", route="cuda", source="graspnet_tpu_torch/csrc/attn.cu",
+                     replaces="no TPU kernel: the JAX package has no attention (Point Transformer V3's patch "
+                              "attention, heads of 16, added with it)",
+                     max_abs_err=err, ms=att["ms"], plain_ms=att["plain_ms"], bound_ms=t_bound, bound_by=by,
+                     library_ms=None))
+    del qkv, got
+
+    # a ragged batch through the pipeline, its launches counted from zero
+    pipe.segment(ragged)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    segs = pipe.segment(ragged)
+    launches = kernels.launches()
+    expected = {**{k: 0 for k in launches}, "kernel_map": 6, "subm_conv": 23, "attention_varlen": 22}
+    if launches != expected:
+        raise AssertionError(f"ptv3: launches {launches}, expected {expected}")
+    if [len(sg.labels) for sg in segs] != list(PTV3_LENGTHS) or not all(np.isfinite(sg.logits).all() for sg in segs):
+        raise AssertionError("ptv3: a fragment's logits are missing or not finite")
+    torch.cuda.reset_peak_memory_stats()
+    batch_ms = cuda_ms(lambda: pipe.segment(ragged), 5)
+    log(phase="ptv3", lengths=list(PTV3_LENGTHS), launches=launches, batch_ms=batch_ms,
+        memory_peak_bytes=int(torch.cuda.max_memory_allocated()), phase_s=time.perf_counter() - t_phase)
+    profiled("ptv3_profile", lambda i=0: pipe.segment(ragged), 3, "batch",
+             {"attention": ("attn_fwd_kernel",), "spconv": ("subm_conv_kernel", "kmap_kernel"),
+              "products": ("gemm", "sgemm", "xmma"), "layer_norm": ("layer_norm",)}, spans=("segment.",))
+    for r in rows:
+        log(phase="kernel", **r)
+    return rows, launches
+
+
 def service_reply_diff(card: dict, cpu: dict, atol: float = TOPK_ATOL) -> dict:
     """Card vs CPU replies of GraspService.compute(): `ok` equal; with
     grasps, the rows as compare_topk holds them and best_pose / tf_pose
@@ -2977,6 +3152,8 @@ def main() -> int:
         gf_row, groupfree_launches = groupfree_phase()
         rows.append(gf_row)
         rows.append(box_count_phase())
+        ptv3_rows, ptv3_launches = ptv3_phase()
+        rows += ptv3_rows
     from graspnet_tpu_torch.models import GraspNet, init_weights
 
     crop_mlp = init_weights(GraspNet(cfg), TRAIN_SEED).crop.mlp.to(dev)
@@ -3015,8 +3192,8 @@ def main() -> int:
     # two-layer crop MLP's forward and training probe, the three mesh
     # forwards of parallel_infer together, the one-rank NCCL step, one
     # rank's step of the two-rank run and of the 2 x 2 hybrid run, one MSG
-    # forward, one verify_checkpoint run, one VoteNet batch and one
-    # Group-Free-3D batch
+    # forward, one verify_checkpoint run, one VoteNet batch, one
+    # Group-Free-3D batch and one Point Transformer V3 batch
     columns = {"launches_per_forward": launches, "launches_per_train_step": train_launches,
                "launches_per_eval_batch": eval_launches,
                "launches_per_feature_forward": feature_launches,
@@ -3031,7 +3208,8 @@ def main() -> int:
                "launches_per_msg_forward": msg_launches,
                "launches_per_verify_run": verify_launches,
                "launches_per_detect_batch": detect_launches,
-               "launches_per_groupfree_batch": groupfree_launches}
+               "launches_per_groupfree_batch": groupfree_launches,
+               "launches_per_ptv3_batch": ptv3_launches}
     for r in rows:
         for col, counts in columns.items():
             r[col] = counts[r["name"]]

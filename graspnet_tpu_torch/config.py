@@ -4,8 +4,9 @@
 port imports nothing of the JAX package); `tests/test_torch_port_nn_geometry.py`
 pins the two equal so the hyperparameters cannot drift.  `VoteNetConfig`
 and `GroupFreeConfig` (no JAX counterparts) share its backbone fields, so
-`models/backbone.py` takes any of the three.  Tests use the scaled-down
-`tiny()` presets so the whole stack runs quickly on the CPU.
+`models/backbone.py` takes any of the three.  `PTv3Config` (Point
+Transformer V3, `models/ptv3.py`) shares none of them.  Tests use the
+scaled-down `tiny()` presets so the whole stack runs quickly on the CPU.
 """
 
 from __future__ import annotations
@@ -240,4 +241,60 @@ class GroupFreeConfig:
             num_class=3,
             num_size_cluster=3,
             mean_size=assumed_mean_sizes(count=3),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class PTv3Config:
+    """Point Transformer V3 (Wu et al., CVPR 2024) with the settings of
+    Pointcept's ScanNet semantic segmentation, base:
+    `configs/scannet/semseg-pt-v3m1-0-base.py` (`PointTransformerV3` v1m1,
+    its `DefaultSegmentorV2` head).  Every attention head is 16 wide; the
+    serialization orders are taken in the fixed order given (the published
+    `shuffle_orders` draws a permutation; see `models/ptv3.py`)."""
+
+    # ---- input: colour and normal a point, on a grid of `grid_size` m ----
+    in_channels: int = 6
+    num_classes: int = 20
+    grid_size: float = 0.02
+    order: Tuple[str, ...] = ("z", "z-trans", "hilbert", "hilbert-trans")  # pooled by stride 2 between stages
+
+    # ---- encoder (five stages) and decoder (four); a stage's encoder and decoder share its patch size ----
+    enc_depths: Tuple[int, ...] = (2, 2, 2, 6, 2)
+    enc_channels: Tuple[int, ...] = (32, 64, 128, 256, 512)
+    enc_num_head: Tuple[int, ...] = (2, 4, 8, 16, 32)
+    enc_patch_size: Tuple[int, ...] = (1024, 1024, 1024, 1024, 1024)
+    dec_depths: Tuple[int, ...] = (2, 2, 2, 2)
+    dec_channels: Tuple[int, ...] = (64, 64, 128, 256)
+    dec_num_head: Tuple[int, ...] = (4, 4, 8, 16)
+    dec_patch_size: Tuple[int, ...] = (1024, 1024, 1024, 1024)
+
+    # ---- blocks ----
+    mlp_ratio: int = 4
+    qkv_bias: bool = True
+    stem_kernel: int = 5  # the embedding's SubMConv
+    cpe_kernel: int = 3  # each block's conditional position encoding
+
+    # ---- numerics: BatchNorm1d(eps=1e-3) at the stem, pooling and unpooling; LayerNorm in the blocks ----
+    bn_eps: float = 1e-3
+    ln_eps: float = 1e-5
+
+    @property
+    def num_stages(self) -> int:
+        return len(self.enc_depths)
+
+    @staticmethod
+    def tiny() -> "PTv3Config":
+        """For fast CPU tests: head width 16, all five stages, pooling and
+        unpooling, four blocks at stage 3 (every order), patches of 48 (a
+        fragment's stage-0 points pad; its deep stages are one sequence)."""
+        return PTv3Config(
+            enc_depths=(1, 1, 2, 4, 1),
+            enc_channels=(16, 32, 32, 48, 64),
+            enc_num_head=(1, 2, 2, 3, 4),
+            enc_patch_size=(48,) * 5,
+            dec_depths=(1, 1, 1, 1),
+            dec_channels=(16, 16, 32, 48),
+            dec_num_head=(1, 1, 2, 3),
+            dec_patch_size=(48,) * 4,
         )

@@ -1,22 +1,32 @@
-// Fused float32 multi-head attention: out_h = softmax(q_h k_h^T / sqrt(36)) v_h
-// for each head h of 36 channels, the heads side by side in the channels.
+// Fused float32 multi-head attention: out_h = softmax(q_h k_h^T / sqrt(D)) v_h
+// for each head h of D channels, the heads side by side in the channels.
+// D is a compile-time parameter: 36 (Group-Free-3D) or 16 (Point
+// Transformer V3).
 //
-// No TPU kernel: the JAX package has no attention.  Group-Free-3D's decoder
-// (models/groupfree.py) calls it twice a layer: self-attention of the 512
-// queries (Lk 512) and cross-attention to the 1,024 seeds (Lk 1,024), 8
-// heads, batch 8.  The scores of one call are B x H x Lq x Lk floats (134 MB
-// at cross-attention); a scan of them and of the probabilities through
-// device memory would move ~0.5 GB a call for ~5 GFLOP.  Here they never
-// leave the registers.
+// No TPU kernel: the JAX package has no attention.  Two callers:
+//   * Group-Free-3D's decoder (models/groupfree.py), twice a layer:
+//     self-attention of the 512 queries (Lk 512) and cross-attention to the
+//     1,024 seeds (Lk 1,024), 8 heads of 36, batch 8: the dense entry
+//     (batch, L, heads x 36);
+//   * Point Transformer V3's serialized attention (models/ptv3.py), once a
+//     block, 22 blocks: self-attention within patches of 1,024 points along
+//     a space-filling curve (a fragment of fewer points is one sequence of
+//     its own length), 2-32 heads of 16: the variable-length entry, packed
+//     (T, 3 x heads x D) rows and int32 sequence starts, as
+//     flash_attn_varlen_qkvpacked_func takes them.
+// The scores of one call are B x H x Lq x Lk floats (134 MB at
+// Group-Free-3D's cross-attention, ~7 GB at PTv3's stage 0); a scan of them
+// and of the probabilities through device memory would move far more than
+// q, k and v.  Here they never leave the registers.
 //
-// What bounds it: 4 Lq Lk 36 operations a head (the scores and the
-// weighted sum, a multiply-add each), on the CUDA cores in float32: 4.8
-// GFLOP at cross-attention against 28 MB of q, k, v and out, so the
-// operations bound it (~72 us at 67 TFLOP/s against ~8 us of bytes).  The
-// design keeps the FMA pipe fed:
-//   * a block takes 32 queries of one (batch, head), a query a lane, its
-//     q row (pre-scaled by log2(e) / 6, so the softmax is exp2) and its
-//     36 outputs in registers;
+// What bounds it: 4 Lq Lk D operations a head (the scores and the weighted
+// sum, a multiply-add each), on the CUDA cores in float32: 4.8 GFLOP at
+// Group-Free-3D's cross-attention against 28 MB of q, k, v and out, and
+// ~0.55 TFLOP a PTv3 batch against ~2 GB, so the operations bound it (at
+// 67 TFLOP/s).  The design keeps the FMA pipe fed:
+//   * a block takes 32 queries of one (batch or sequence, head), a query a
+//     lane, its q row (pre-scaled by log2(e) / sqrt(D), so the softmax is
+//     exp2) and its D outputs in registers;
 //   * the keys are split over the block's 4 warps, tile by tile (32 keys
 //     a tile, every 4th tile a warp): each warp stages its tile's k and v
 //     rows in shared memory with 16-byte loads, coalesced, and every lane
@@ -24,13 +34,16 @@
 //     of each of the 32 queries;
 //   * each warp keeps its own online softmax (running max, sum, weighted
 //     sum), rescaled once a 16-key chunk; at the end the 4 warps' partial
-//     results meet in shared memory and each thread writes 9 of its
-//     query's 36 outputs.
+//     results meet in shared memory and each thread writes D / 4 of its
+//     query's D outputs.
 // Splitting the keys gives 4 x the warps a query-per-lane layout would
-// have (B H Lq / 32 blocks: 1,024 at the cell's shapes), so the loads of
-// one warp overlap the arithmetic of the others.  Any Lq >= 0 and Lk >= 1:
-// a ragged last tile masks its keys, a warp with no tile adds nothing, a
-// row past Lq computes on zeros and is not written.
+// have (B H Lq / 32 blocks: 1,024 at Group-Free-3D's shapes), so the loads
+// of one warp overlap the arithmetic of the others.  Any Lq >= 0 and Lk >=
+// 1: a ragged last tile masks its keys, a warp with no tile adds nothing, a
+// row past Lq computes on zeros and is not written.  The variable-length
+// entry launches ceil(max L / 32) query tiles a sequence; a tile past its
+// sequence's end returns at once.  The two entries share the arithmetic;
+// the card tests pin the width-36 results bitwise by their digests.
 
 #include <cmath>
 #include <cstdint>
@@ -38,45 +51,70 @@
 
 namespace {
 
-constexpr int kD = 36;                 // head width
-constexpr int kD4 = kD / 4;            // float4s a row of a head
 constexpr int kWarps = 4;              // warps a block; the keys are split over them
 constexpr int kTile = 32;              // keys a warp stages at once
 constexpr int kChunk = 16;             // keys between two rescales of the online softmax
-constexpr int kCols = kD / kWarps;     // output columns a thread writes at the end
 constexpr float kLog2e = 1.4426950408889634f;
 
-static_assert(kD % 4 == 0 && kD % kWarps == 0 && kTile % kChunk == 0, "tile shape");
-
+template <int kD>
 struct Tiles {                          // each warp's staged keys and values
-  float4 k[kWarps][kTile * kD4];
-  float4 v[kWarps][kTile * kD4];
+  float4 k[kWarps][kTile * (kD / 4)];
+  float4 v[kWarps][kTile * (kD / 4)];
 };
 
+template <int kD>
 struct Partials {                       // each warp's softmax state, lane-minor (no bank conflicts)
   float o[kWarps][kD][32];
   float m[kWarps][32];
   float l[kWarps][32];
 };
 
+template <int kD>
 union Shared {
-  Tiles t;
-  Partials p;
+  Tiles<kD> t;
+  Partials<kD> p;
 };
 
+// Dense (Varlen false): q (batch, lq, .), k, v (batch, lk, .), blockIdx.z
+// the batch, `starts` unused.  Varlen: q, k, v rows of one packed array,
+// sequence s the rows starts[s] .. starts[s + 1] - 1, blockIdx.x = s x
+// `seq_tiles` + the query tile; lq, lk and the batch strides unused.
+template <int kD, bool Varlen>
 __global__ void __launch_bounds__(kWarps * 32)
 attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                 float* __restrict__ out, int64_t q_sb, int64_t q_sl, int64_t k_sb, int64_t k_sl, int64_t v_sb,
-                int64_t v_sl, int lq, int lk, int heads, float qscale) {
-  __shared__ Shared sm;
+                int64_t v_sl, int lq, int lk, int heads, float qscale, const int* __restrict__ starts, int seq_tiles) {
+  constexpr int kD4 = kD / 4;          // float4s a row of a head
+  constexpr int kCols = kD / kWarps;   // output columns a thread writes at the end
+  static_assert(kD % 4 == 0 && kD % kWarps == 0 && kTile % kChunk == 0, "tile shape");
+  __shared__ Shared<kD> sm;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int row = blockIdx.x * 32 + lane;
+  const int h = blockIdx.y;
+  int tile = blockIdx.x;
+  int64_t orow0;  // the output row of the block's sequence's first query
+  if constexpr (Varlen) {
+    const int s = blockIdx.x / seq_tiles;
+    tile = blockIdx.x - s * seq_tiles;
+    const int start = starts[s];
+    lq = lk = starts[s + 1] - start;
+    if (tile * 32 >= lq) return;  // the whole block: past its sequence
+    q += (int64_t)start * q_sl;
+    k += (int64_t)start * k_sl;
+    v += (int64_t)start * v_sl;
+    orow0 = start;
+  } else {
+    const int b = blockIdx.z;
+    q += b * q_sb;
+    k += b * k_sb;
+    v += b * v_sb;
+    orow0 = (int64_t)b * lq;
+  }
+  const int row = tile * 32 + lane;
   const bool live = row < lq;
 
   float qr[kD];
   {
-    const float4* qp = reinterpret_cast<const float4*>(q + b * q_sb + (int64_t)(live ? row : 0) * q_sl + h * kD);
+    const float4* qp = reinterpret_cast<const float4*>(q + (int64_t)(live ? row : 0) * q_sl + h * kD);
 #pragma unroll
     for (int i = 0; i < kD4; ++i) {
       const float4 t = live ? qp[i] : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -91,8 +129,8 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const 
   for (int d = 0; d < kD; ++d) o[d] = 0.f;
   float m = -INFINITY, l = 0.f;
 
-  const float* kb = k + b * k_sb + h * kD;
-  const float* vb = v + b * v_sb + h * kD;
+  const float* kb = k + h * kD;
+  const float* vb = v + h * kD;
   float4* ks = sm.t.k[warp];
   float4* vs = sm.t.v[warp];
   const int tiles = (lk + kTile - 1) / kTile;
@@ -100,7 +138,7 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const 
     const int key0 = t * kTile;
     __syncwarp();  // the warp is done reading its previous tile
 #pragma unroll
-    for (int r = 0; r < kD4; ++r) {  // the tile's 32 x 9 float4s of k and of v, 9 a lane
+    for (int r = 0; r < kD4; ++r) {  // the tile's 32 x D/4 float4s of k and of v, D/4 a lane
       const int f = lane + 32 * r;
       const int j = f / kD4, c = f - j * kD4;
       float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
@@ -172,7 +210,7 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const 
   }
   if (!live) return;
   const float inv = 1.f / total;
-  float* op = out + ((int64_t)b * lq + row) * ((int64_t)heads * kD) + h * kD + warp * kCols;
+  float* op = out + (orow0 + row) * ((int64_t)heads * kD) + h * kD + warp * kCols;
 #pragma unroll
   for (int c = 0; c < kCols; ++c) {
     float acc = 0.f;
@@ -195,13 +233,36 @@ bool rows_ok(const float* p, int64_t sb, int64_t sl) { return aligned16(p) && sb
 extern "C" int gn_attention(const float* q, const float* k, const float* v, float* out, int64_t q_sb, int64_t q_sl,
                             int64_t k_sb, int64_t k_sl, int64_t v_sb, int64_t v_sl, int batch, int lq, int lk,
                             int heads, int head_dim, void* stream) {
-  if (head_dim != kD || batch < 0 || batch > 65535 || lq < 0 || lk < 1 || heads < 1 || heads > 65535)
+  if (head_dim != 36 || batch < 0 || batch > 65535 || lq < 0 || lk < 1 || heads < 1 || heads > 65535)
     return (int)cudaErrorInvalidValue;
   if (!rows_ok(q, q_sb, q_sl) || !rows_ok(k, k_sb, k_sl) || !rows_ok(v, v_sb, v_sl) || !aligned16(out))
     return (int)cudaErrorInvalidValue;
   if (batch == 0 || lq == 0) return (int)cudaSuccess;
   const dim3 grid((unsigned)((lq + 31) / 32), (unsigned)heads, (unsigned)batch);
-  attn_fwd_kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(q, k, v, out, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl,
-                                                                  lq, lk, heads, kLog2e / sqrtf((float)kD));
+  attn_fwd_kernel<36, false><<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
+      q, k, v, out, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, lq, lk, heads, kLog2e / sqrtf(36.f), nullptr, 0);
+  return (int)cudaGetLastError();
+}
+
+// out (T, heads x 16), contiguous <- self-attention within each sequence of
+// the packed rows qkv (T, .): row t's q, k and v of head h are the 16
+// floats at columns h x 16, C + h x 16 and 2C + h x 16 (C = heads x 16),
+// rows `row_stride` floats apart (a multiple of 4, the base 16-byte
+// aligned); sequence s is the rows starts[s] .. starts[s + 1] - 1
+// (`starts`: sequences + 1 int32 on the device, every sequence at least
+// one row and at most max_len).
+extern "C" int gn_attention_varlen(const float* qkv, const int* starts, float* out, int64_t row_stride,
+                                   int sequences, int max_len, int heads, int head_dim, void* stream) {
+  if (head_dim != 16 || sequences < 0 || max_len < 1 || heads < 1 || heads > 65535 ||
+      !rows_ok(qkv, 0, row_stride) || !aligned16(out))
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (max_len + 31) / 32;
+  if ((int64_t)sequences * tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
+  if (sequences == 0) return (int)cudaSuccess;
+  const int64_t c = (int64_t)heads * 16;
+  const dim3 grid((unsigned)(sequences * tiles), (unsigned)heads, 1);
+  attn_fwd_kernel<16, true><<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
+      qkv, qkv + c, qkv + 2 * c, out, 0, row_stride, 0, row_stride, 0, row_stride, 0, 0, heads,
+      kLog2e / sqrtf(16.f), starts, tiles);
   return (int)cudaGetLastError();
 }

@@ -35,10 +35,11 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 HOST = "host"  # csrc/host.cpp, built with g++
 # what `build_all` builds by default: the libraries of GraspNet's paths and
-# VoteNet's backbone; `attn` (Group-Free-3D's attention) and `boxes` (the
-# detectors' empty-box count) build at their first use only
+# VoteNet's backbone; `attn` (Group-Free-3D's and Point Transformer V3's
+# attention), `boxes` (the detectors' empty-box count) and `spconv` (Point
+# Transformer V3's sparse convolution) build at their first use only
 SOURCES = ("fps", "query", "crop", "mlp_train", "scatter", "voxel", "sa", HOST)
-LAZY = ("attn", "boxes")
+LAZY = ("attn", "boxes", "spconv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

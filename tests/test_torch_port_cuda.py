@@ -1560,3 +1560,165 @@ def test_detection_batch_counts_the_boxes_as_the_plain_count(dev, model, monkeyp
     for col in (boxes.POINTS, boxes.NONEMPTY):
         np.testing.assert_array_equal(got[..., col], want[..., col])
     assert 0 < want[..., boxes.NONEMPTY].sum() < want[..., boxes.NONEMPTY].size
+
+
+# ------------------------------------- Point Transformer V3: maps, conv, attention --
+
+def seg_batch(points, lengths, seed):
+    """The segmentation cell's room fragments, cut to `lengths`: (N, 3)
+    cells and (N,) fragments, int32, on the card."""
+    from benchmark.inputs.rooms_seg import fragment_pool
+
+    pool = fragment_pool(seed, len(lengths), points)
+    grid = np.concatenate([g[:n] for (_, g, _), n in zip(pool, lengths)])
+    batch = np.repeat(np.arange(len(lengths)), lengths)
+    return torch.from_numpy(grid).int(), torch.from_numpy(batch).int()
+
+
+@pytest.mark.parametrize("k", [3, 5])
+def test_kernel_map_matches_plain_exactly(dev, k):
+    """`kmap_kernel` at the cell's stage-0 shapes (4 fragments, 100,000
+    points) and a ragged small batch: the map equals the plain sort-and-
+    search element for element, and so do the hits; one counted launch."""
+    from graspnet_tpu_torch.ops.cuda import spconv
+
+    for points, lengths in ((102400, (102400, 100000, 60000, 1)), (3000, (3000, 17, 400))):
+        grid, batch = seg_batch(points, lengths, seed=2**31 + k)
+        before = spconv.kernel_map.launches
+        got, hits = spconv.kernel_map(grid.to(dev), batch.to(dev), k)
+        assert spconv.kernel_map.launches == before + 1
+        want, want_hits = spconv.kernel_map_plain(grid, batch, k)
+        assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+        assert int(hits) == int(want_hits)
+
+
+@pytest.mark.parametrize("c_in,c_out,k,n", [(6, 32, 5, 20000), (32, 32, 3, 20000), (64, 64, 3, 20000),
+                                           (256, 256, 3, 5000), (512, 512, 3, 1500), (20, 48, 3, 777),
+                                           (48, 4, 3, 65)])
+def test_subm_conv_matches_plain_and_repeats_bitwise(dev, c_in, c_out, k, n):
+    """`subm_conv_kernel` against `subm_conv_plain` within 1e-4 x max(1,
+    |y|) (float32 sums of up to 27 x 512 products in another order) at the
+    stem's 6 -> 32 at 5^3, the blocks' C -> C at 3^3 and widths the
+    vectorised path does not take; a second run is bitwise the first."""
+    from graspnet_tpu_torch.ops.cuda import spconv
+
+    grid, batch = seg_batch(max(n, 2), (n,), seed=2**31 + n)
+    kmap, _ = spconv.kernel_map_plain(grid, batch, k)
+    gen = torch.Generator().manual_seed(c_in * c_out)
+    x = torch.randn(n, c_in, generator=gen)
+    kernel = torch.randn(k ** 3 * c_in, c_out, generator=gen) * (2.0 / (k ** 3 * c_in)) ** 0.5
+    bias = torch.randn(c_out, generator=gen) if k == 3 else None
+    want = spconv.subm_conv_plain(x, kmap, kernel, bias)
+    args = (x.to(dev), kmap.to(dev), kernel.to(dev), None if bias is None else bias.to(dev))
+    before = spconv.subm_conv.launches
+    got = spconv.subm_conv(*args)
+    assert spconv.subm_conv.launches == before + 1
+    assert torch.equal(got, spconv.subm_conv(*args))
+    err = (got.cpu() - want).abs().max().item()
+    assert torch.isfinite(got).all() and err <= 1e-4 * max(1.0, want.abs().max().item()), err
+
+
+def test_sparse_kernels_reject_inputs_outside_their_domain(dev):
+    from graspnet_tpu_torch.ops.cuda import spconv
+
+    grid, batch = seg_batch(100, (100,), seed=1)
+    g, b = grid.to(dev), batch.to(dev)
+    for bad in ((g.long(), b, 3), (g, b.long(), 3), (g, b, 4), (g[:, :2], b, 3)):
+        with pytest.raises(ValueError, match="kernel_map takes"):
+            spconv.kernel_map(*bad)
+    kmap, _ = spconv.kernel_map(g, b, 3)
+    x, w = torch.ones(100, 8, device=dev), torch.ones(27 * 8, 8, device=dev)
+    for bad in ((x.double(), kmap, w.double()), (x, kmap.long(), w), (x, kmap, w[:, :6]), (x, kmap, w[:-8])):
+        with pytest.raises(ValueError, match="subm_conv takes"):
+            spconv.subm_conv(*bad)
+
+
+@pytest.mark.parametrize("lengths,heads,scale", [
+    ((1024,) * 8 + (1000, 77), 2, 1.0),   # full patches, a short fragment, a ragged one
+    ((1024,) * 3, 32, 1.0),              # the bottom stage's 32 heads
+    ((1, 33, 64, 5), 4, 8.0),            # one point; scores of hundreds
+])
+def test_attention_varlen_matches_plain(dev, lengths, heads, scale):
+    """The width-16 variable-length entry against `attention_plain` on each
+    sequence, within 1e-5 x max(1, scale) (or no further from float64 than
+    2 x the plain version where the scores run to hundreds); the rows are
+    a packed (T, 3C) projection; one counted launch."""
+    from graspnet_tpu_torch.ops.cuda import attn
+
+    gen = torch.Generator().manual_seed(sum(lengths) + heads)
+    c = heads * 16
+    qkv = torch.randn(sum(lengths), 3 * c, generator=gen) * scale
+    starts = torch.tensor(np.concatenate([[0], np.cumsum(lengths)]), dtype=torch.int32)
+    before = attn.attention_varlen.launches
+    got = attn.attention_varlen(qkv.to(dev), starts.to(dev), heads, max(lengths)).cpu()
+    assert attn.attention_varlen.launches == before + 1
+    want = attn.attention_varlen_plain(qkv.to(dev), starts, heads).cpu()
+    err = (got - want).abs().max().item()
+    if err > 1e-5 * max(1.0, want.abs().max().item()):
+        exact = attn.attention_varlen_plain(qkv.double(), starts, heads)
+        assert (got - exact).abs().max().item() <= 2 * (want - exact).abs().max().item(), err
+
+
+# sha256 of the width-36 kernel's output bytes at `attention_operands`' shapes and seeds, as the
+# kernel gave them before the head width became a template parameter (NVIDIA H100 80GB HBM3, sm_90a)
+WIDTH_36_DIGESTS = {
+    (8, 512, 512, 8, True): "937dfa60582f5836b1b2f1081b61b6c7ab75cad70306ada4d939f5a298bda80b",
+    (8, 512, 1024, 8, True): "ed0931ee79c6f4a3333dbda11c661e9045d8dbab2387b43b0e057455fa705290",
+    (2, 33, 17, 3, False): "444052e620d9fa5442bd735abae024da19470d8de6ba4f76cd283f5c1f4ae4f7",
+}
+
+
+@pytest.mark.parametrize("b,lq,lk,heads,packed", [(8, 512, 512, 8, True), (8, 512, 1024, 8, True),
+                                                  (2, 33, 17, 3, False)])
+def test_attention_width_36_is_bitwise_what_it_was(dev, b, lq, lk, heads, packed):
+    import hashlib
+
+    from graspnet_tpu_torch.ops.cuda import attn
+
+    q, k, v = attention_operands(dev, b, lq, lk, heads, seed=lq + lk, packed=packed)
+    got = hashlib.sha256(attn.attention(q, k, v, heads).cpu().numpy().tobytes()).hexdigest()
+    assert got == WIDTH_36_DIGESTS[(b, lq, lk, heads, packed)]
+
+
+def test_ptv3_pipeline_on_the_card_matches_the_reference(dev):
+    """Point Transformer V3 at the published base widths through
+    `SegmentationPipeline` on the card, four of the cell's fragments cut to
+    30,000, 20,000, 900 and 50 points, the benchmark's seeded weights: the
+    maps kernel 6 times (the stem's and five stages'), the convolution 23
+    times (the stem and 22 blocks), attention 22 times and no other
+    kernel; then held against the plain reference on the card by the
+    cell's own comparison and limits."""
+    from benchmark import harness
+    from benchmark.inputs.rooms_seg import fragment_pool
+    from benchmark.reference import judge
+    from benchmark.reference import ptv3 as ref
+    from benchmark.weights import make_weights
+    from graspnet_tpu_torch.apps.segment import Fragment, SegmentationPipeline
+    from graspnet_tpu_torch.config import PTv3Config
+    from graspnet_tpu_torch.models.ptv3 import PTv3
+
+    cfg = PTv3Config()
+    weights = make_weights({k: tuple(v.shape) for k, v in PTv3(cfg).state_dict().items()}, 0, dev)
+    lengths = (30000, 20000, 900, 50)
+    frags = [Fragment(c[:n], g[:n], f[:n]) for (c, g, f), n in zip(fragment_pool(2**31 + 9, 4, 30000), lengths)]
+    pipe = SegmentationPipeline(cfg, params=weights, device=dev)
+    kernels.reset_launches()
+    handle = pipe.dispatch(frags)
+    out = pipe.finish(handle)
+    launches = kernels.launches()
+    assert launches == {**{k: 0 for k in launches}, "kernel_map": 6, "subm_conv": 23, "attention_varlen": 22}
+    limits = harness.load_json("workloads", "infer.ptv3_scannet_b4")["limits"]
+    spec = harness.load_json("configs", "ptv3m1-scannet-semseg.infer")
+    model = ref.PTv3(ref.Config.from_fields(spec["model"]), weights, dev)
+    grid = torch.from_numpy(np.concatenate([f.grid_coord for f in frags])).long().to(dev)
+    batch = torch.repeat_interleave(torch.arange(4, device=dev), torch.tensor(lengths, device=dev))
+    feat = torch.from_numpy(np.concatenate([f.feat for f in frags])).to(dev)
+    with judge.precision("float32"):
+        want = model.forward(grid, batch, feat)
+    logits = torch.from_numpy(np.concatenate([s.logits for s in out])).to(dev)
+    labels = torch.from_numpy(np.concatenate([s.labels for s in out])).to(dev)
+    got = ref.compare(logits, labels, want["logits"], limits["logit_gap"])
+    got["order_diff"] = ref.order_diff(
+        {"stem": handle.stem, "stages": [{"order": s.order, "kmap": s.kmap, "cluster": s.cluster}
+                                         for s in handle.stages]}, want)
+    assert all(got[k] <= limits[k] for k in got), got

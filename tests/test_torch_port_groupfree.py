@@ -395,5 +395,5 @@ def test_the_configuration_file_is_the_published_config():
 def test_the_attention_library_is_built_at_its_first_use_only():
     """`build_all`'s default list (the training CLI's, the robot's) leaves
     the attention library out; its source lies in the port."""
-    assert "attn" not in build.SOURCES and build.LAZY == ("attn", "boxes")
+    assert "attn" not in build.SOURCES and build.LAZY == ("attn", "boxes", "spconv")
     assert build._source("attn").exists() and build._source("attn").parent == build.CSRC

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from graspnet_tpu_torch.ops import scatter, voxel
-from graspnet_tpu_torch.ops.cuda import attn, boxes, build, crop, fps, mlp_train, query, sa
+from graspnet_tpu_torch.ops.cuda import attn, boxes, build, crop, fps, mlp_train, query, sa, spconv
 
 
 class OnCard(torch.Tensor):
@@ -49,6 +49,7 @@ class FakeLib:
         def fn(*args):
             state["calls"].append((name, state["current"]))
             state["args"][name] = args
+            state["typed"][name] = fn.argtypes is not None and len(fn.argtypes) == len(args)
             if name.endswith("_smem"):
                 return 1 << 16
             if name == "gn_mlp_train_dims_ok":
@@ -65,7 +66,7 @@ class FakeLib:
 
 @pytest.fixture
 def state(monkeypatch):
-    state = {"calls": [], "args": {}, "current": None}
+    state = {"calls": [], "args": {}, "typed": {}, "current": None}
 
     @contextlib.contextmanager
     def on_device(device):
@@ -125,8 +126,14 @@ LAUNCHERS = {
     "attention": lambda x, c, r: attn.attention(
         card(np.zeros((1, 5, 72), np.float32)), card(np.zeros((1, 9, 72), np.float32)),
         card(np.zeros((1, 9, 72), np.float32)), 2),
+    "attention_varlen": lambda x, c, r: attn.attention_varlen(
+        card(np.zeros((9, 96), np.float32)), card(np.array([0, 4, 9], np.int32)), 2, 5),
     "count_in_boxes": lambda x, c, r: boxes.count_in_boxes(
         card(np.zeros((1, 32, 4), np.float32))[..., :3], c, c + 0.01),
+    "kernel_map": lambda x, c, r: spconv.kernel_map(card(np.zeros((32, 3), np.int32)), card(np.zeros(32, np.int32)), 3),
+    "subm_conv": lambda x, c, r: spconv.subm_conv(
+        card(np.zeros((32, 8), np.float32)), card(np.zeros((32, 27), np.int32)),
+        card(np.zeros((27 * 8, 16), np.float32)), card(np.zeros(16, np.float32))),
 }
 
 
@@ -139,6 +146,8 @@ def test_every_launch_is_inside_on_device(state, name):
     assert launches, "no C launcher was reached"
     for fn, dev in launches:
         assert dev == xyz.device, f"{fn} was called outside on_device (current device {dev})"
+        # an argument without a declared type goes over as a C int: a pointer after it is cut to 32 bits
+        assert state["typed"][fn], f"{fn}'s argtypes do not declare every argument it is called with"
 
 
 def test_the_launchers_cover_every_wrapper():
@@ -161,6 +170,48 @@ def test_attention_loads_its_library_at_the_call(state, monkeypatch):
     assert asked == []
     attn.attention(q, q, q, 1)
     assert asked == ["attn"] and [fn for fn, _ in state["calls"]] == ["gn_attention"]
+
+
+def test_attention_varlen_loads_its_library_at_the_call(state, monkeypatch):
+    """The variable-length entry asks for the attention library when it
+    launches, and only then, with the packed rows' stride and the
+    sequences; a head width other than 16 or starts of another dtype raise
+    before.  It counts in `attention_varlen.launches`."""
+    asked = []
+    lib = build.load("any")
+    monkeypatch.setattr(build, "load", lambda name: asked.append(name) or lib)
+    qkv, starts = card(np.zeros((100, 96), np.float32)), card(np.array([0, 48, 96, 100], np.int32))
+    for bad in ((card(np.zeros((100, 108), np.float32)), starts, 2), (qkv, card(np.array([0, 100])), 2),
+                (card(np.zeros((100, 96), np.float64)), starts, 2)):
+        with pytest.raises(ValueError, match="attention_varlen takes"):
+            attn.attention_varlen(*bad, 48)
+    assert asked == []
+    before = attn.attention_varlen.launches
+    attn.attention_varlen(qkv, starts, 2, 48)
+    assert asked == ["attn"] and [fn for fn, _ in state["calls"]] == ["gn_attention_varlen"]
+    assert state["args"]["gn_attention_varlen"][3:8] == (96, 3, 48, 2, 16)
+    assert attn.attention_varlen.launches == before + 1
+
+
+def test_sparse_kernels_load_their_library_at_the_call(state, monkeypatch):
+    """The map and the convolution ask for their own library (`spconv`)
+    when they launch, and only then; what they do not take raises before."""
+    asked = []
+    lib = build.load("any")
+    monkeypatch.setattr(build, "load", lambda name: asked.append(name) or lib)
+    grid, batch = card(np.zeros((40, 3), np.int32)), card(np.zeros(40, np.int32))
+    with pytest.raises(ValueError, match="kernel_map takes"):
+        spconv.kernel_map(grid, batch, 7)
+    x, kmap = card(np.zeros((40, 8), np.float32)), card(np.zeros((40, 27), np.int32))
+    with pytest.raises(ValueError, match="subm_conv takes"):
+        spconv.subm_conv(x, kmap, card(np.zeros((27 * 8, 6), np.float32)))
+    assert asked == []
+    spconv.kernel_map(grid, batch, 5)
+    spconv.subm_conv(x, kmap, card(np.zeros((27 * 8, 8), np.float32)))
+    assert asked == ["spconv", "spconv"]
+    assert [fn for fn, _ in state["calls"]] == ["gn_kernel_map", "gn_subm_conv"]
+    assert state["args"]["gn_kernel_map"][2:4] == (40, 5) and state["args"]["gn_kernel_map"][6] == 128
+    assert state["args"]["gn_subm_conv"][3] is None and state["args"]["gn_subm_conv"][5:9] == (40, 8, 8, 27)
 
 
 def test_box_count_loads_its_library_at_the_call(state, monkeypatch):

@@ -242,7 +242,8 @@ class TestThreeNN:
 NO_LAUNCHES = {"fps_chain": 0, "ball_query": 0, "sa1_fused": 0, "crop_fused": 0, "crop_group": 0,
                "crop_mlp_train": 0, "crop_mlp_train_backward": 0, "cylinder_query_multi": 0, "sa_feat_fused": 0,
                "multi_query": 0, "scatter_add_rows": 0, "scatter_plan": 0, "voxel_downsample": 0, "sa_group": 0,
-               "sa_bias_relu": 0, "attention": 0, "count_in_boxes": 0}
+               "sa_bias_relu": 0, "attention": 0, "count_in_boxes": 0, "kernel_map": 0, "subm_conv": 0,
+               "attention_varlen": 0}
 
 
 def tiny_cloud(seed: int, n: int = 512) -> np.ndarray:
@@ -425,6 +426,18 @@ def entry_detect_groupfree(tmp_path):
     return [(d.rows, (cfg.num_proposal, 12 + cfg.num_class)) for d in dets]
 
 
+def entry_segment_ptv3(tmp_path):
+    from graspnet_tpu_torch.apps.segment import SegmentationPipeline
+    from graspnet_tpu_torch.config import PTv3Config
+    from tests.test_torch_port_ptv3 import LENGTHS, fragments, seeded_state
+
+    cfg = PTv3Config.tiny()
+    segs = SegmentationPipeline(cfg, params=seeded_state(cfg, 2), device="cpu").segment(fragments())
+    assert len(segs) == len(LENGTHS)
+    return [(s.logits, (n, cfg.num_classes)) for s, n in zip(segs, LENGTHS)] + \
+        [(s.labels, (n,)) for s, n in zip(segs, LENGTHS)]
+
+
 def entry_msg(tmp_path):
     from graspnet_tpu_torch.models import init_weights
     from graspnet_tpu_torch.models.msg import LFPModuleMSG, SAModuleMSG
@@ -479,6 +492,7 @@ ENTRY_POINTS = {
     "test_app_dump_loop": entry_test_app,
     "detection_pipeline": entry_detect,
     "groupfree_detection_pipeline": entry_detect_groupfree,
+    "ptv3_segmentation_pipeline": entry_segment_ptv3,
     "msg_modules": entry_msg,
     "tolerance": entry_tolerance,
     "voxel_downsample": entry_voxel,
